@@ -1,0 +1,18 @@
+"""qwen2-7b [dense]  [arXiv:2407.10671]
+
+28L, d_model=3584, 28 heads (GQA kv=4), d_ff=18944, vocab=152064, QKV bias.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-7b",
+    family="dense",
+    num_layers=28,
+    d_model=3584,
+    num_heads=28,
+    num_kv_heads=4,
+    d_ff=18944,
+    vocab_size=152064,
+    qkv_bias=True,
+    source="arXiv:2407.10671 (Qwen2-7B)",
+)

@@ -1,0 +1,13 @@
+"""The four assigned input shapes.
+
+``decode_*`` shapes lower ``serve_step`` (one new token against a KV cache of
+``seq_len``); the others lower ``train_step`` / prefill.
+"""
+from repro_torch.configs.base import InputShape
+
+TRAIN_4K = InputShape("train_4k", seq_len=4096, global_batch=256, kind="train")
+PREFILL_32K = InputShape("prefill_32k", seq_len=32768, global_batch=32, kind="prefill")
+DECODE_32K = InputShape("decode_32k", seq_len=32768, global_batch=128, kind="decode")
+LONG_500K = InputShape("long_500k", seq_len=524288, global_batch=1, kind="decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}

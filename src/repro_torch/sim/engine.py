@@ -1,0 +1,829 @@
+"""Vectorized scenario engine: simulate markets × strategies × seeds, tick
+by tick, with every (scenario, seed) cell's state in (S, R) tensors on the
+device.
+
+Per tick: price draw → plan-table bucket latch → bid/preemption active mask
+→ runtime and cost accounting (`_market_tick`, vectorized over the whole
+(S, R) grid) → one call of the model program over the whole grid → clock,
+cost, idle time and trajectory updates. The tick loop is a Python loop
+that never reads a value back to the host; the one sync is at the end,
+when the trajectories become numpy arrays.
+
+Time model (§III-C): each tick queries the price prevailing at the current
+wall clock; if ≥1 worker is active an SGD iteration runs and the clock
+advances by the sampled runtime R(y), else the clock advances by
+``idle_step`` (idle time, no iteration). A scenario stops accumulating once
+it has completed its ``J`` iterations. Active workers pay the *price*, not
+the bid (§IV).
+
+Randomness is a counter-based hash (`_hash`), keyed by (seed value,
+absolute tick, stream, worker lane) — never by device or grid position — so
+runs repeat exactly and the CPU and the card draw the same bits. It is not
+the reference's threefry: against ``repro.sim.engine`` the market is held
+exactly only where it draws nothing (tick-indexed trace prices with a
+deterministic runtime), and statistically elsewhere.
+
+Ported so far: the blocked (megabatch) layout, ``ModelProgram(blocked=
+True)``, that ``train_batched(megabatch=True)`` runs. The vmapped
+``_sim_one`` layout, ``quadratic_program``, snapshots and
+``simulate_sharded`` raise ``NotImplementedError`` naming the slice
+they come with.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.strategies import NEVER_BID
+from repro_torch.device import resolve_device
+from repro_torch.sim.market_core import (BID_EPS, iteration_cost,  # noqa: F401
+                                         preemptible_active,
+                                         spot_active_mask)
+
+# Modes / price kinds (ints so they stack as data).
+SPOT, PREEMPTIBLE = 0, 1
+PRICE_UNIFORM, PRICE_TRUNC_GAUSS, PRICE_TRACE, PRICE_EMPIRICAL = 0, 1, 2, 3
+PRICE_TRACE_TICK = 4
+
+_LATER = {
+    "vmapped": "the vmapped/legacy slice (ElasticTrainer.run and the "
+               "models/ forward)",
+    "snapshots": "the snapshots/tick0-resume/checkpointing slice",
+    "quadratic": "the quadratic_program/evaluate_batch slice",
+    "mesh": "the mesh slice",
+}
+
+
+def not_ported(what: str, slice_key: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet: it comes with "
+        f"{_LATER[slice_key]}")
+
+
+# --------------------------------------------------------------------------
+# Scenario specification
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PriceSpec:
+    """Batchable price-distribution parameters (one scenario).
+
+    kind=PRICE_UNIFORM:      U[lo, hi].
+    kind=PRICE_TRUNC_GAUSS:  N(mu, sigma²) truncated to [lo, hi] (exact
+                             inverse-CDF via ndtri — no bisection).
+    kind=PRICE_TRACE:        *time-indexed* trace replay: the price at wall
+                             clock ``t`` is the trace entry whose timestamp
+                             is the last one ≤ ``t mod period``. Per-seed
+                             variation comes from a deterministic index
+                             offset (seed 0 replays verbatim).
+    kind=PRICE_TRACE_TICK:   legacy *tick-indexed* replay: one entry per
+                             engine tick regardless of the clock — matches
+                             ``TickPrices`` (call-counting).
+    kind=PRICE_EMPIRICAL:    i.i.d. draws from the empirical quantile of
+                             ``trace`` (must be sorted).
+    """
+
+    kind: int
+    lo: float
+    hi: float
+    mu: float = 0.0
+    sigma: float = 1.0
+    trace: Optional[np.ndarray] = None
+    times: Optional[np.ndarray] = None     # (L,) ascending, times[0] == 0
+    period: Optional[float] = None         # wrap length, > times[-1]
+
+    @classmethod
+    def uniform(cls, lo: float, hi: float) -> "PriceSpec":
+        return cls(kind=PRICE_UNIFORM, lo=lo, hi=hi)
+
+    @classmethod
+    def trunc_gaussian(cls, mu: float, sigma: float, lo: float,
+                       hi: float) -> "PriceSpec":
+        return cls(kind=PRICE_TRUNC_GAUSS, lo=lo, hi=hi, mu=mu, sigma=sigma)
+
+    @classmethod
+    def from_trace(cls, trace: np.ndarray, times: Optional[np.ndarray] = None,
+                   step: float = 1.0,
+                   period: Optional[float] = None) -> "PriceSpec":
+        """Time-indexed trace replay (the ``TracePrices`` analogue).
+        ``times`` default to ``step * arange(len(trace))`` and ``period``
+        to ``len(trace) * step``; validation is shared with every other
+        trace consumer via ``sim.traces.PriceTrace``."""
+        from repro_torch.sim.traces import PriceTrace
+        if isinstance(trace, PriceTrace):
+            pt = trace
+        else:
+            trace = np.asarray(trace, np.float32)
+            if times is None:
+                # default timestamps in f32 arithmetic, as the reference
+                # computes them
+                times = np.float32(step) * np.arange(len(trace),
+                                                     dtype=np.float32)
+                if period is None:
+                    period = float(step) * len(trace)
+            pt = PriceTrace.from_arrays(trace, times=np.asarray(times, float),
+                                        step=step, period=period)
+        trace = np.asarray(pt.values, np.float32)
+        return cls(kind=PRICE_TRACE, lo=float(trace.min()),
+                   hi=float(trace.max()), trace=trace,
+                   times=np.asarray(pt.times, np.float32),
+                   period=float(pt.period))
+
+    @classmethod
+    def from_trace_ticks(cls, trace: np.ndarray) -> "PriceSpec":
+        """Legacy tick-indexed replay: one entry per engine tick
+        (wrapping), regardless of the wall clock."""
+        trace = np.asarray(trace, np.float32)
+        return cls(kind=PRICE_TRACE_TICK, lo=float(trace.min()),
+                   hi=float(trace.max()), trace=trace)
+
+    @classmethod
+    def empirical(cls, samples: np.ndarray) -> "PriceSpec":
+        samples = np.sort(np.asarray(samples, np.float32))
+        return cls(kind=PRICE_EMPIRICAL, lo=float(samples[0]),
+                   hi=float(samples[-1]), trace=samples)
+
+    @classmethod
+    def from_dist(cls, dist) -> "PriceSpec":
+        """Map a core.cost_model.PriceDist onto a batchable spec."""
+        from repro_torch.core.cost_model import (EmpiricalPrice,
+                                                 TruncGaussianPrice,
+                                                 UniformPrice)
+        if isinstance(dist, UniformPrice):
+            return cls.uniform(dist.lo, dist.hi)
+        if isinstance(dist, TruncGaussianPrice):
+            return cls.trunc_gaussian(dist.mu, dist.sigma, dist.lo, dist.hi)
+        if isinstance(dist, EmpiricalPrice):
+            return cls.empirical(dist.samples)
+        raise TypeError(f"no batchable spec for {type(dist).__name__}")
+
+
+@dataclasses.dataclass
+class Scenario:
+    """One simulation scenario = market × strategy-plan × runtime model.
+
+    Exactly one of ``bid_schedule`` (mode=SPOT: per-iteration per-worker
+    bids, shape (J, n)), ``bid_table`` (mode=SPOT, adaptive: per-time-bucket
+    bid schedules, shape (B, J, n) — see ``bucket_starts``/``replan_at``) or
+    ``worker_schedule`` (mode=PREEMPTIBLE: provisioned worker counts, shape
+    (J,)) must be given. At the first tick of iteration ``replan_at`` the
+    engine latches the ``bucket_starts`` bucket containing the wall clock
+    and uses that table slice for the rest of the run.
+    """
+
+    price: PriceSpec
+    alpha: float                            # SGD step size
+    bid_schedule: Optional[np.ndarray] = None
+    worker_schedule: Optional[np.ndarray] = None
+    bid_table: Optional[np.ndarray] = None
+    bucket_starts: Optional[np.ndarray] = None
+    replan_at: Optional[int] = None
+    J_target: Optional[int] = None  # stop after this many iterations even
+    #                                 though the plan arrays are wider
+    n_fleet: Optional[int] = None  # preemptible: mask width override
+    preempt_q: float = 0.0
+    on_demand_price: float = 1.0
+    rt_kind: str = "exp"                    # "exp" | "det"
+    rt_lam: float = 1.0
+    rt_delta: float = 0.05
+    rt_const: float = 1.0
+    idle_step: float = 0.1
+    name: str = ""
+
+    def __post_init__(self):
+        given = sum(x is not None for x in
+                    (self.bid_schedule, self.bid_table,
+                     self.worker_schedule))
+        if given != 1:
+            raise ValueError("give exactly one of bid_schedule / bid_table "
+                             "/ worker_schedule")
+        if self.bid_schedule is not None:
+            self.bid_schedule = np.atleast_2d(
+                np.asarray(self.bid_schedule, np.float32))
+            # a plain schedule is a 1-bucket table
+            self.bid_table = self.bid_schedule[None]
+        if self.bid_table is not None:
+            self.bid_table = np.asarray(self.bid_table, np.float32)
+            if self.bid_table.ndim != 3:
+                raise ValueError(f"bid_table must be (B, J, n), got shape "
+                                 f"{self.bid_table.shape}")
+            if self.bucket_starts is None:
+                self.bucket_starts = np.zeros(self.bid_table.shape[0],
+                                              np.float32)
+            self.bucket_starts = np.asarray(self.bucket_starts, np.float32)
+            if len(self.bucket_starts) != self.bid_table.shape[0]:
+                raise ValueError(
+                    f"{len(self.bucket_starts)} bucket_starts for "
+                    f"{self.bid_table.shape[0]} table buckets")
+            if (self.bucket_starts[0] != 0.0
+                    or np.any(np.diff(self.bucket_starts) < 0)):
+                raise ValueError("bucket_starts must ascend from 0, got "
+                                 f"{self.bucket_starts}")
+            if self.bid_table.shape[0] > 1 and self.replan_at is None:
+                raise ValueError(
+                    "a multi-bucket bid_table needs replan_at (the "
+                    "iteration at which the engine latches the bucket) — "
+                    "without it only bucket 0 would ever be used")
+        if self.J_target is not None:
+            if not 1 <= int(self.J_target) <= self.plan_width:
+                raise ValueError(
+                    f"J_target={self.J_target} must lie in [1, "
+                    f"{self.plan_width}] (the plan width)")
+
+    @property
+    def mode(self) -> int:
+        return SPOT if self.bid_table is not None else PREEMPTIBLE
+
+    @property
+    def n_buckets(self) -> int:
+        return 1 if self.bid_table is None else int(self.bid_table.shape[0])
+
+    @property
+    def plan_width(self) -> int:
+        """Rows in the plan arrays (≥ J when J_target overrides)."""
+        if self.bid_table is not None:
+            return int(self.bid_table.shape[1])
+        return int(np.shape(self.worker_schedule)[0])
+
+    @property
+    def J(self) -> int:
+        if self.J_target is not None:
+            return int(self.J_target)
+        return self.plan_width
+
+    @property
+    def n_workers(self) -> int:
+        if self.bid_table is not None:
+            return int(self.bid_table.shape[2])
+        return max(int(np.max(self.worker_schedule)), self.n_fleet or 0)
+
+    @classmethod
+    def from_runtime(cls, rt, **kw) -> "Scenario":
+        """Fill the runtime fields from a core.cost_model.RuntimeModel."""
+        return cls(rt_kind=rt.kind, rt_lam=rt.lam, rt_delta=rt.delta,
+                   rt_const=rt.r_const, **kw)
+
+
+class ScenarioBatch(NamedTuple):
+    """Stacked scenarios (leading axis S), one tensor per field."""
+
+    bid_table: torch.Tensor        # (S, B_max, J_max, N) f32, NEVER_BID-pad
+    bucket_starts: torch.Tensor    # (S, B_max) f32, +inf-padded
+    replan_at: torch.Tensor        # (S,) i32 (J_max+1 => never latch)
+    worker_schedule: torch.Tensor  # (S, J_max) i32
+    mode: torch.Tensor             # (S,) i32
+    price_kind: torch.Tensor       # (S,) i32
+    price_lo: torch.Tensor         # (S,) f32
+    price_hi: torch.Tensor
+    price_mu: torch.Tensor
+    price_sigma: torch.Tensor
+    trace: torch.Tensor            # (S, L_tr) f32 (zeros when unused)
+    trace_len: torch.Tensor        # (S,) i32
+    trace_times: torch.Tensor      # (S, L_tr) f32 timestamps, +inf-padded
+    trace_period: torch.Tensor     # (S,) f32 wrap length (1 when unused)
+    preempt_q: torch.Tensor        # (S,) f32
+    on_demand_price: torch.Tensor
+    rt_kind: torch.Tensor          # (S,) i32: 0 exp, 1 det
+    rt_lam: torch.Tensor
+    rt_delta: torch.Tensor
+    rt_const: torch.Tensor
+    alpha: torch.Tensor
+    J: torch.Tensor                # (S,) i32 target iterations
+    idle_step: torch.Tensor
+
+    @property
+    def n_scenarios(self) -> int:
+        return self.mode.shape[0]
+
+    @property
+    def n_buckets(self) -> int:
+        return self.bid_table.shape[1]
+
+    @property
+    def j_max(self) -> int:
+        return self.bid_table.shape[2]
+
+    @property
+    def n_max(self) -> int:
+        return self.bid_table.shape[3]
+
+    def to(self, device) -> "ScenarioBatch":
+        return ScenarioBatch(*(x.to(device) for x in self))
+
+
+def stack_scenarios(scenarios: Sequence[Scenario], *,
+                    device=None) -> ScenarioBatch:
+    """Pad and stack heterogeneous scenarios into one ScenarioBatch on
+    ``device`` (default ``cuda``).
+
+    Bid tables are padded to (B_max, J_max, N_max): extra workers get
+    NEVER_BID, iterations past a scenario's own J repeat its last row and
+    buckets past its own B repeat its last bucket (neither is ever selected
+    — the engine stops at J, and padded bucket starts are +inf — the repeat
+    just keeps gathers in-bounds).
+    """
+    device = resolve_device(device)
+    S = len(scenarios)
+    b_max = max(s.n_buckets for s in scenarios)
+    j_max = max(s.plan_width for s in scenarios)
+    n_max = max(s.n_workers for s in scenarios)
+    l_tr = max([len(s.price.trace) for s in scenarios
+                if s.price.trace is not None] or [1])
+
+    bid = np.full((S, b_max, j_max, n_max), NEVER_BID, np.float32)
+    starts = np.full((S, b_max), np.inf, np.float32)
+    starts[:, 0] = 0.0
+    replan = np.full(S, j_max + 1, np.int32)
+    wrk = np.zeros((S, j_max), np.int32)
+    trc = np.zeros((S, l_tr), np.float32)
+    tln = np.ones(S, np.int32)
+    # timestamps: +inf past a scenario's own trace so a right-bisect of any
+    # finite clock value lands inside the real entries; row 0 stays 0 so the
+    # lookup index is never negative
+    tms = np.full((S, l_tr), np.inf, np.float32)
+    tms[:, 0] = 0.0
+    period = np.ones(S, np.float32)
+    cols: Dict[str, np.ndarray] = {
+        k: np.zeros(S, np.float32) for k in
+        ["price_lo", "price_hi", "price_mu", "price_sigma", "preempt_q",
+         "on_demand_price", "rt_lam", "rt_delta", "rt_const", "alpha",
+         "idle_step"]}
+    mode = np.zeros(S, np.int32)
+    pk = np.zeros(S, np.int32)
+    rtk = np.zeros(S, np.int32)
+    J = np.zeros(S, np.int32)
+
+    for i, s in enumerate(scenarios):
+        J[i] = s.J
+        mode[i] = s.mode
+        pk[i] = s.price.kind
+        rtk[i] = 0 if s.rt_kind == "exp" else 1
+        if s.bid_table is not None:
+            b = s.bid_table                       # (B, J, n)
+            bid[i, :b.shape[0], :b.shape[1], :b.shape[2]] = b
+            bid[i, :b.shape[0], b.shape[1]:, :b.shape[2]] = b[:, -1:]
+            bid[i, b.shape[0]:] = bid[i, b.shape[0] - 1]
+            starts[i, :len(s.bucket_starts)] = s.bucket_starts
+            if s.replan_at is not None:
+                replan[i] = s.replan_at
+        else:
+            w = np.asarray(s.worker_schedule, np.int32)
+            wrk[i, :len(w)] = w
+            wrk[i, len(w):] = w[-1]
+        if s.price.trace is not None:
+            tr = np.asarray(s.price.trace, np.float32)
+            reps = int(np.ceil(l_tr / len(tr)))
+            trc[i] = np.tile(tr, reps)[:l_tr]
+            tln[i] = len(tr)
+        if s.price.kind == PRICE_TRACE:
+            if s.price.times is None or s.price.period is None:
+                raise ValueError(
+                    f"scenario {i} ({s.name!r}): a PRICE_TRACE spec needs "
+                    "timestamps and a period — build it with "
+                    "PriceSpec.from_trace (or use from_trace_ticks for "
+                    "tick-indexed replay)")
+            tms[i, :len(s.price.times)] = s.price.times
+            period[i] = s.price.period
+        for k, v in [("price_lo", s.price.lo), ("price_hi", s.price.hi),
+                     ("price_mu", s.price.mu),
+                     ("price_sigma", s.price.sigma),
+                     ("preempt_q", s.preempt_q),
+                     ("on_demand_price", s.on_demand_price),
+                     ("rt_lam", s.rt_lam), ("rt_delta", s.rt_delta),
+                     ("rt_const", s.rt_const), ("alpha", s.alpha),
+                     ("idle_step", s.idle_step)]:
+            cols[k][i] = v
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    return ScenarioBatch(
+        bid_table=dev(bid), bucket_starts=dev(starts),
+        replan_at=dev(replan), worker_schedule=dev(wrk), mode=dev(mode),
+        price_kind=dev(pk), trace=dev(trc), trace_len=dev(tln),
+        trace_times=dev(tms), trace_period=dev(period), rt_kind=dev(rtk),
+        J=dev(J), **{k: dev(v) for k, v in cols.items()})
+
+
+# --------------------------------------------------------------------------
+# The engine
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SimConfig:
+    """Engine configuration. The quadratic program's ``batch``/``grad``
+    fields come with the quadratic_program slice."""
+
+    n_ticks: int                 # market ticks to run (≥ J + idle budget)
+    snapshot_every: int = 0      # emit the full carry every k ticks (0=off;
+    #                              raises until snapshots are ported)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ModelProgram:
+    """Pluggable model under the engine's tick loop.
+
+    ``blocked=True`` (the only layout ported so far): ``step_fn`` is called
+    ONCE per tick over the whole grid with leading (S, R) axes on every
+    argument::
+
+        step_fn(model, data, key, mask, j, alpha, running)
+            model: dict of tensors (S, R, ...);  key: (S, R) int64 hash
+            mask: (S, R, n_max) f32;  j/alpha/running: (S, R)
+            -> (new_model, metric (S, R) f32)
+
+    A blocked step gates its own update on ``running`` (the fused update
+    does it element for element) and may update ``model`` in place.
+    ``data`` is an arbitrary object shared by all cells (stacked batches).
+    """
+
+    step_fn: Callable[..., Any]
+    name: str = "program"
+    blocked: bool = False
+
+
+class SimState(NamedTuple):
+    """(S, R) carry of the tick loop."""
+
+    t: torch.Tensor              # wall clock f32
+    j: torch.Tensor              # iterations completed (int64)
+    bucket: torch.Tensor         # latched plan-table bucket (int64, -1=unset)
+    total_cost: torch.Tensor     # f32
+    total_idle: torch.Tensor     # f32
+    model: Any                   # dict of tensors under ModelProgram.step_fn
+    err_traj: torch.Tensor       # (S, R, J_max) program metric after iter j
+    cost_traj: torch.Tensor      # (S, R, J_max) cumulative cost
+    time_traj: torch.Tensor      # (S, R, J_max) wall clock
+    y_traj: torch.Tensor         # (S, R, J_max) active workers
+
+
+def initial_state(scenarios: "ScenarioBatch | Sequence[Scenario]", model0,
+                  n_seeds: int, *, device=None) -> SimState:
+    """The (S, R) initial carry on ``device`` (default ``cuda``): every
+    (scenario, seed) replica starts from ``model0`` (a dict of tensors,
+    copied into contiguous (S, R, ...) buffers) at t=0 with empty
+    trajectories."""
+    device = resolve_device(device)
+    if not isinstance(scenarios, ScenarioBatch):
+        scenarios = stack_scenarios(scenarios, device=device)
+    grid = (scenarios.n_scenarios, int(n_seeds))
+    j_max = scenarios.j_max
+    model = {k: x.to(device).expand(grid + tuple(x.shape)).clone()
+             for k, x in model0.items()}
+
+    def nan_traj():
+        return torch.full(grid + (j_max,), float("nan"), dtype=torch.float32,
+                          device=device)
+
+    def zeros(dtype):
+        return torch.zeros(grid, dtype=dtype, device=device)
+
+    return SimState(
+        t=zeros(torch.float32), j=zeros(torch.int64),
+        bucket=torch.full(grid, -1, dtype=torch.int64, device=device),
+        total_cost=zeros(torch.float32), total_idle=zeros(torch.float32),
+        model=model, err_traj=nan_traj(), cost_traj=nan_traj(),
+        time_traj=nan_traj(), y_traj=nan_traj())
+
+
+@dataclasses.dataclass
+class EngineResult:
+    """Stacked trajectories, shape (S, R, J_max); invalid entries are NaN
+    (iterations a scenario never ran within the tick budget)."""
+
+    errors: np.ndarray
+    costs: np.ndarray
+    times: np.ndarray
+    ys: np.ndarray
+    iterations: np.ndarray       # (S, R) completed iterations
+    total_time: np.ndarray       # (S, R) final wall clock (incl. idle)
+    total_cost: np.ndarray       # (S, R)
+    total_idle: np.ndarray       # (S, R)
+    J: np.ndarray                # (S,) per-scenario targets
+    final_model: Any = None      # device tensors, leaves stacked (S, R, ...)
+
+    @property
+    def losses(self) -> np.ndarray:
+        """Alias: for real-model programs the metric trajectory is the
+        per-iteration batch loss, not a suboptimality gap."""
+        return self.errors
+
+    @property
+    def completed(self) -> np.ndarray:
+        """(S, R) bool: scenario finished all J iterations within n_ticks."""
+        return self.iterations >= self.J[:, None]
+
+    def summary(self) -> Dict[str, np.ndarray]:
+        import warnings
+
+        ys = np.where(np.isnan(self.ys), np.nan, np.maximum(self.ys, 1.0))
+        with warnings.catch_warnings(), np.errstate(invalid="ignore"):
+            warnings.simplefilter("ignore", RuntimeWarning)
+            return {
+                "iterations": self.iterations,
+                "time": self.total_time,
+                "cost": self.total_cost,
+                "idle": self.total_idle,
+                "mean_active": np.nanmean(self.ys, axis=-1),
+                "mean_inv_y": np.nanmean(1.0 / ys, axis=-1),
+            }
+
+
+# ----------------------------------------------------------------- RNG
+
+_M32 = 0xFFFFFFFF
+STREAM_PRICE, STREAM_DUR, STREAM_GRAD, STREAM_UP = 0, 1, 2, 3
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x · c) mod 2³² for x in [0, 2³²) held in int64, without ever
+    leaving int64's range (c is split into 16-bit halves)."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finalizer: a bijection that avalanches."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _hash(*words) -> torch.Tensor:
+    """32-bit hash (in int64) of broadcastable int64 words: the engine's
+    counter-based generator. The same words give the same bits on every
+    device."""
+    h = None
+    for i, w in enumerate(words):
+        w = torch.as_tensor(w, dtype=torch.int64)
+        x = _fmix32((w + 0x9E3779B9 * (i + 1)) & _M32)
+        h = x if h is None else _fmix32(h ^ x)
+    return h
+
+
+def _uniform(h: torch.Tensor) -> torch.Tensor:
+    """float32 uniform on [0, 1) from the top 24 bits of a hash."""
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+# --------------------------------------------------------------- ticks
+
+
+class TickMarket(NamedTuple):
+    """The grid's market outcome for one tick, (S, R) leading axes."""
+
+    mask: torch.Tensor           # (S, R, n_max) bool active-worker mask
+    y: torch.Tensor              # Σ mask (f32)
+    running: torch.Tensor        # bool: the iteration actually runs
+    idling: torch.Tensor         # bool: alive but all-preempted
+    bucket: torch.Tensor         # updated plan-table bucket
+    cost_inc: torch.Tensor       # cost of this tick (0 unless running)
+    idle_inc: torch.Tensor       # idle-time increment (0 unless idling)
+    dt: torch.Tensor             # wall-clock advance
+    k_grad: torch.Tensor         # the model step's random word
+
+
+def _col(x: torch.Tensor) -> torch.Tensor:
+    """(S,) per-scenario field -> (S, 1) to broadcast over seeds."""
+    return x[:, None]
+
+
+def _draw_price(sc: ScenarioBatch, u, k: int, seeds, t) -> torch.Tensor:
+    """The (S, R) price prevailing at tick ``k`` / wall clock ``t``; every
+    kind is computed and each scenario's is picked (all are cheap)."""
+    lo, hi = _col(sc.price_lo), _col(sc.price_hi)
+    mu, sigma = _col(sc.price_mu), _col(sc.price_sigma)
+    n_tr = _col(sc.trace_len).to(torch.int64)
+    p_unif = lo + u * (hi - lo)
+    lo_z = torch.special.ndtr((lo - mu) / sigma)
+    hi_z = torch.special.ndtr((hi - mu) / sigma)
+    p_gauss = torch.minimum(torch.maximum(
+        mu + sigma * torch.special.ndtri(lo_z + u * (hi_z - lo_z)), lo), hi)
+    # per-seed trace variation = deterministic index offset; seed 0
+    # replays the trace verbatim
+    roll = seeds[None, :] * 1013
+    # time-indexed replay: the entry whose timestamp is the last one ≤ the
+    # wrapped wall clock (fmod is exact, as the reference's jnp.mod is)
+    t_eff = torch.fmod(t, _col(sc.trace_period))
+    idx_t = torch.searchsorted(sc.trace_times, t_eff.contiguous(),
+                               right=True) - 1
+    idx_t = torch.minimum(torch.clamp(idx_t, min=0), n_tr - 1)
+    p_time = sc.trace.gather(1, (idx_t + roll) % n_tr)
+    p_tick = sc.trace.gather(1, ((k + roll) % n_tr).expand_as(idx_t))
+    # empirical quantile: samples[int(u·len)] on the sorted trace
+    idx_e = torch.minimum((u * n_tr.to(torch.float32)).to(torch.int64),
+                          n_tr - 1)
+    p_emp = sc.trace.gather(1, idx_e.expand_as(idx_t))
+    kind = _col(sc.price_kind)
+    return torch.where(
+        kind == PRICE_EMPIRICAL, p_emp,
+        torch.where(kind == PRICE_TRACE, p_time,
+                    torch.where(kind == PRICE_TRACE_TICK, p_tick,
+                                torch.where(kind == PRICE_TRUNC_GAUSS,
+                                            p_gauss, p_unif))))
+
+
+def _market_tick(sc: ScenarioBatch, seeds, t, j, bucket0,
+                 k: int) -> TickMarket:
+    """Market/accounting logic for the whole (S, R) grid at absolute tick
+    ``k``: price draw, plan-table bucket latch, bid/preemption mask,
+    runtime and cost. ``seeds`` (R,) int64 seed values; t/j/bucket0
+    (S, R). Cells that share a seed share its random words, as in the
+    reference, where each cell's key folds in only its seed."""
+    s_dim, r_dim = t.shape
+    j_max, n_max = sc.bid_table.shape[2], sc.bid_table.shape[3]
+    dev = t.device
+    lane = torch.arange(n_max, device=dev)
+    sd = seeds[:, None]
+    u_price = _uniform(_hash(seeds, k, STREAM_PRICE, 0))[None, :]
+    u_dur = _uniform(_hash(sd, k, STREAM_DUR, lane))[None]     # (1,R,N)
+    u_up = _uniform(_hash(sd, k, STREAM_UP, lane))[None]
+    k_grad = _hash(seeds, k, STREAM_GRAD, 0)[None, :].expand(s_dim, r_dim)
+    price = _draw_price(sc, u_price, k, seeds, t)
+
+    # plan-table bucket: latched from the wall clock at the first tick of
+    # iteration `replan_at`, 0 (the t=0 plan) before that
+    cur_bucket = (t[..., None] >= sc.bucket_starts[:, None, :]).sum(-1) - 1
+    bucket = torch.where((bucket0 < 0) & (j >= _col(sc.replan_at)),
+                         cur_bucket, bucket0)
+    row = torch.clamp(j, max=j_max - 1)
+    si = torch.arange(s_dim, device=dev)[:, None]
+    bids = sc.bid_table[si, torch.clamp(bucket, min=0), row]  # (S,R,N)
+    mask_spot = spot_active_mask(bids, price[..., None])
+    prov = sc.worker_schedule[si, row]
+    mask_pre = (lane < prov[..., None]) & preemptible_active(
+        u_up, sc.preempt_q[:, None, None])
+    mask = torch.where(sc.mode[:, None, None] == PREEMPTIBLE, mask_pre,
+                       mask_spot)
+    y = mask.to(torch.float32).sum(-1)
+
+    done = j >= _col(sc.J)
+    running = (y >= 1.0) & ~done
+    idling = ~running & ~done
+
+    # runtime R(y): max of the active workers' exp(λ) draws + Δ, or R
+    draws = -torch.log1p(-u_dur) / sc.rt_lam[:, None, None]
+    dur_exp = torch.where(mask, draws, 0.0).amax(-1) + _col(sc.rt_delta)
+    dur = torch.where(_col(sc.rt_kind) == 1, _col(sc.rt_const), dur_exp)
+    price_paid = torch.where(_col(sc.mode) == PREEMPTIBLE,
+                             _col(sc.on_demand_price), price)
+    zero = torch.zeros_like(y)
+    cost_inc = torch.where(running, iteration_cost(y, price_paid, dur), zero)
+    idle_inc = torch.where(idling, _col(sc.idle_step).expand_as(y), zero)
+    dt = torch.where(running, dur, idle_inc)
+    return TickMarket(mask=mask, y=y, running=running, idling=idling,
+                      bucket=bucket, cost_inc=cost_inc, idle_inc=idle_inc,
+                      dt=dt, k_grad=k_grad)
+
+
+def _put(traj: torch.Tensor, idx: torch.Tensor, running: torch.Tensor,
+         val: torch.Tensor) -> None:
+    """traj[s, r, idx[s, r]] = val where running (in place)."""
+    cur = traj.gather(2, idx[..., None])[..., 0]
+    traj.scatter_(2, idx[..., None],
+                  torch.where(running, val, cur)[..., None])
+
+
+def _sim_blocked(batch: ScenarioBatch, state: SimState, data, seeds,
+                 program: ModelProgram, n_ticks: int) -> SimState:
+    """The megabatched tick loop: per tick the market logic runs over the
+    whole (S, R) grid and the blocked ``step_fn`` trains every replica in
+    one call over (S, R)-leading leaves. Nothing is read back to the host
+    inside the loop."""
+    s_dim, r_dim = state.t.shape
+    j_max = batch.j_max
+    alpha2 = _col(batch.alpha).expand(s_dim, r_dim)
+    for k in range(n_ticks):
+        m = _market_tick(batch, seeds, state.t, state.j, state.bucket, k)
+        model, metric = program.step_fn(
+            state.model, data, m.k_grad, m.mask.to(torch.float32), state.j,
+            alpha2, m.running)
+        metric = metric.to(torch.float32)
+
+        t_new = state.t + m.dt
+        cost_new = state.total_cost + m.cost_inc
+        idx = torch.clamp(state.j, max=j_max - 1)
+        _put(state.err_traj, idx, m.running, metric)
+        _put(state.cost_traj, idx, m.running, cost_new)
+        _put(state.time_traj, idx, m.running, t_new)
+        _put(state.y_traj, idx, m.running, m.y)
+        state = state._replace(
+            t=t_new, j=state.j + m.running.to(torch.int64), bucket=m.bucket,
+            total_cost=cost_new, total_idle=state.total_idle + m.idle_inc,
+            model=model)
+    return state
+
+
+def simulate_program(scenarios, program: ModelProgram, model0, data, seeds,
+                     cfg: SimConfig, *, init_state: Optional[SimState] = None,
+                     device=None) -> EngineResult:
+    """Run S scenarios × R seeds of a blocked ModelProgram on ``device``
+    (default ``cuda``).
+
+    model0: initial model (dict of tensors), shared by every (scenario,
+    seed) replica (``initial_state`` fans it out; ignored when
+    ``init_state``, a fresh carry already on the device, is given); data:
+    passed to every step (stacked batches); seeds: int count or explicit
+    sequence. Returns stacked (S, R, J_max) trajectories plus the
+    per-replica final model (tensors (S, R, ...) on the device)."""
+    if not program.blocked:
+        raise not_ported("the vmapped per-cell layout (_sim_one)",
+                         "vmapped")
+    if cfg.snapshot_every:
+        raise not_ported("snapshot_every", "snapshots")
+    device = resolve_device(device)
+    if isinstance(scenarios, ScenarioBatch):
+        scenarios = scenarios.to(device)
+    else:
+        scenarios = stack_scenarios(scenarios, device=device)
+    if np.isscalar(seeds):
+        seeds = np.arange(int(seeds))
+    seeds = torch.as_tensor(np.asarray(seeds, np.int64), device=device)
+    if init_state is None:
+        init_state = initial_state(scenarios, model0, len(seeds),
+                                   device=device)
+    final = _sim_blocked(scenarios, init_state, data, seeds, program,
+                         cfg.n_ticks)
+    return _engine_result(final, scenarios)
+
+
+def _engine_result(final: SimState, scenarios: ScenarioBatch
+                   ) -> EngineResult:
+    def host(x):
+        return x.cpu().numpy()
+
+    return EngineResult(
+        errors=host(final.err_traj), costs=host(final.cost_traj),
+        times=host(final.time_traj), ys=host(final.y_traj),
+        iterations=host(final.j).astype(np.int32),
+        total_time=host(final.t), total_cost=host(final.total_cost),
+        total_idle=host(final.total_idle),
+        J=host(scenarios.J), final_model=final.model)
+
+
+def quadratic_program(grad: str, batch: int) -> ModelProgram:
+    raise not_ported("quadratic_program", "quadratic")
+
+
+def simulate(scenarios, quad, w0, seeds, cfg: SimConfig) -> EngineResult:
+    raise not_ported("simulate (the quadratic oracle engine)", "quadratic")
+
+
+def simulate_sharded(*args, **kwargs) -> EngineResult:
+    raise not_ported("simulate_sharded", "mesh")
+
+
+def snapshot_state(result: EngineResult, index: int = -1):
+    raise not_ported("snapshot_state", "snapshots")
+
+
+# --------------------------------------------------------------------------
+# Strategy → Scenario builders
+# --------------------------------------------------------------------------
+
+
+def scenario_from_strategy(strategy, *, alpha: float, rt,
+                           dist=None, q: Optional[float] = None,
+                           on_demand_price: float = 1.0,
+                           n_max: Optional[int] = None,
+                           idle_step: Optional[float] = None,
+                           J: Optional[int] = None,
+                           price_spec: Optional[PriceSpec] = None,
+                           name: str = "") -> Scenario:
+    """Compile a core.strategies.Strategy into a batchable Scenario.
+
+    Spot strategies (``bids``) become a precomputed plan table against the
+    price distribution ``dist`` (or an explicit ``price_spec``) —
+    time-adaptive strategies resolve to one bid schedule per coarse
+    elapsed-time bucket, latched by the engine at replan time; provisioning
+    strategies (``workers``) become a worker schedule under exogenous
+    preemption probability ``q``.
+    """
+    J = J or strategy.total_iterations
+    name = name or getattr(strategy, "name", "")
+    if q is None:
+        table = strategy.plan_table(J, n_max=n_max)
+        if idle_step is None:
+            idle_step = rt.expected(max(table.bids.shape[2], 1))
+        return Scenario.from_runtime(
+            rt, price=price_spec or PriceSpec.from_dist(dist), alpha=alpha,
+            bid_table=table.bids, bucket_starts=table.starts,
+            replan_at=table.replan_at, idle_step=idle_step, name=name)
+    wsched = strategy.worker_schedule(J)
+    if n_max is not None:
+        # match the legacy loop: provisioning never exceeds the fleet, and
+        # the active mask is padded to the full fleet width
+        wsched = np.minimum(wsched, n_max)
+    return Scenario.from_runtime(
+        rt, price=PriceSpec.uniform(0.0, 1.0), alpha=alpha,
+        worker_schedule=wsched, preempt_q=q, n_fleet=n_max,
+        on_demand_price=on_demand_price,
+        idle_step=idle_step if idle_step is not None else rt.expected(1),
+        name=name)
