@@ -6,19 +6,33 @@
 Phases, each printing one JSON line and raising on failure:
 
 1. the card's name and power limit (``nvidia-smi``), then the build of
-   every kernel of the main path from ``src/repro_torch/csrc`` (nvcc,
-   sm_90a);
-2. each kernel against its plain PyTorch version on the card, bit for bit,
-   on edge-case rows at a ragged width;
-3. the main path through the launcher's own entry points: elastic
+   every kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a, one process
+   per source, all at once) with each kernel's ``ptxas`` report;
+2. each kernel against its plain PyTorch version on the card: K1 bit for
+   bit on edge-case rows at a ragged width; K2 forward and backward on
+   edge shapes (GQA g = 7, head_dim 64 and 128, float32 and bf16, ragged
+   S and T, windows, a query offset) within stated tolerances;
+3. slice 1's path through the launcher's own entry points: elastic
    megabatch training of full-width Qwen2-7B at depth 2 in float32, a
-   grid of one strategy × 2 seeds (R = 2), the fused update through the
-   kernel. Checks that every loss is finite, that the first loss lies near
-   ln V, and that the kernel ran once per tick; reports time per tick,
-   tokens per second, a steady-state step time and peak memory;
-4. the kernel at the main path's own shape: bit-exact against its plain
-   version, its time beside its bound, the plain version's time and a
-   device-to-device copy rate.
+   grid of one strategy × 2 seeds (R = 2), the fused update through K1.
+   Checks that every loss is finite, that the first loss lies near ln V,
+   and that K1 ran once per tick; reports time per tick, tokens per
+   second, a steady-state step time and peak memory; then K1 at that
+   path's own shape: bit-exact against its plain version, its time beside
+   its bound, the plain version's time and a device-to-device copy rate;
+4. slice 2's path: ``trainer.train_zoo`` of full-width Qwen2-7B at depth
+   2 in bf16 mixed precision with ``use_flash_attention`` (K2), the same
+   strategy, market and 2 seeds, 8 workers, batch 8, sequence 1024. Checks
+   finite losses, first losses near ln V and K2's launches (one forward
+   and one of each backward kernel per layer, cell and tick); reports time
+   per tick, a steady step over both cells, tokens per second and peak
+   memory; one zoo step on the initial weights with K2 against the same
+   step through the plain attention core (the loss and each attention
+   weight's gradient); then K2 at that path's shape
+   (B 8, H 28, Hkv 4, S = T = 1023, D 128, bf16, causal): each kernel's
+   time beside its bound, the plain version's time and
+   ``scaled_dot_product_attention``'s (timed here only; the port never
+   calls it).
 
 Then the ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout,
@@ -27,6 +41,8 @@ the reference package.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -42,16 +58,70 @@ MAIN_ARGV = ["--config", "qwen2_7b", "--reduce-depth", "2",
              "--fused-update", "--seeds", "2", "--iterations", "3",
              "--device", "cuda"]
 
-#: peak rates by card (NVIDIA data sheets; dense, no sparsity): HBM bytes/s
-#: and float32 FLOP/s outside the tensor cores
-PEAKS = [("H200", 4.8e12, 67e12, "H200 SXM"),
-         ("NVL", 3.9e12, 60e12, "H100 NVL"),
-         ("PCIe", 2.0e12, 51e12, "H100 PCIe"),
-         ("H100", 3.35e12, 67e12, "H100 SXM")]
+ZOO_ARGV = ["--config", "qwen2_7b", "--reduce-depth", "2",
+            "--param-dtype", "bfloat16", "--workers", "8", "--batch", "8",
+            "--seq", "1024", "--seeds", "2", "--iterations", "3",
+            "--device", "cuda"]
 
+#: peak rates by card (NVIDIA data sheets; dense, no sparsity): HBM bytes/s,
+#: float32 FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s
+PEAKS = [("H200", 4.8e12, 67e12, 989e12, "H200 SXM"),
+         ("NVL", 3.9e12, 60e12, 835e12, "H100 NVL"),
+         ("PCIe", 2.0e12, 51e12, 756e12, "H100 PCIe"),
+         ("H100", 3.35e12, 67e12, 989e12, "H100 SXM")]
+
+K2_SOURCE = ("src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:88")
 KERNEL_SOURCES = {"elastic_sgd_update": (
     "src/repro_torch/csrc/elastic_update.cu",
-    "src/repro/kernels/elastic_update.py:56")}
+    "src/repro/kernels/elastic_update.py:56"),
+    "flash_attention_fwd": K2_SOURCE,
+    "flash_attention_bwd_dkdv": K2_SOURCE,
+    "flash_attention_bwd_dq": K2_SOURCE}
+K2_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
+              "flash_attention_bwd_dq")
+
+#: K2 against its plain version, per row (the head dimension): the largest
+#: |kernel - plain| in a row over the larger of that row's largest |plain|
+#: and the whole tensor's RMS, the worst row counting (the floor keeps rows
+#: whose true value cancels to zero, such as dQ of a query with one key,
+#: from dividing rounding noise by nothing). float32 sums in other orders;
+#: bf16 computes in float32 as the plain version does and rounds each
+#: output to 8 bits of mantissa, so the two differ by an ulp where their
+#: float32 values straddle a rounding boundary: at most 2^-7 = 7.8e-3 of
+#: the row's largest entry, so 1e-2 allows one ulp and not two. dQ has one
+#: more source: the kernel forms D = rowsum(dO * O) from the bf16 output,
+#: the plain version from float32, and in a row whose softmax sits on few
+#: keys dS = P (dP - D) nearly cancels, so that D's rounding is large
+#: beside the row's dQ. The inputs are seeded, so the errors repeat from
+#: run to run; on an H100 the worst were, float32 over the shapes below:
+#: 3.1e-6 (out), 1.3e-5 (dq), 6.2e-6 (dk, dv); bf16 over those and the
+#: path's shape: 7.4e-3 (out), 9.2e-2 (dq), 7.8e-3 (dk, dv).
+K2_TOL = {"float32": {"out": 1e-5, "dq": 5e-5, "dk": 2e-5, "dv": 2e-5},
+          "bfloat16": {"out": 1e-2, "dq": 0.1, "dk": 1e-2, "dv": 1e-2}}
+K2_GRADS = ("out", "dq", "dk", "dv")
+
+#: K2 on edge shapes: (B, S, T, H, Hkv, D, causal, window, q_offset)
+K2_EDGE_SHAPES = [
+    (2, 100, 100, 14, 2, 128, True, None, 0),
+    (1, 77, 200, 7, 1, 64, True, None, 123),
+    (2, 130, 130, 4, 4, 64, True, 32, 0),
+    (1, 70, 199, 7, 1, 128, True, 48, 129),
+    (1, 64, 190, 4, 2, 128, False, None, 0),
+    (1, 150, 150, 7, 1, 64, False, 50, 0),
+    (1, 1023, 1023, 28, 4, 128, True, None, 0),
+]
+#: the shape the zoo path gives K2
+K2_PATH_SHAPE = (8, 1023, 1023, 28, 4, 128, True, None, 0)
+
+#: one zoo step on the initial bf16 weights with K2 against the plain
+#: attention core: the loss relative to itself, and each attention weight's
+#: gradient in relative L2. The two round the attention output and its
+#: gradients to bf16 (2^-8 = 0.39 % a rounding) where their float32 values
+#: differ, and the bf16 layers after them carry that on. Measured on an
+#: H100: loss 1.1e-5, gradients 1.2e-3 (bv) to 4.5e-3 (bk).
+K2_IN_PLACE_TOL = {"loss_rel": 3e-5, "grads_rel_l2": 1e-2}
+ATTN_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 
 
 def emit(obj) -> None:
@@ -59,10 +129,11 @@ def emit(obj) -> None:
 
 
 def card_peaks(name: str):
-    for key, hbm, f32, label in PEAKS:
+    """(HBM bytes/s, float32 FLOP/s, bf16 FLOP/s, label) of the card."""
+    for key, hbm, f32, bf16, label in PEAKS:
         if key in name:
-            return hbm, f32, label
-    return PEAKS[-1][1], PEAKS[-1][2], "H100 SXM (card not recognised)"
+            return hbm, f32, bf16, label
+    return PEAKS[-1][1:4] + ("H100 SXM (card not recognised)",)
 
 
 def timed(fn, n: int, torch):
@@ -167,10 +238,11 @@ def phase_main_path(torch):
     if not all(abs(x - math.log(vocab)) < 3.0 for x in first):
         raise AssertionError(f"first losses {first} not near ln V = "
                              f"{math.log(vocab):.3f}")
-    if launches != {name: n_ticks for name in launches}:
+    if launches != {name: n_ticks if name == "elastic_sgd_update" else 0
+                    for name in launches}:
         raise AssertionError(f"kernel launches {launches} in {n_ticks} "
-                             "ticks: each kernel of the path runs once a "
-                             "tick")
+                             "ticks: K1 runs once a tick on this path and "
+                             "no other kernel runs")
     tokens_per_step = job.shape.global_batch * (job.shape.seq_len - 1)
     trained = int(ran.sum()) * tokens_per_step
     emit({"phase": "main_path", "command": "python -m "
@@ -264,7 +336,7 @@ def phase_kernel_at_main_shape(torch, res, smi, launches):
     del dst, g
 
     name = torch.cuda.get_device_name(0)
-    hbm, f32, label = card_peaks(name)
+    hbm, f32, _, label = card_peaks(name)
     nbytes = 20 * r * n          # read p, v, g; write p, v (float32)
     flops = 5 * r * n            # μ·v, g·inv, +, lr·v', −
     bound_ms = 1e3 * max(nbytes / hbm, flops / f32)
@@ -285,6 +357,333 @@ def phase_kernel_at_main_shape(torch, res, smi, launches):
             "library_ms": None}
 
 
+# ------------------------------------------------------------------ K2
+
+
+def row_err(a, b) -> float:
+    """The worst row's max |a - b| over the larger of its max |b| and b's
+    RMS; rows lie along the last axis."""
+    a, b = a.float(), b.float()
+    num = (a - b).abs().amax(-1)
+    den = b.abs().amax(-1).clamp_min(b.pow(2).mean().sqrt().item())
+    return (num / den.clamp_min(1e-30)).max().item()
+
+
+def abs_err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def k2_inputs(torch, shape, dtype, seed=0):
+    """q, k, v and an output gradient in the model layout (B, S, H, D)."""
+    b, s, t, h, hkv, d = shape[:6]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+    return [torch.randn(*dims, generator=g, device=dev).to(dtype) for dims in
+            ((b, s, h, d), (b, t, hkv, d), (b, t, hkv, d), (b, s, h, d))]
+
+
+def k2_both(torch, q, k, v, do, mask):
+    """(kernel, plain) results: each is (out, dq, dk, dv)."""
+    from repro_torch.kernels import ops, ref
+
+    def run(attend):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = attend(*leaves)
+        return (out.detach(),) + torch.autograd.grad(out, leaves, do)
+
+    kern = run(lambda a, b, c: ops.flash_mha(a, b, c, **mask))
+    plain = run(lambda a, b, c: ref.mha_reference(
+        *(x.transpose(1, 2) for x in (a, b, c)), **mask).transpose(1, 2))
+    torch.cuda.synchronize()
+    return kern, plain
+
+
+def k2_check(errs, dtype: str, where) -> list:
+    """The names in ``errs`` (out, dq, dk, dv -> per-row error) beyond
+    their tolerance, each with its place."""
+    return [(where, dtype, n, e) for n, e in errs.items()
+            if not e <= K2_TOL[dtype][n]]
+
+
+def phase_k2_small(torch):
+    worst, bad = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[-1]
+        worst[key] = dict.fromkeys(K2_GRADS, 0.0)
+        for shape in K2_EDGE_SHAPES:
+            causal, window, q_offset = shape[6:]
+            mask = dict(causal=causal, window=window, q_offset=q_offset)
+            kern, plain = k2_both(torch, *k2_inputs(torch, shape, dtype),
+                                  mask)
+            errs = {n: row_err(a, b) for n, a, b in zip(K2_GRADS, kern,
+                                                         plain)}
+            bad += k2_check(errs, key, shape)
+            for n, e in errs.items():
+                worst[key][n] = max(worst[key][n], e)
+    emit({"phase": "k2_vs_plain_small", "shapes": K2_EDGE_SHAPES,
+          "tolerance_per_row": K2_TOL, "worst_row_err": worst})
+    if bad:
+        raise AssertionError(f"K2 differs from its plain version (shape, "
+                             f"dtype, tensor, per-row error): {bad}")
+
+
+def zoo_job_and_scenario():
+    """The zoo job (bf16, K2 on) and its scenario, built by the
+    launcher's own helpers from ``ZOO_ARGV``."""
+    from repro_torch.launch import train as launch
+
+    args = launch.build_parser().parse_args(ZOO_ARGV)
+    trainer = launch.build_trainer(args)
+    job = dataclasses.replace(trainer.job, model=trainer.job.model.with_(
+        use_flash_attention=True))
+    scenario = trainer._scenario(trainer.strategy, args.iterations,
+                                 args.strategy)
+    return job, scenario, args
+
+
+def phase_zoo_path(torch):
+    from repro_torch.kernels import ops
+    from repro_torch.train.trainer import default_n_ticks, train_zoo
+
+    job, scenario, args = zoo_job_and_scenario()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_zoo(job, [scenario], seeds=args.seeds, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    n_ticks = default_n_ticks(int(res.J.max()))
+    ran = res.iterations
+    cells = int(ran.size)
+    losses = [res.errors[s, k, :ran[s, k]] for s in range(ran.shape[0])
+              for k in range(ran.shape[1])]
+    flat = [x for row in losses for x in row]
+    if not flat or not all(math.isfinite(x) for x in flat):
+        raise AssertionError(f"zoo: non-finite or no losses: {losses}")
+    vocab = job.model.vocab_size
+    first = [float(row[0]) for row in losses if len(row)]
+    if not all(abs(x - math.log(vocab)) < 3.0 for x in first):
+        raise AssertionError(f"zoo: first losses {first} not near ln V = "
+                             f"{math.log(vocab):.3f}")
+    # every cell's step runs on every tick (idle ones are gated away)
+    per_kernel = job.model.num_layers * cells * n_ticks
+    want = {n: per_kernel if n in K2_KERNELS else 0 for n in launches}
+    if launches != want:
+        raise AssertionError(f"zoo: kernel launches {launches}, designed "
+                             f"{want} ({job.model.num_layers} layers × "
+                             f"{cells} cells × {n_ticks} ticks)")
+    tokens_per_step = job.shape.global_batch * (job.shape.seq_len - 1)
+    trained = int(ran.sum()) * tokens_per_step
+    emit({"phase": "zoo_path", "entry": "trainer.train_zoo",
+          "argv": ZOO_ARGV, "use_flash_attention": True,
+          "param_dtype": job.model.param_dtype, "cells": cells,
+          "n_ticks": n_ticks, "iterations": ran.tolist(),
+          "losses": [list(map(float, x)) for x in losses],
+          "ln_V": math.log(vocab), "launches": launches, "run_s": run_s,
+          "ms_per_tick_e2e": 1e3 * run_s / n_ticks,
+          "trained_tokens_per_s_e2e": trained / run_s,
+          "peak_mem_bytes": peak})
+    return res, job, launches
+
+
+def phase_zoo_steady(torch, res, job):
+    """One tick's worth of steps over the run's final carry: every cell
+    stepped and gated in, all running."""
+    from repro_torch.sim import engine
+    from repro_torch.train.trainer import stack_batches
+    from repro_torch.train.zoo_program import make_zoo_program
+    from repro_torch.tree import tree_index
+
+    n_batches = int(res.J.max())
+    prog = make_zoo_program(job.model, job, n_batches)
+    data = stack_batches(job, n_batches, device="cuda")
+    dev = torch.device("cuda")
+    s_dim, r_dim = res.iterations.shape
+    mask = torch.ones(job.n_workers, device=dev)
+    j = torch.zeros((), dtype=torch.int64, device=dev)
+    alpha = torch.full((), job.learning_rate, device=dev)
+    running = torch.ones((), dtype=torch.bool, device=dev)
+
+    def tick():
+        for s in range(s_dim):
+            for r in range(r_dim):
+                cell = tree_index(res.final_model, (s, r))
+                stepped, _ = prog.step_fn(cell, data, None, mask, j, alpha)
+                engine._gate_model(running, stepped, cell)
+                del stepped      # as the engine does: one new tree at a time
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = timed(tick, 2, torch)
+    cells = s_dim * r_dim
+    tokens = cells * job.shape.global_batch * (job.shape.seq_len - 1)
+    emit({"phase": "zoo_steady_step", "cells": cells,
+          "ms_per_tick": ms, "ms_per_cell_step": ms / cells,
+          "tokens_per_s": tokens / (ms / 1e3),
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    return ms
+
+
+def phase_k2_in_place(torch, job):
+    """One zoo step's loss and gradients on the run's initial bf16 weights
+    and its first batch, attention through K2 and through the plain core
+    `_attend`; each attention weight's gradient compared on its own."""
+    from repro_torch.train.trainer import stack_batches
+    from repro_torch.train.train_step import make_loss_grad
+    from repro_torch.train.zoo_program import init_zoo_state
+
+    params = init_zoo_state(job.model, job, job.seed, device="cuda")["params"]
+    free(torch)
+    data = stack_batches(job, 1, device="cuda")
+    batch = {k: x[0] for k, x in data.items()}
+    mask = torch.ones(job.n_workers, device="cuda")
+    on, loss_on, _ = make_loss_grad(job.model, job)(params, batch, mask)
+    off_cfg = job.model.with_(use_flash_attention=False)
+    off, loss_off, _ = make_loss_grad(off_cfg, job)(params, batch, mask)
+
+    def rel_l2(a, b):
+        a, b = a.float(), b.float()
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    rel = {n: rel_l2(on["layers"]["attn"][n], off["layers"]["attn"][n])
+           for n in ATTN_LEAVES}
+    dloss = abs(loss_on.item() - loss_off.item()) / abs(loss_off.item())
+    emit({"phase": "k2_in_place", "weights": "initial",
+          "loss_k2": loss_on.item(), "loss_plain_core": loss_off.item(),
+          "loss_rel_diff": dloss, "attn_grads_rel_l2": rel,
+          "tolerance": K2_IN_PLACE_TOL})
+    worst = max(rel.values())
+    if not (dloss <= K2_IN_PLACE_TOL["loss_rel"]
+            and worst <= K2_IN_PLACE_TOL["grads_rel_l2"]):
+        raise AssertionError(f"zoo step with K2 differs from the plain core: "
+                             f"loss by {dloss}, attention gradients by {rel} "
+                             "rel L2")
+
+
+def valid_pairs(s, t, causal, window, q_offset) -> int:
+    """(query, key) pairs the mask keeps: the work the kernels must do."""
+    n = 0
+    for qpos in range(q_offset, q_offset + s):
+        lo = max(0, qpos - window + 1) if window is not None else 0
+        hi = min(t - 1, qpos) if causal else t - 1
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
+    """K2 at the zoo path's shape, in the model layout it receives there:
+    each kernel's time beside its bound, the plain version's and
+    ``scaled_dot_product_attention``'s."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import ops, ref
+
+    shape = K2_PATH_SHAPE
+    b, s, t, h, hkv, d = shape[:6]
+    mask = dict(causal=True, window=None, q_offset=0)
+    q, k, v, do = k2_inputs(torch, shape, torch.bfloat16, seed=5)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    kern, plain = k2_both(torch, q, k, v, do, mask)
+    errs = {"flash_attention_fwd": abs_err(kern[0], plain[0]),
+            "flash_attention_bwd_dq": abs_err(kern[1], plain[1]),
+            "flash_attention_bwd_dkdv": max(abs_err(kern[2], plain[2]),
+                                            abs_err(kern[3], plain[3]))}
+    rels = {n: row_err(a, c) for n, a, c in zip(K2_GRADS, kern, plain)}
+    bad = k2_check(rels, "bfloat16", shape)
+    if bad:
+        raise AssertionError(f"K2 at the path's shape differs from its plain "
+                             f"version: {bad}")
+    out, lse = flash.flash_fwd(qt, kt, vt, **mask)
+    n = 10
+    ms = {"flash_attention_fwd": timed(
+        lambda: flash.flash_fwd(qt, kt, vt, **mask), n, torch),
+        "flash_attention_bwd_dkdv": timed(
+            lambda: flash.flash_bwd_dkdv(qt, kt, vt, out, lse, dot, **mask),
+            n, torch),
+        "flash_attention_bwd_dq": timed(
+            lambda: flash.flash_bwd_dq(qt, kt, vt, out, lse, dot, **mask),
+            n, torch)}
+
+    def fwd_bwd(attend):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = attend(*leaves)
+        torch.autograd.grad(o, leaves, do)
+
+    fwd_bwd_ms = timed(lambda: fwd_bwd(lambda a, b_, c: ops.flash_mha(
+        a, b_, c, causal=True)), n, torch)
+
+    # the plain version (autograd through ref.mha_reference) and the
+    # library call, split the same way: forward; grads of k and v; grad
+    # of q — each backward on a graph kept across the repeats
+    def split_times(attend, reps):
+        with torch.no_grad():
+            f_ms = timed(lambda: attend(qt, kt, vt), reps, torch)
+        leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
+        o = attend(*leaves)
+        kv_ms = timed(lambda: torch.autograd.grad(
+            o, leaves[1:], dot, retain_graph=True), reps, torch)
+        q_ms = timed(lambda: torch.autograd.grad(
+            o, leaves[:1], dot, retain_graph=True), reps, torch)
+        return {"flash_attention_fwd": f_ms, "flash_attention_bwd_dkdv": kv_ms,
+                "flash_attention_bwd_dq": q_ms}
+
+    plain_ms = split_times(lambda a, b_, c: ref.mha_reference(
+        a, b_, c, causal=True), 3)
+    library_ms = split_times(lambda a, b_, c: F.scaled_dot_product_attention(
+        a, b_, c, is_causal=True, enable_gqa=True), n)
+
+    name = torch.cuda.get_device_name(0)
+    hbm, _, bf16, label = card_peaks(name)
+    pairs = valid_pairs(s, t, **mask)
+    el = 2                                     # bytes per bf16 element
+    q_bytes, kv_bytes = b * s * h * d * el, b * t * hkv * d * el
+    lse_bytes = b * h * s * 4
+    work = {  # (FLOP, bytes): products × 2·pairs·D per head; reads, writes
+        "flash_attention_fwd": (4 * b * h * d * pairs,
+                                2 * q_bytes + 2 * kv_bytes + lse_bytes),
+        "flash_attention_bwd_dkdv": (8 * b * h * d * pairs,
+                                     3 * q_bytes + 4 * kv_bytes + lse_bytes),
+        "flash_attention_bwd_dq": (6 * b * h * d * pairs,
+                                   4 * q_bytes + 2 * kv_bytes + lse_bytes)}
+    rows = []
+    for kname in K2_KERNELS:
+        flops, nbytes = work[kname]
+        t_ops, t_bytes = flops / bf16, nbytes / hbm
+        src, replaces = KERNEL_SOURCES[kname]
+        rows.append({"name": kname, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": launches[kname],
+                     "max_abs_err": errs[kname], "ms": ms[kname],
+                     "plain_ms": plain_ms[kname],
+                     "bound_ms": 1e3 * max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes",
+                     "library_ms": library_ms[kname]})
+    fb_flops = sum(work[kk][0] for kk in K2_KERNELS)
+    emit({"phase": "k2_at_path_shape", "shape": shape, "dtype": "bfloat16",
+          "valid_pairs": pairs, "row_err": rels, "peak": label,
+          "kernels": {r["name"]: {kk: r[kk] for kk in
+                                  ("ms", "bound_ms", "plain_ms",
+                                   "library_ms", "max_abs_err")}
+                      for r in rows},
+          "achieved_TFLOPs": {kk: work[kk][0] / ms[kk] / 1e9
+                              for kk in K2_KERNELS},
+          "fwd_ms": ms["flash_attention_fwd"], "fwd_bwd_ms": fwd_bwd_ms,
+          "fwd_bwd_bound_ms": 1e3 * fb_flops / bf16,
+          "plain_fwd_bwd_ms": sum(plain_ms.values()),
+          "library_fwd_ms": library_ms["flash_attention_fwd"],
+          "share_of_zoo_cell_step": fwd_bwd_ms * n_layers / step_ms,
+          "card": smi})
+    return rows
+
+
+def free(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -302,16 +701,27 @@ def main() -> int:
     exact_float32()
     smi = phase_card_and_build()
     phase_small_compare(torch)
+    phase_k2_small(torch)
     res, job, launches = phase_main_path(torch)
     phase_steady_step(torch, res, job)
     k1 = phase_kernel_at_main_shape(torch, res, smi, launches)
-    emit({"kernels": [k1]})
+    del res
+    free(torch)
+    zres, zjob, zlaunches = phase_zoo_path(torch)
+    tick_ms = phase_zoo_steady(torch, zres, zjob)
+    cells = int(zres.iterations.size)
+    del zres
+    free(torch)
+    phase_k2_in_place(torch, zjob)
+    free(torch)
+    k2 = phase_k2_at_path_shape(torch, smi, zlaunches, tick_ms / cells,
+                                zjob.model.num_layers)
+    emit({"kernels": [k1] + k2})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

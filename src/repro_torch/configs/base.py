@@ -158,9 +158,8 @@ class ModelConfig:
     max_seq_len: int = 524288
     dtype: str = "bfloat16"       # activation/compute dtype
     param_dtype: str = "bfloat16"
-    # route full-sequence self-attention through the flash-attention kernel;
-    # kept so configs compare equal across the two packages (the port's
-    # attention kernel comes with the model-zoo slice)
+    # route full-sequence self-attention through the flash-attention kernel
+    # (K2: kernels.ops.flash_mha, hand-written CUDA on the card)
     use_flash_attention: bool = False
     source: str = ""              # citation from the assignment sheet
 

@@ -26,10 +26,12 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 #: kernel name -> source file under csrc/
-SOURCES = {"elastic_update": "elastic_update.cu"}
+SOURCES = {"elastic_update": "elastic_update.cu",
+           "flash_attention": "flash_attention.cu"}
 
 #: -fmad=false keeps every multiply and add separately rounded, as in the
-#: plain PyTorch versions, so the card can check kernels bit for bit
+#: plain PyTorch versions, so the card checks K1 bit for bit. K2's inner
+#: products are explicit fmaf() calls, which the flag leaves fused.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")

@@ -1,0 +1,228 @@
+"""Flash attention on the card (K2): blocked online-softmax attention with
+causal and sliding-window masking, a query offset and native GQA (query
+head h reads kv head h // (H / Hkv); k and v are never repeated), forward
+and backward.
+
+Layout: q (B, H, S, D), k/v (B, Hkv, T, D), out (B, H, S, D) in q's dtype.
+Query s sits at position ``q_offset + s``, keys at 0..T-1. Any strides are
+taken as long as the head dimension is contiguous, so `kernels.ops.
+flash_mha` hands over the model's (B, S, H, D) tensors as transposed views
+and the kernels read them in place.
+
+The kernels are CUDA C++ in ``csrc/flash_attention.cu`` (its header says
+what bounds them and how they are laid out): a forward that also writes the
+per-row logsumexp (B, H, S) in float32, and a FlashAttention-2 backward in
+two kernels, one for dK/dV per (key tile, kv head) and one for dQ per
+(query tile, head), which recompute the probabilities from that
+logsumexp. `flash_attention` joins them in a ``torch.autograd.Function``.
+Each launch function keeps a count of its launches. The plain version of
+both directions is ``kernels.ref.mha_reference`` under autograd;
+``kernels.ops.flash_mha`` picks between the two by the device of the
+tensors."""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+HEAD_DIMS = (64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: B, H, Hkv, S, T, causal, has_window, window, q_offset, scale, stream
+_COMMON = [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = {
+    # dtype, head_dim, q, k, v, o, lse, strides, problem
+    "flash_attention_fwd": [ctypes.c_int, ctypes.c_int]
+    + [ctypes.c_void_p] * 6 + _COMMON,
+    # dtype, head_dim, q, k, v, o, dout, lse, dk, dv, strides, problem
+    "flash_attention_bwd_dkdv": [ctypes.c_int, ctypes.c_int]
+    + [ctypes.c_void_p] * 9 + _COMMON,
+    # dtype, head_dim, q, k, v, o, dout, lse, dq, strides, problem
+    "flash_attention_bwd_dq": [ctypes.c_int, ctypes.c_int]
+    + [ctypes.c_void_p] * 8 + _COMMON,
+}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention")
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def rows_without_keys(s: int, t: int, *, causal: bool,
+                      window: Optional[int], q_offset: int) -> bool:
+    """Whether some query row has no valid key. The rows that do form an
+    interval, so the first and the last row decide."""
+    for qpos in (q_offset, q_offset + s - 1):
+        lo = max(0, qpos - window + 1) if window is not None else 0
+        hi = min(t - 1, qpos) if causal else t - 1
+        if lo > hi:
+            return True
+    return False
+
+
+def _check(q, k, v, causal, window, q_offset) -> None:
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention runs on CUDA tensors, got {dev}; "
+                         "CPU tensors take kernels.ops' plain path")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention takes float32 or bfloat16, got "
+                         f"{q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-d, got {tuple(t.shape)}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous in its last "
+                             f"(head) dimension, got strides {t.stride()}")
+    b, h, s, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must be "
+                         f"(B={b}, Hkv, T, D={d})")
+    hkv, t = k.shape[1], k.shape[2]
+    if hkv < 1 or h % hkv:
+        raise ValueError(f"{h} query heads do not group over {hkv} kv heads")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} is not one of {HEAD_DIMS}")
+    if s < 1 or t < 1:
+        raise ValueError(f"empty attention: S={s}, T={t}")
+    if max(h, b) > 65535:
+        raise ValueError(f"B={b} or H={h} exceeds the grid's 65535")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    if rows_without_keys(s, t, causal=causal, window=window,
+                         q_offset=q_offset):
+        raise ValueError(
+            f"a query row has no valid key (S={s}, T={t}, causal={causal}, "
+            f"window={window}, q_offset={q_offset}); the kernel does not "
+            "take fully masked rows")
+
+
+def _problem(q, k, causal, window, q_offset):
+    b, h, s, d = q.shape
+    return [b, h, k.shape[1], s, k.shape[2], int(causal),
+            int(window is not None), int(window or 0), int(q_offset),
+            float(d) ** -0.5]
+
+
+def _strides(*tensors):
+    flat = [x for t in tensors for x in t.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def flash_fwd(q, k, v, *, causal: bool, window: Optional[int],
+              q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward kernel: returns (out laid out like q, lse (B, H,
+    S) float32). Raises on arguments it does not take and when the launch
+    is refused."""
+    _check(q, k, v, causal, window, q_offset)
+    lib = _lib()
+    b, h, s, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_fwd(
+            _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), _strides(q, k, v, out),
+            *_problem(q, k, causal, window, q_offset), _stream(q))
+    _raise_on(err, "flash_attention_fwd")
+    flash_fwd.launches += 1
+    return out, lse
+
+
+def flash_bwd_dkdv(q, k, v, out, lse, dout, *, causal: bool,
+                   window: Optional[int], q_offset: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dK/dV kernel: returns (dk, dv) laid out like k and v."""
+    lib = _lib()
+    d = q.shape[3]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd_dkdv(
+            _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), _strides(q, k, v, out, dout, dk, dv),
+            *_problem(q, k, causal, window, q_offset), _stream(q))
+    _raise_on(err, "flash_attention_bwd_dkdv")
+    flash_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, out, lse, dout, *, causal: bool,
+                 window: Optional[int], q_offset: int) -> torch.Tensor:
+    """Launch the dQ kernel: returns dq laid out like q."""
+    lib = _lib()
+    d = q.shape[3]
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd_dq(
+            _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+            _strides(q, k, v, out, dout, dq),
+            *_problem(q, k, causal, window, q_offset), _stream(q))
+    _raise_on(err, "flash_attention_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_fwd.launches = 0
+flash_bwd_dkdv.launches = 0
+flash_bwd_dq.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, and the two backward kernels as its gradient.
+    The forward saves q, k, v, the output and the float32 logsumexp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out, lse = flash_fwd(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.shape != out.shape:
+            raise ValueError(f"output gradient {tuple(dout.shape)} does not "
+                             f"match the output {tuple(out.shape)}")
+        if dout.dtype != q.dtype:
+            dout = dout.to(q.dtype)
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dk, dv = flash_bwd_dkdv(q, k, v, out, lse, dout, **ctx.mask)
+        dq = flash_bwd_dq(q, k, v, out, lse, dout, **ctx.mask)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q: (B, H, S, D); k/v: (B, Hkv, T, D) CUDA tensors with H = G·Hkv,
+    float32 or bfloat16, head_dim 64 or 128. Differentiable: the gradient
+    runs the two backward kernels. Raises on anything the kernels do not
+    take, CPU tensors included."""
+    return _FlashAttention.apply(q, k, v, causal, window, q_offset)

@@ -5,8 +5,9 @@ grid of replicas of a real model under the simulated spot market (the
 full pipeline: strategy → bids → preemptions → masked SGD → cost
 accounting) through ``trainer.train_batched(megabatch=True)``, and prints
 the per-scenario JSON summary. The other modes of the reference launcher
-(the legacy loop, the dry run, meshes, the supervisor) come with later
-slices of the port.
+(the legacy loop, the dry run, meshes, the supervisor, and with it the
+bf16 zoo path behind ``--param-dtype``) come with later slices of the
+port; the zoo path itself is ``trainer.train_zoo``.
 
 Example (one H100, full-width Qwen2-7B at two layers):
   PYTHONPATH=src python -m repro_torch.launch.train --config qwen2_7b \\
@@ -63,7 +64,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "N layers instead of the reduced smoke variant")
     ap.add_argument("--param-dtype", default=None,
                     help="override the model param/activation dtype; the "
-                         "megabatch path takes float32 only")
+                         "megabatch path takes float32 only (bf16 zoo "
+                         "training comes with --supervise, a later slice)")
     ap.add_argument("--strategy", default="optimal-two-bids",
                     choices=["no-interruptions", "optimal-one-bid",
                              "optimal-two-bids", "dynamic-bids"])
@@ -105,9 +107,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         args.arch = arch
     if args.param_dtype and args.param_dtype not in ("float32", "fp32",
                                                      "f32"):
-        ap.error("--param-dtype other than float32 needs the zoo "
-                 "mixed-precision program, which comes with the model-zoo "
-                 "slice of the port")
+        ap.error("--param-dtype other than float32 reaches the zoo "
+                 "mixed-precision program only under --supervise, which "
+                 "comes with the supervisor slice of the port (in Python, "
+                 "trainer.train_zoo runs it now)")
     if args.fused_update and not args.megabatch:
         ap.error("--fused-update requires --megabatch")
     if args.megabatch and not args.batched:

@@ -1,5 +1,5 @@
 """Shared model infrastructure: the declarative ``ParamSpec`` and its
-materialization.
+materialization, and the numerics helpers (RMSNorm, RoPE, SwiGLU).
 
 ``ParamSpec`` is the single source of truth for every parameter: shape,
 dtype, logical sharding tokens (kept as data so the definitions read as in
@@ -14,6 +14,7 @@ import zlib
 from typing import Any, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import resolve_dtype
 
@@ -86,3 +87,52 @@ def init_params(defs, seed: int, param_dtype=torch.float32, *,
         return x.mul_(spec.scale).to(dtype)
 
     return map_specs(make, defs)
+
+
+def spec_dtypes(defs, param_dtype):
+    """Each leaf's dtype: its ParamSpec override, else ``param_dtype``."""
+    param_dtype = resolve_dtype(param_dtype, where="spec_dtypes")
+    return map_specs(
+        lambda path, s: resolve_dtype(s.dtype, where=f"ParamSpec{path}")
+        if s.dtype is not None else param_dtype, defs)
+
+
+# --------------------------------------------------------------------------
+# Numerics
+# --------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm computed in float32, cast back to ``x``'s dtype."""
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    y = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    return (y * weight.to(torch.float32)).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (..., S, H, D) or (..., S, D); positions:
+    (..., S). Computed in float32, cast back to ``x``'s dtype."""
+    if theta <= 0:
+        return x
+    d = x.shape[-1]
+    half = d // 2
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=x.device),
+                      -torch.arange(half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions.to(torch.float32)[..., None] * freqs      # (..., S, half)
+    if x.dim() == positions.dim() + 2:                        # head dim
+        ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1 = x[..., :half].to(torch.float32)
+    x2 = x[..., half:].to(torch.float32)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def swiglu(gate_up: torch.Tensor) -> torch.Tensor:
+    gate, up = gate_up.chunk(2, dim=-1)
+    return F.silu(gate) * up

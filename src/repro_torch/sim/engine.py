@@ -4,10 +4,11 @@ device.
 
 Per tick: price draw → plan-table bucket latch → bid/preemption active mask
 → runtime and cost accounting (`_market_tick`, vectorized over the whole
-(S, R) grid) → one call of the model program over the whole grid → clock,
-cost, idle time and trajectory updates. The tick loop is a Python loop
-that never reads a value back to the host; the one sync is at the end,
-when the trajectories become numpy arrays.
+(S, R) grid) → the model program (one call over the whole grid for a
+blocked program; one call per (scenario, seed) cell, gated into the carry,
+for a per-cell program) → clock, cost, idle time and trajectory updates.
+The tick loop is a Python loop that never reads a value back to the host;
+the one sync is at the end, when the trajectories become numpy arrays.
 
 Time model (§III-C): each tick queries the price prevailing at the current
 wall clock; if ≥1 worker is active an SGD iteration runs and the clock
@@ -24,10 +25,12 @@ exactly only where it draws nothing (tick-indexed trace prices with a
 deterministic runtime), and statistically elsewhere.
 
 Ported so far: the blocked (megabatch) layout, ``ModelProgram(blocked=
-True)``, that ``train_batched(megabatch=True)`` runs. The vmapped
-``_sim_one`` layout, ``quadratic_program``, snapshots and
-``simulate_sharded`` raise ``NotImplementedError`` naming the slice
-they come with.
+True)``, that ``train_batched(megabatch=True)`` runs, and the per-cell
+layout of the reference's ``_sim_one``, ``ModelProgram(blocked=False)``,
+that ``train_zoo`` runs (the reference vmaps it over the grid; here each
+cell's step is a call of its own, every tick, running or not).
+``quadratic_program``, snapshots and ``simulate_sharded`` raise
+``NotImplementedError`` naming the slice they come with.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from repro_torch.device import resolve_device
 from repro_torch.sim.market_core import (BID_EPS, iteration_cost,  # noqa: F401
                                          preemptible_active,
                                          spot_active_mask)
+from repro_torch.tree import tree_index, tree_map
 
 # Modes / price kinds (ints so they stack as data).
 SPOT, PREEMPTIBLE = 0, 1
@@ -49,8 +53,8 @@ PRICE_UNIFORM, PRICE_TRUNC_GAUSS, PRICE_TRACE, PRICE_EMPIRICAL = 0, 1, 2, 3
 PRICE_TRACE_TICK = 4
 
 _LATER = {
-    "vmapped": "the vmapped/legacy slice (ElasticTrainer.run and the "
-               "models/ forward)",
+    "vmapped": "the vmapped/legacy slice (ElasticTrainer.run, "
+               "train_batched(megabatch=False) and make_train_program)",
     "snapshots": "the snapshots/tick0-resume/checkpointing slice",
     "quadratic": "the quadratic_program/evaluate_batch slice",
     "mesh": "the mesh slice",
@@ -428,9 +432,22 @@ class SimConfig:
 class ModelProgram:
     """Pluggable model under the engine's tick loop.
 
-    ``blocked=True`` (the only layout ported so far): ``step_fn`` is called
-    ONCE per tick over the whole grid with leading (S, R) axes on every
-    argument::
+    ``blocked=False`` (per cell): ``step_fn`` runs one training iteration
+    of one (scenario, seed) cell::
+
+        step_fn(model, data, key, mask, j, alpha) -> (new_model, metric)
+            model: the cell's carry, a nested dict/tuple of tensors (views
+                   of the (S, R, ...) carry, which the step must not
+                   write);  key: 0-d int64 hash;  mask: (n_max,) f32;
+            j: 0-d int64 iterations done;  alpha: 0-d f32 step size
+            metric: 0-d tensor (cast to f32 by the engine)
+
+    It is called for every cell on every tick; the engine lands
+    ``new_model`` only where the iteration runs (`_gate_model`), so idle
+    and finished ticks are true no-ops on every leaf.
+
+    ``blocked=True``: ``step_fn`` is called ONCE per tick over the whole
+    grid with leading (S, R) axes on every argument::
 
         step_fn(model, data, key, mask, j, alpha, running)
             model: dict of tensors (S, R, ...);  key: (S, R) int64 hash
@@ -455,7 +472,7 @@ class SimState(NamedTuple):
     bucket: torch.Tensor         # latched plan-table bucket (int64, -1=unset)
     total_cost: torch.Tensor     # f32
     total_idle: torch.Tensor     # f32
-    model: Any                   # dict of tensors under ModelProgram.step_fn
+    model: Any                   # nested dict/tuple of (S, R, ...) tensors
     err_traj: torch.Tensor       # (S, R, J_max) program metric after iter j
     cost_traj: torch.Tensor      # (S, R, J_max) cumulative cost
     time_traj: torch.Tensor      # (S, R, J_max) wall clock
@@ -465,16 +482,17 @@ class SimState(NamedTuple):
 def initial_state(scenarios: "ScenarioBatch | Sequence[Scenario]", model0,
                   n_seeds: int, *, device=None) -> SimState:
     """The (S, R) initial carry on ``device`` (default ``cuda``): every
-    (scenario, seed) replica starts from ``model0`` (a dict of tensors,
-    copied into contiguous (S, R, ...) buffers) at t=0 with empty
-    trajectories."""
+    (scenario, seed) replica starts from ``model0`` (a nested dict/tuple of
+    tensors, each leaf copied into a contiguous (S, R, ...) buffer) at t=0
+    with empty trajectories."""
     device = resolve_device(device)
     if not isinstance(scenarios, ScenarioBatch):
         scenarios = stack_scenarios(scenarios, device=device)
     grid = (scenarios.n_scenarios, int(n_seeds))
     j_max = scenarios.j_max
-    model = {k: x.to(device).expand(grid + tuple(x.shape)).clone()
-             for k, x in model0.items()}
+    model = tree_map(
+        lambda x: x.to(device).expand(grid + tuple(x.shape)).clone(
+            memory_format=torch.contiguous_format), model0)
 
     def nan_traj():
         return torch.full(grid + (j_max,), float("nan"), dtype=torch.float32,
@@ -691,6 +709,23 @@ def _put(traj: torch.Tensor, idx: torch.Tensor, running: torch.Tensor,
                   torch.where(running, val, cur)[..., None])
 
 
+def _advance(state: SimState, m: TickMarket, metric: torch.Tensor,
+             model, j_max: int) -> SimState:
+    """Clock, cost, idle time and trajectories after one tick; the
+    trajectories are written in place."""
+    t_new = state.t + m.dt
+    cost_new = state.total_cost + m.cost_inc
+    idx = torch.clamp(state.j, max=j_max - 1)
+    _put(state.err_traj, idx, m.running, metric.to(torch.float32))
+    _put(state.cost_traj, idx, m.running, cost_new)
+    _put(state.time_traj, idx, m.running, t_new)
+    _put(state.y_traj, idx, m.running, m.y)
+    return state._replace(
+        t=t_new, j=state.j + m.running.to(torch.int64), bucket=m.bucket,
+        total_cost=cost_new, total_idle=state.total_idle + m.idle_inc,
+        model=model)
+
+
 def _sim_blocked(batch: ScenarioBatch, state: SimState, data, seeds,
                  program: ModelProgram, n_ticks: int) -> SimState:
     """The megabatched tick loop: per tick the market logic runs over the
@@ -698,44 +733,64 @@ def _sim_blocked(batch: ScenarioBatch, state: SimState, data, seeds,
     one call over (S, R)-leading leaves. Nothing is read back to the host
     inside the loop."""
     s_dim, r_dim = state.t.shape
-    j_max = batch.j_max
     alpha2 = _col(batch.alpha).expand(s_dim, r_dim)
     for k in range(n_ticks):
         m = _market_tick(batch, seeds, state.t, state.j, state.bucket, k)
         model, metric = program.step_fn(
             state.model, data, m.k_grad, m.mask.to(torch.float32), state.j,
             alpha2, m.running)
-        metric = metric.to(torch.float32)
+        state = _advance(state, m, metric, model, batch.j_max)
+    return state
 
-        t_new = state.t + m.dt
-        cost_new = state.total_cost + m.cost_inc
-        idx = torch.clamp(state.j, max=j_max - 1)
-        _put(state.err_traj, idx, m.running, metric)
-        _put(state.cost_traj, idx, m.running, cost_new)
-        _put(state.time_traj, idx, m.running, t_new)
-        _put(state.y_traj, idx, m.running, m.y)
-        state = state._replace(
-            t=t_new, j=state.j + m.running.to(torch.int64), bucket=m.bucket,
-            total_cost=cost_new, total_idle=state.total_idle + m.idle_inc,
-            model=model)
+
+def _gate_model(running: torch.Tensor, stepped, old) -> None:
+    """Land the stepped model only on a running tick, leaf by leaf and in
+    place: each stepped leaf is cast to the carry leaf's dtype (a mixed-
+    precision step that returns a promoted leaf cannot change the carry's
+    dtypes) and written under ``running``, a 0-d device bool, so the host
+    never learns whether the tick ran. An idle tick writes every leaf's own
+    bits back."""
+    tree_map(lambda new, o: o.copy_(torch.where(running, new.to(o.dtype), o)),
+             stepped, old)
+
+
+def _sim_cells(batch: ScenarioBatch, state: SimState, data, seeds,
+               program: ModelProgram, n_ticks: int) -> SimState:
+    """The per-cell tick loop (the reference's vmapped ``_sim_one``): per
+    tick the market logic runs over the whole (S, R) grid, then the step
+    runs for every cell on views of its carry and `_gate_model` lands it.
+    Nothing is read back to the host inside the loop."""
+    s_dim, r_dim = state.t.shape
+    dev = state.t.device
+    for k in range(n_ticks):
+        m = _market_tick(batch, seeds, state.t, state.j, state.bucket, k)
+        mask = m.mask.to(torch.float32)
+        metric = torch.empty((s_dim, r_dim), dtype=torch.float32, device=dev)
+        for s in range(s_dim):
+            for r in range(r_dim):
+                cell = tree_index(state.model, (s, r))
+                stepped, met = program.step_fn(
+                    cell, data, m.k_grad[s, r], mask[s, r], state.j[s, r],
+                    batch.alpha[s])
+                _gate_model(m.running[s, r], stepped, cell)
+                del stepped
+                metric[s, r] = met
+        state = _advance(state, m, metric, state.model, batch.j_max)
     return state
 
 
 def simulate_program(scenarios, program: ModelProgram, model0, data, seeds,
                      cfg: SimConfig, *, init_state: Optional[SimState] = None,
                      device=None) -> EngineResult:
-    """Run S scenarios × R seeds of a blocked ModelProgram on ``device``
-    (default ``cuda``).
+    """Run S scenarios × R seeds of a ModelProgram (blocked or per cell)
+    on ``device`` (default ``cuda``).
 
-    model0: initial model (dict of tensors), shared by every (scenario,
-    seed) replica (``initial_state`` fans it out; ignored when
+    model0: initial model (nested dict/tuple of tensors), shared by every
+    (scenario, seed) replica (``initial_state`` fans it out; ignored when
     ``init_state``, a fresh carry already on the device, is given); data:
     passed to every step (stacked batches); seeds: int count or explicit
     sequence. Returns stacked (S, R, J_max) trajectories plus the
     per-replica final model (tensors (S, R, ...) on the device)."""
-    if not program.blocked:
-        raise not_ported("the vmapped per-cell layout (_sim_one)",
-                         "vmapped")
     if cfg.snapshot_every:
         raise not_ported("snapshot_every", "snapshots")
     device = resolve_device(device)
@@ -749,8 +804,8 @@ def simulate_program(scenarios, program: ModelProgram, model0, data, seeds,
     if init_state is None:
         init_state = initial_state(scenarios, model0, len(seeds),
                                    device=device)
-    final = _sim_blocked(scenarios, init_state, data, seeds, program,
-                         cfg.n_ticks)
+    loop = _sim_blocked if program.blocked else _sim_cells
+    final = loop(scenarios, init_state, data, seeds, program, cfg.n_ticks)
     return _engine_result(final, scenarios)
 
 

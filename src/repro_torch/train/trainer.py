@@ -1,5 +1,5 @@
 """The elastic trainer: wires the spot-market/cluster simulator, the paper's
-strategies and the megabatched elastic train step into one loop.
+strategies and the elastic train steps into one loop.
 
 ``train_batched(megabatch=True)`` / ``ElasticTrainer.run_batched`` run the
 paper's experiment: an S-strategy × R-seed grid trains real models
@@ -9,10 +9,17 @@ update (fused into one kernel with ``use_fused_update``) and
 time/cost/idle accounting, all on the device with no host sync between
 ticks.
 
-Ported so far: this megabatch path. The vmapped per-replica path and the
-legacy per-iteration loop (``ElasticTrainer.run``), snapshots and
-checkpointing, durable runs and the model zoo raise
-``NotImplementedError`` naming the slice they come with.
+``train_zoo`` trains a zoo config (dense and VLM families, float32 or
+bf16 mixed precision, ``use_flash_attention`` routing attention through
+K2) through the same machinery with the per-cell program of
+`train.zoo_program` swapped in through ``train_batched``'s ``program`` and
+``model0`` hooks.
+
+Ported so far: these two paths. The vmapped per-replica path
+(``train_batched(megabatch=False)`` with the reference's
+``make_train_program``) and the legacy per-iteration loop
+(``ElasticTrainer.run``), snapshots and checkpointing, durable runs and the
+mesh raise ``NotImplementedError`` naming the slice they come with.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from repro_torch.device import exact_float32, resolve_device
 from repro_torch.sim import engine
 from repro_torch.sim.cluster import VolatileCluster
 from repro_torch.train import megabatch as megabatch_mod
+from repro_torch.train import zoo_program as zoo_mod
 
 
 @dataclasses.dataclass
@@ -202,27 +210,38 @@ def train_batched(job: JobConfig,
                   megabatch: bool = False,
                   use_fused_update: bool = False,
                   mesh=None,
+                  program=None,
                   model0=None,
                   device=None) -> engine.EngineResult:
     """Train a real model under every scenario × seed on ``device``
     (default ``cuda``).
 
-    ``megabatch=True`` (the only layout ported so far) runs the
-    replica-blocked program of `train.megabatch`: every replica's params
-    and momentum in flat (S, R, P) buffers updated in place, one blocked
-    step per tick over the whole grid, and with ``use_fused_update`` the
-    elastic SGD apply through the fused kernel
-    (`kernels.ops.fused_elastic_update`). ``model0`` (a flat {"p", "v"}
-    state of one replica) replaces the job's own init
+    ``megabatch=True`` runs the replica-blocked program of
+    `train.megabatch`: every replica's params and momentum in flat (S, R,
+    P) buffers updated in place, one blocked step per tick over the whole
+    grid, and with ``use_fused_update`` the elastic SGD apply through the
+    fused kernel (`kernels.ops.fused_elastic_update`). ``model0`` (a flat
+    {"p", "v"} state of one replica) replaces the job's own init
     (`megabatch.init_megabatch_state` from ``job.seed``) — the hook tests
     use to start both packages from the same weights.
 
+    ``program`` / ``model0`` swap in a caller-built ModelProgram factory
+    (``n_batches -> ModelProgram``) and the matching initial carry of one
+    replica — the hook `train_zoo` uses; ``program`` takes precedence over
+    ``megabatch``. ``model0`` may also be a zero-argument callable that
+    builds the carry, so that no caller holds a replica-sized tree while
+    the grid's copies are made.
+
     Returns an EngineResult whose ``errors``/``losses`` trajectory holds
-    the per-iteration batch loss and whose ``final_model`` holds the flat
-    {"p", "v"} tensors; `unpack_batched_model` converts back."""
-    if not megabatch:
+    the per-iteration batch loss and whose ``final_model`` holds the
+    grid's carry ((S, R, ...) leaves); for the megabatch program the flat
+    {"p", "v"} tensors, which `unpack_batched_model` converts back."""
+    if program is None and not megabatch:
         raise engine.not_ported("train_batched(megabatch=False)",
                                 "vmapped")
+    if program is not None and model0 is None:
+        raise ValueError("train_batched(program=...) needs the matching "
+                         "model0= carry")
     if mesh is not None:
         raise engine.not_ported("train_batched(mesh=...)", "mesh")
     if snapshot_every or init_state is not None or tick0:
@@ -233,7 +252,9 @@ def train_batched(job: JobConfig,
     scenarios, program, data, n_ticks = _prepare_batched(
         job, scenarios, n_ticks=n_ticks, n_batches=n_batches,
         batch_fn=batch_fn, batch_seed=batch_seed,
-        use_fused_update=use_fused_update, device=device)
+        use_fused_update=use_fused_update, program=program, device=device)
+    if callable(model0):
+        model0 = model0()
     if model0 is None:
         model0 = megabatch_mod.init_megabatch_state(
             job.model, job, job.seed, device=device)
@@ -246,9 +267,11 @@ def train_batched(job: JobConfig,
 
 
 def _prepare_batched(job: JobConfig, scenarios, *, n_ticks, n_batches,
-                     batch_fn, batch_seed, use_fused_update: bool, device):
-    """Stack + fleet-width check, batch stream, program, tick-budget
-    default."""
+                     batch_fn, batch_seed, use_fused_update: bool,
+                     program=None, device):
+    """Stack + fleet-width check, batch stream, program (``program``, a
+    factory ``n_batches -> ModelProgram``, else the megabatch program),
+    tick-budget default."""
     if not isinstance(scenarios, engine.ScenarioBatch):
         scenarios = engine.stack_scenarios(scenarios, device=device)
     if scenarios.n_max != job.n_workers:
@@ -260,7 +283,11 @@ def _prepare_batched(job: JobConfig, scenarios, *, n_ticks, n_batches,
     n_batches = n_batches or j_max
     data = stack_batches(job, n_batches, seed=batch_seed, batch_fn=batch_fn,
                          device=device)
-    program = make_megabatch_train_program(job, n_batches, use_fused_update)
+    if program is not None:
+        program = program(n_batches)
+    else:
+        program = make_megabatch_train_program(job, n_batches,
+                                               use_fused_update)
     return scenarios, program, data, n_ticks or default_n_ticks(j_max)
 
 
@@ -268,3 +295,54 @@ def default_n_ticks(j_max: int) -> int:
     """The tick budget of a run whose longest plan has ``j_max``
     iterations, when the caller names none."""
     return 2 * j_max + 16
+
+
+def _zoo_setup(job: JobConfig, remat: str, device):
+    """(program factory, initial-carry builder) for a zoo run — the two
+    hooks that turn `train_batched` into full-zoo training."""
+    cfg = job.model
+
+    def program(n_batches: int) -> engine.ModelProgram:
+        return zoo_mod.make_zoo_program(cfg, job, n_batches, remat)
+
+    def model0():
+        return zoo_mod.init_zoo_state(cfg, job, job.seed, device=device)
+
+    return program, model0
+
+
+def train_zoo(job: JobConfig,
+              scenarios: Union[engine.ScenarioBatch,
+                               Sequence[engine.Scenario]],
+              seeds: Union[int, Sequence[int]] = 8, *,
+              remat: str = "none",
+              checkpoint_path: Optional[str] = None,
+              save_every: Optional[int] = None,
+              model0=None,
+              device=None,
+              **kw) -> engine.EngineResult:
+    """Train ``job.model`` — a dense or VLM zoo config, full width or
+    reduced, float32 or bf16 mixed precision — under every scenario × seed
+    on ``device`` (default ``cuda``).
+
+    A thin front over `train_batched` with the model program swapped for
+    `zoo_program.make_zoo_program` (per cell, gated by the engine) and the
+    initial carry for `zoo_program.init_zoo_state` from ``job.seed``, or
+    ``model0`` (one replica's carry, e.g. the reference's weights carried
+    over by `convert.zoo_state_from_reference`). With
+    ``job.model.use_flash_attention`` the attention runs through K2 on the
+    card. Remaining keyword arguments pass through (``n_ticks``,
+    ``n_batches``, ``batch_fn``, ``batch_seed``). ``final_model`` holds the
+    grid's carry: ``(params, opt_state)`` for float32, ``{"params",
+    "master", "opt"}`` for mixed precision, leaves (S, R, ...).
+
+    ``checkpoint_path`` / ``save_every`` (the reference's durable runs)
+    raise: they come with the snapshots slice."""
+    if checkpoint_path is not None or save_every is not None:
+        raise engine.not_ported("train_zoo(checkpoint_path=, save_every=)",
+                                "snapshots")
+    device = resolve_device(device)
+    program, init = _zoo_setup(job, remat, device)
+    return train_batched(job, scenarios, seeds, program=program,
+                         model0=init if model0 is None else model0,
+                         device=device, **kw)

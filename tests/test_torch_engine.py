@@ -192,11 +192,24 @@ def test_hash_is_murmur_finalizer_in_exact_integer_arithmetic():
 
 
 def test_unported_layouts_raise():
+    """The per-cell layout runs now (each cell's step, gated on its tick
+    running); the quadratic oracle, the mesh and snapshots still raise
+    naming their slices."""
     sc = _stat_scenarios(engine, np.ones(4, np.float32))
-    vm = engine.ModelProgram(step_fn=lambda *a: a[0], blocked=False)
-    with pytest.raises(NotImplementedError, match="vmapped"):
-        engine.simulate_program(sc, vm, {"w": torch.zeros(1)}, None, 2,
-                                engine.SimConfig(n_ticks=4), device="cpu")
+
+    def count(model, data, key, mask, j, alpha):
+        return {"w": model["w"] + 1.0}, mask.sum()
+
+    cells = engine.ModelProgram(step_fn=count, blocked=False)
+    res = engine.simulate_program(sc, cells, {"w": torch.zeros(1)}, None, 2,
+                                  engine.SimConfig(n_ticks=4), device="cpu")
+    assert res.final_model["w"].shape == (len(sc), 2, 1)
+    np.testing.assert_array_equal(res.final_model["w"][..., 0].numpy(),
+                                  res.iterations)
+    with pytest.raises(NotImplementedError, match="quadratic"):
+        engine.quadratic_program("full", 4)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        engine.simulate_sharded()
     with pytest.raises(NotImplementedError, match="snapshot"):
         engine.simulate_program(sc, PROGRAM, {"w": torch.zeros(1)}, None, 2,
                                 engine.SimConfig(n_ticks=4,
