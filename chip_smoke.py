@@ -32,7 +32,23 @@ Phases, each printing one JSON line and raising on failure:
    (B 8, H 28, Hkv 4, S = T = 1023, D 128, bf16, causal): each kernel's
    time beside its bound, the plain version's time and
    ``scaled_dot_product_attention``'s (timed here only; the port never
-   calls it).
+   calls it);
+5. slice 3's path: serving full-width Mamba2-1.3B (48 layers, float32
+   parameters initialised on the card, bf16 activations) through
+   ``launch.serve``'s ``prefill_prompt`` (batch 8, a 2048-token prompt)
+   and ``greedy_decode`` (``make_serve_step``, 32 generated tokens),
+   twice. Checks K3's launches (48 in each prefill, none in decode), the
+   tokens' range, finite caches and finite prefill logits whose argmax is
+   the first token; reports prefill and decode times, tokens per second
+   and peak memory; then one prefill and one decode step under
+   ``torch.profiler`` (the device's busy time and idle share). Then K3 in
+   place: one full-width ``ssm_block`` prefill with K3 against the same
+   block with the plain version, and prefill-then-decode against one
+   longer prefill (2048 + 32 against 2304 positions); then K3 at the
+   path's shape: its time beside its bound, the plain version's, the
+   glue's and its share of the prefill. K3 against its plain version on edge shapes (Q 16 to 256, one
+   and two groups, P 32 to 128, N 32 and 128, float32 and bf16) runs with
+   the other small comparisons in phase 2.
 
 Then the ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout,
@@ -41,6 +57,7 @@ the reference package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -80,6 +97,8 @@ KERNEL_SOURCES = {"elastic_sgd_update": (
     "flash_attention_bwd_dq": K2_SOURCE}
 K2_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
               "flash_attention_bwd_dq")
+KERNEL_SOURCES["ssd_chunk"] = ("src/repro_torch/csrc/ssd_scan.cu",
+                               "src/repro/kernels/ssd_scan.py:72")
 
 #: K2 against its plain version, per row (the head dimension): the largest
 #: |kernel - plain| in a row over the larger of that row's largest |plain|
@@ -122,6 +141,59 @@ K2_PATH_SHAPE = (8, 1023, 1023, 28, 4, 128, True, None, 0)
 #: H100: loss 1.1e-5, gradients 1.2e-3 (bv) to 4.5e-3 (bk).
 K2_IN_PLACE_TOL = {"loss_rel": 3e-5, "grads_rel_l2": 1e-2}
 ATTN_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+
+
+#: slice 3: serving full-width Mamba2-1.3B as published (its config's bf16
+#: activations, float32 parameters and caches as the reference's launcher
+#: makes them), batch 8, a 2048-token prompt (8 chunks), 32 generated
+#: tokens, weights and prompt drawn from the seed
+SERVE = {"arch": "mamba2-1.3b", "batch": 8, "prompt": 2048, "gen": 32,
+         "seed": 0}
+
+#: K3 on edge shapes: (B, S, H, P, G, N, chunk) — Q = 16, 64, 100 (a
+#: ragged 64-row tile), 256 and S < chunk (Q = S = 48); one and two
+#: groups; P 32, 64, 128; N 32, 64, 128; two or more chunks where Q < S
+K3_EDGE_SHAPES = [
+    (2, 32, 4, 32, 1, 32, 16),
+    (1, 128, 4, 64, 2, 128, 64),
+    (1, 300, 2, 64, 1, 64, 100),
+    (1, 512, 2, 64, 1, 128, 256),
+    (2, 768, 4, 32, 2, 32, 256),
+    (1, 48, 2, 128, 1, 128, 256),
+]
+#: the shape the serving path gives K3 (per layer of the prefill)
+K3_PATH_SHAPE = (8, 2048, 64, 64, 1, 128, 256)
+K3_OUTS = ("y", "states", "cs", "decay")
+
+#: K3 against its plain version, per row as K2 (the worst row's max |kernel
+#: - plain| over the larger of its max |plain| and the tensor's RMS).
+#: float32 sums in other orders (fmaf chains against cuBLAS, a warp scan
+#: against torch.cumsum). cs runs to about -180 over 256 positions, where a
+#: float32 ulp is 1.5e-5: the two cumsums differ there by a random walk of
+#: 256 roundings of up to 7.6e-6, 1.2e-4 at one sigma, and exp(cs_i - cs_j)
+#: carries that into y, the states and the decay as a relative error; the
+#: worst of a million rows sits in the tail: 5e-4. cs itself within 1e-5 of
+#: its row. bf16 inputs are widened exactly on both sides and y_intra is
+#: rounded to bf16 from float32 values that differ in their last bits: one
+#: ulp, at most 2^-7 of its row's largest, so 1e-2. Measured on an H100
+#: over these shapes and the path's: float32 y 1.2e-4, states 5.6e-5, cs
+#: 5.2e-7, decay 3.9e-6; bf16 y 7.8e-3.
+K3_TOL = {"float32": {"y": 5e-4, "states": 5e-4, "cs": 1e-5, "decay": 5e-4},
+          "bfloat16": {"y": 1e-2, "states": 5e-4, "cs": 1e-5,
+                       "decay": 5e-4}}
+#: ops.ssd_chunked from a nonzero state against the naive recurrence from
+#: it: the reference's own tolerance (tests/test_kernels.py), |a - b| <=
+#: atol + rtol |b|
+K3_GLUE_TOL = 5e-4
+
+#: K3 in place: one full-width ssm_block prefill (layer 0 of the served
+#: model, its input and its cache after the path) with K3 and with the
+#: plain version, both in float32 from the block's promotion: its output
+#: and new state, max |a - b| over max |b|. Prefill then decode against
+#: one longer prefill, in float32 activations (the bf16 config rounds layer
+#: 0's decode output to bf16 where the prefill keeps float32, a difference
+#: by design): max |logit difference| within tests/test_prefill.py's 2e-3.
+K3_IN_PLACE_TOL = {"block_rel": 1e-4, "decode_vs_prefill_abs": 2e-3}
 
 
 def emit(obj) -> None:
@@ -679,6 +751,368 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
     return rows
 
 
+# ------------------------------------------------------------------ K3
+
+
+def k3_inputs(torch, shape, dtype, seed=0):
+    """xh, dt (post-softplus), a_h < 0, bm, cm in the model's layouts."""
+    b, s, h, p, g, n = shape[:6]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+
+    def randn(*dims):
+        return torch.randn(*dims, generator=gen, device=dev)
+
+    xh = randn(b, s, h, p) * 0.5
+    dt = torch.nn.functional.softplus(randn(b, s, h))
+    a_h = -torch.exp(randn(h) * 0.2)
+    bm, cm = randn(b, s, g, n) * 0.3, randn(b, s, g, n) * 0.3
+    return xh.to(dtype), dt, a_h, bm.to(dtype), cm.to(dtype)
+
+
+def k3_errs(torch, args, chunk):
+    """K3 against its plain version on ``args``: (per-row error of each
+    output, the largest absolute difference over all four)."""
+    from repro_torch.kernels import ref, ssd_scan
+
+    got = ssd_scan.ssd_chunk(*args, chunk=chunk)
+    want = ref.ssd_chunk_reference(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    for name, a, b in zip(K3_OUTS, got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"K3 {name}: {tuple(a.shape)} {a.dtype}, "
+                                 f"plain {tuple(b.shape)} {b.dtype}")
+    return ({n: row_err(a, b) for n, a, b in zip(K3_OUTS, got, want)},
+            max(abs_err(a, b) for a, b in zip(got, want)))
+
+
+def phase_k3_small(torch):
+    from repro_torch.kernels import ops, ref
+
+    worst, bad = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[-1]
+        worst[key] = dict.fromkeys(K3_OUTS, 0.0)
+        for shape in K3_EDGE_SHAPES:
+            errs, _ = k3_errs(torch, k3_inputs(torch, shape, dtype), shape[6])
+            bad += [(shape, key, n, e) for n, e in errs.items()
+                    if not e <= K3_TOL[key][n]]
+            for n, e in errs.items():
+                worst[key][n] = max(worst[key][n], e)
+    # the glue from a nonzero initial state against the naive recurrence
+    glue = {}
+    for shape in K3_EDGE_SHAPES[1:4]:
+        b, _, h, p, _, n, chunk = shape
+        args = k3_inputs(torch, shape, torch.float32, seed=1)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        h0 = torch.randn(b, h, p, n, generator=gen, device="cuda") * 0.5
+        y, hfin = ops.ssd_chunked(*args, chunk=chunk, h0=h0)
+        yr, hr = ref.ssd_reference(*args, h0=h0)
+        torch.cuda.synchronize()
+        over = max(((a - r).abs() - K3_GLUE_TOL * (1 + r.abs())).max().item()
+                   for a, r in ((y, yr), (hfin, hr)))
+        glue[str(shape)] = max(abs_err(y, yr), abs_err(hfin, hr))
+        if over > 0:
+            bad.append((shape, "float32", "ssd_chunked from h0",
+                        glue[str(shape)]))
+    emit({"phase": "k3_vs_plain_small", "shapes": K3_EDGE_SHAPES,
+          "tolerance_per_row": K3_TOL, "worst_row_err": worst,
+          "glue_from_h0_vs_naive_max_abs_err": glue,
+          "glue_tolerance": K3_GLUE_TOL})
+    if bad:
+        raise AssertionError(f"K3 differs from its plain version (shape, "
+                             f"dtype, output, error): {bad}")
+
+
+def serve_model(torch):
+    """The served model: full-width config, float32 parameters on the card
+    and the prompt, both from ``SERVE["seed"]``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import init_params
+
+    cfg = get_config(SERVE["arch"])
+    params = init_params(model_zoo.param_defs(cfg), SERVE["seed"],
+                         torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SERVE["seed"])
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (SERVE["batch"], SERVE["prompt"]), generator=gen,
+                           device="cuda")
+    return cfg, params, prompt
+
+
+def fresh_caches(torch, cfg):
+    """A fresh (zero) cache tree for the served batch, as the reference's
+    launcher makes it (``init_params`` of ``cache_defs``, float32)."""
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import init_params
+
+    return init_params(
+        model_zoo.cache_defs(cfg, SERVE["batch"],
+                             SERVE["prompt"] + SERVE["gen"]),
+        SERVE["seed"], torch.float32, device="cuda")
+
+
+def phase_serve_path(torch):
+    """Slice 3's path, twice: ``prefill_prompt`` then ``greedy_decode``,
+    each with the launch counts set to 0 just before and read just
+    after."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo
+    from repro_torch.tree import tree_leaves
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, prompt = serve_model(torch)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    bsz, plen, n_gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    runs = []
+    for _ in range(2):
+        caches = fresh_caches(torch, cfg)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        nxt, caches = serve.prefill_prompt(cfg, params, caches, prompt)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre = ops.launch_counts()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tokens, caches = serve.greedy_decode(cfg, params, caches, nxt, plen,
+                                             n_gen - 1)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        dec = ops.launch_counts()
+        want_pre = {n: cfg.num_layers if n == "ssd_chunk" else 0 for n in pre}
+        if pre != want_pre or set(dec.values()) != {0}:
+            raise AssertionError(
+                f"serve: launches {pre} in the prefill (designed {want_pre}: "
+                f"K3 once per layer) and {dec} in decode (designed none)")
+        if tuple(tokens.shape) != (bsz, n_gen) or not bool(
+                ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+            raise AssertionError(f"serve: tokens {tuple(tokens.shape)} out "
+                                 f"of range [0, {cfg.vocab_size})")
+        if not all(bool(torch.isfinite(x).all()) for x in tree_leaves(caches)):
+            raise AssertionError("serve: non-finite caches after decode")
+        runs.append({"prefill_ms": 1e3 * prefill_s,
+                     "prefill_tokens_per_s": bsz * plen / prefill_s,
+                     "decode_ms_per_step": 1e3 * decode_s / (n_gen - 1),
+                     "generated_tokens_per_s": bsz * (n_gen - 1) / decode_s,
+                     "call_s": prefill_s + decode_s,
+                     "launches_prefill": pre, "launches_decode": dec,
+                     "tokens": tokens})
+    peak = torch.cuda.max_memory_allocated()
+    same = bool(torch.equal(runs[0]["tokens"], runs[1]["tokens"]))
+    tokens = runs[1].pop("tokens")
+    runs[0].pop("tokens")
+
+    # the prefill's logits: prefill_prompt returns only their argmax, so
+    # compute them again (the same call, outside the counted window) and
+    # hold the path's first token against them
+    with torch.no_grad():
+        logits, _ = model_zoo.prefill(params, cfg, {"tokens": prompt},
+                                      fresh_caches(torch, cfg))
+    finite = bool(torch.isfinite(logits).all())
+    last = logits[:, -1].float()
+    top2 = last.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-4
+    agree = bool((last.argmax(-1)[clear] == tokens[clear, 0]).all())
+    logits_shape = list(logits.shape)
+    del logits
+    emit({"phase": "serve_path", "entry": "launch.serve.prefill_prompt + "
+          "greedy_decode (make_serve_step)", "serve": SERVE,
+          "config": {"layers": cfg.num_layers, "d_model": cfg.d_model,
+                     "activation_dtype": cfg.dtype,
+                     "param_dtype": "float32"},
+          "init_s": init_s, "runs": runs, "same_tokens_both_runs": same,
+          "peak_mem_bytes": peak, "prefill_logits": logits_shape,
+          "logits_finite": finite, "first_token_is_argmax": agree,
+          "sample": tokens[0, :16].tolist()})
+    if not (finite and agree):
+        raise AssertionError(f"serve: prefill logits finite {finite}, the "
+                             f"first token their argmax {agree}")
+    return cfg, params, prompt, tokens, caches, runs[1]
+
+
+def phase_serve_profile(torch, cfg, params, prompt, run):
+    """One prefill and one decode step under ``torch.profiler``: the
+    device's busy time (the sum of its kernels' and copies' own times), the
+    idle share of the path's unprofiled wall time that leaves, the number
+    of device operations and the five that take the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+    from repro_torch.train.train_step import make_serve_step
+
+    step = make_serve_step(cfg)
+    nxt, caches = serve.prefill_prompt(cfg, params, fresh_caches(torch, cfg),
+                                       prompt)
+    torch.cuda.synchronize()
+    work = {"prefill": (lambda: serve.prefill_prompt(
+        cfg, params, fresh_caches(torch, cfg), prompt), run["prefill_ms"]),
+        "decode_step": (lambda: step(params, caches, nxt, SERVE["prompt"]),
+                        run["decode_ms_per_step"])}
+    out = {}
+    for name, (fn, wall_ms) in work.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        # the device's own rows (kernels, copies, fills); a host operator's
+        # row repeats the device time of the kernels it launched
+        rows = [(e.key, e.count, e.self_device_time_total)
+                for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU]
+        rows = [r for r in rows if r[2] > 0]
+        busy_ms = sum(r[2] for r in rows) / 1e3
+        top = sorted(rows, key=lambda r: -r[2])[:5]
+        out[name] = {"device_busy_ms": busy_ms if rows else "not measured",
+                     "wall_ms_unprofiled": wall_ms,
+                     "device_idle_share": 1 - busy_ms / wall_ms if rows
+                     else "not measured",
+                     "device_ops": sum(r[1] for r in rows),
+                     "top5_ms": [(k[:60], c, t / 1e3) for k, c, t in top]}
+    emit({"phase": "serve_profile", **out})
+
+
+@contextlib.contextmanager
+def plain_k3():
+    """Within the block, ``ops.ssd_chunked`` takes K3's plain version on
+    CUDA tensors too (the in-place comparison's other side)."""
+    from repro_torch.kernels import ref, ssd_scan
+
+    kernel = ssd_scan.ssd_chunk
+    ssd_scan.ssd_chunk = ref.ssd_chunk_reference
+    try:
+        yield
+    finally:
+        ssd_scan.ssd_chunk = kernel
+
+
+def phase_k3_in_place(torch, cfg, params, prompt, tokens, caches):
+    from repro_torch.models import model_zoo, ssm
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.transformer import embed_tokens
+    from repro_torch.tree import tree_index
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+    # one block: layer 0 on the prompt, from its cache after the path
+    lay = tree_index(params["layers"], 0)
+    with torch.no_grad():
+        x = rms_norm(embed_tokens(params, cfg, prompt), lay["ln"],
+                     cfg.norm_eps)
+        cache0 = tree_index(caches, 0)
+        out_k, c_k = ssm.ssm_block(lay["ssm"], cfg, x, cache=cache0)
+        with plain_k3():
+            out_p, c_p = ssm.ssm_block(lay["ssm"], cfg, x, cache=cache0)
+    block = {"out": rel(out_k, out_p), "h": rel(c_k["h"], c_p["h"]),
+             "conv": rel(c_k["conv"], c_p["conv"])}
+    del out_k, out_p, c_k, c_p, x
+
+    # prefill then decode against one longer prefill, float32 activations
+    cfg32 = cfg.with_(dtype="float32")
+    bsz, plen, n_gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    q = cfg.ssm.chunk_size
+    long_len = -(-(plen + n_gen) // q) * q                 # 2304: 9 chunks
+    gen = torch.Generator(device="cuda").manual_seed(SERVE["seed"] + 1)
+    filler = torch.randint(0, cfg.vocab_size, (bsz, long_len - plen - n_gen),
+                           generator=gen, device="cuda")
+    with torch.no_grad():
+        logits, c = model_zoo.prefill(params, cfg32, {"tokens": prompt},
+                                      fresh_caches(torch, cfg))
+        last_prompt = logits[:, -1].clone()
+        finite = bool(torch.isfinite(logits).all())
+        del logits
+        steps = []
+        for k in range(n_gen):
+            lg, c = model_zoo.decode_step(params, cfg32, tokens[:, k:k + 1],
+                                          c, plen + k)
+            steps.append(lg[:, 0])
+            finite &= bool(torch.isfinite(lg).all())
+        steps = torch.stack(steps, dim=1)
+        del c
+        long_logits, _ = model_zoo.prefill(
+            params, cfg32,
+            {"tokens": torch.cat([prompt, tokens, filler], dim=1)},
+            fresh_caches(torch, cfg))
+        at_steps = long_logits[:, plen:plen + n_gen].clone()
+        at_last = long_logits[:, plen - 1].clone()
+        del long_logits
+    dec_err = abs_err(steps, at_steps)
+    pre_err = abs_err(last_prompt, at_last)
+    emit({"phase": "k3_in_place", "block": "layer 0 ssm_block prefill of "
+          "the path's prompt from its served cache, K3 vs plain",
+          "block_rel_err": block, "long_prefill_tokens": long_len,
+          "decode_vs_long_prefill_max_abs": dec_err,
+          "prefill_vs_long_prefill_max_abs": pre_err,
+          "logit_scale": at_steps.abs().max().item(),
+          "finite": finite, "tolerance": K3_IN_PLACE_TOL})
+    if not (finite and max(block.values()) <= K3_IN_PLACE_TOL["block_rel"]
+            and max(dec_err, pre_err)
+            <= K3_IN_PLACE_TOL["decode_vs_prefill_abs"]):
+        raise AssertionError(
+            f"K3 in place: block {block} (tolerance "
+            f"{K3_IN_PLACE_TOL['block_rel']}), decode vs prefill {dec_err}, "
+            f"prefill vs longer prefill {pre_err}, finite {finite}")
+
+
+def phase_k3_at_path_shape(torch, smi, launches, prefill_ms):
+    """K3 at the serving path's shape: its time beside its bound, the plain
+    version's, the glue's (``ops.ssd_chunked`` less K3) and K3's share of
+    the path's prefill."""
+    from repro_torch.kernels import ops, ref, ssd_scan
+
+    shape = K3_PATH_SHAPE
+    b, s, h, p, g, n, q = shape
+    args = k3_inputs(torch, shape, torch.float32, seed=5)
+    errs, err = k3_errs(torch, args, q)
+    bad = [(o, e) for o, e in errs.items() if not e <= K3_TOL["float32"][o]]
+    if bad:
+        raise AssertionError(f"K3 at the path's shape differs from its plain "
+                             f"version: {bad}")
+    n_rep = 10
+    ms = timed(lambda: ssd_scan.ssd_chunk(*args, chunk=q), n_rep, torch)
+    plain_ms = timed(lambda: ref.ssd_chunk_reference(*args, chunk=q), 3,
+                     torch)
+    chunked_ms = timed(lambda: ops.ssd_chunked(*args, chunk=q), n_rep, torch)
+
+    name = torch.cuda.get_device_name(0)
+    hbm, f32, _, label = card_peaks(name)
+    nc = s // q
+    pairs = q * (q + 1) // 2
+    flops = b * h * nc * (2 * pairs * n + 2 * pairs * p + 2 * q * n * p)
+    el = 4
+    nbytes = (2 * b * s * h * p * el + b * s * h * 4 + h * 4
+              + 2 * b * s * g * n * el + b * nc * h * (n * p + q + 1) * 4)
+    t_ops, t_bytes = flops / f32, nbytes / hbm
+    per_prefill = launches["ssd_chunk"]
+    emit({"phase": "k3_at_path_shape", "shape": shape, "dtype": "float32",
+          "row_err": errs, "max_abs_err": err, "ms": ms,
+          "achieved_TFLOPs": flops / ms / 1e9, "flops": flops,
+          "bytes": nbytes, "bound_ms": 1e3 * max(t_ops, t_bytes),
+          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+          "peak": label, "plain_ms": plain_ms,
+          "ssd_chunked_ms": chunked_ms, "glue_ms": chunked_ms - ms,
+          "launches_per_prefill": per_prefill,
+          "k3_share_of_prefill": per_prefill * ms / prefill_ms,
+          "glue_share_of_prefill": per_prefill * (chunked_ms - ms)
+          / prefill_ms, "card": smi})
+    src, replaces = KERNEL_SOURCES["ssd_chunk"]
+    return {"name": "ssd_chunk", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": per_prefill,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+
+
 def free(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -702,6 +1136,7 @@ def main() -> int:
     smi = phase_card_and_build()
     phase_small_compare(torch)
     phase_k2_small(torch)
+    phase_k3_small(torch)
     res, job, launches = phase_main_path(torch)
     phase_steady_step(torch, res, job)
     k1 = phase_kernel_at_main_shape(torch, res, smi, launches)
@@ -716,7 +1151,15 @@ def main() -> int:
     free(torch)
     k2 = phase_k2_at_path_shape(torch, smi, zlaunches, tick_ms / cells,
                                 zjob.model.num_layers)
-    emit({"kernels": [k1] + k2})
+    free(torch)
+    cfg, params, prompt, tokens, caches, run = phase_serve_path(torch)
+    phase_serve_profile(torch, cfg, params, prompt, run)
+    phase_k3_in_place(torch, cfg, params, prompt, tokens, caches)
+    del params, caches
+    free(torch)
+    k3 = phase_k3_at_path_shape(torch, smi, run["launches_prefill"],
+                                run["prefill_ms"])
+    emit({"kernels": [k1] + k2 + [k3]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

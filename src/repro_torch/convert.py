@@ -3,8 +3,9 @@
 The reference initializes with threefry draws the port cannot reproduce,
 so tests hand both packages the same state instead: the reference's
 pytrees, as nested dicts and tuples of numpy arrays, become the port's
-trees of tensors (`tree_from_reference`, `zoo_state_from_reference`), or
-its flat replica-blocked ``{"p", "v"}`` (`from_reference`)."""
+trees of tensors (`tree_from_reference`, `zoo_state_from_reference`,
+`serve_state_from_reference`), or its flat replica-blocked ``{"p", "v"}``
+(`from_reference`)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -37,6 +38,14 @@ def tree_from_reference(tree, *, device=None):
     return tree_map(lambda x: _leaf(x, device), tree)
 
 
+def _check_shapes(tree, defs, what: str, cfg: ModelConfig) -> None:
+    want = tree_leaves(map_specs(lambda _, s: str(tuple(s.shape)), defs))
+    got = [str(tuple(x.shape)) for x in tree_leaves(tree)]
+    if got != want:
+        raise ValueError(f"reference {what} {got} do not match the shapes "
+                         f"of {cfg.name}: {want}")
+
+
 def zoo_state_from_reference(model0, cfg: ModelConfig, *, device=None):
     """One replica's zoo carry from the reference's ``init_zoo_state``:
     ``(params, opt_state)`` for float32 configs, ``{"params", "master",
@@ -44,13 +53,23 @@ def zoo_state_from_reference(model0, cfg: ModelConfig, *, device=None):
     shapes `model_zoo.param_defs` gives ``cfg``."""
     state = tree_from_reference(model0, device=device)
     params = state["params"] if isinstance(state, dict) else state[0]
-    want = tree_leaves(map_specs(lambda _, s: str(tuple(s.shape)),
-                                 model_zoo.param_defs(cfg)))
-    got = [str(tuple(x.shape)) for x in tree_leaves(params)]
-    if got != want:
-        raise ValueError(f"reference params {got} do not match the shapes "
-                         f"of {cfg.name}: {want}")
+    _check_shapes(params, model_zoo.param_defs(cfg), "params", cfg)
     return state
+
+
+def serve_state_from_reference(params, caches, cfg: ModelConfig,
+                               batch: int, seq_len: int, *, device=None):
+    """A model's parameters and its decode caches (the reference's
+    ``init_params`` of ``param_defs`` and ``cache_defs``) as the port's
+    trees on ``device``. Raises if either does not have the shapes
+    `model_zoo.param_defs` and `model_zoo.cache_defs` give ``cfg`` at
+    ``batch`` and ``seq_len``."""
+    params = tree_from_reference(params, device=device)
+    caches = tree_from_reference(caches, device=device)
+    _check_shapes(params, model_zoo.param_defs(cfg), "params", cfg)
+    _check_shapes(caches, model_zoo.cache_defs(cfg, batch, seq_len),
+                  "caches", cfg)
+    return params, caches
 
 
 def from_reference(params, opt_state, cfg: ModelConfig, *,

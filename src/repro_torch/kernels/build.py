@@ -27,11 +27,13 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 #: kernel name -> source file under csrc/
 SOURCES = {"elastic_update": "elastic_update.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "ssd_scan": "ssd_scan.cu"}
 
 #: -fmad=false keeps every multiply and add separately rounded, as in the
-#: plain PyTorch versions, so the card checks K1 bit for bit. K2's inner
-#: products are explicit fmaf() calls, which the flag leaves fused.
+#: plain PyTorch versions, so the card checks K1 bit for bit. The inner
+#: products of K2 and K3 are explicit fmaf() calls, which the flag leaves
+#: fused.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")

@@ -6,10 +6,12 @@ version in ``kernels.ref``. Each keeps a count of its kernel launches, so
 a run can show that its main path went through the kernel."""
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
+
+import torch
 
 from repro_torch.kernels import flash_attention as flash
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, ssd_scan
 from repro_torch.kernels.elastic_update import elastic_sgd_update
 
 
@@ -57,11 +59,63 @@ def flash_mha(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     return out.transpose(1, 2)
 
 
+def ssd_chunked(xh, dt, a_h, bm, cm, *, chunk: int,
+                h0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD: xh (B, S, H, P), dt (B, S, H) (post-softplus), a_h (H,)
+    (negative), bm/cm (B, S, G, N), the chunk ``min(chunk, S)`` dividing S,
+    and an optional initial state h0 (B, H, P, N) (the prefill's cached
+    state; zeros when None). Returns (y (B, S, H, P) in xh's dtype, final
+    state (B, H, P, N) float32), as ``models.ssm.ssd_chunked``.
+
+    The intra-chunk terms come from K3 (``kernels.ssd_scan.ssd_chunk``) on
+    CUDA tensors, counted in ``ssd_chunked.launches``, and from
+    ``ref.ssd_chunk_reference`` on CPU tensors. The inter-chunk recurrence
+    h_c = decay_c·h_{c−1} + state_c and y_inter = exp(cs)·(C·h_{c−1}) run
+    here in plain torch, y_inter rounded to xh's dtype before it joins
+    y_intra, as the reference's ``ops.ssd_chunked_pallas`` rounds."""
+    b, s, h, p = xh.shape
+    g, n = bm.shape[2], bm.shape[3]
+    q = ssd_scan.chunk_len(chunk, s)
+    nc, rep = s // q, h // g
+    dt, a_h = dt.to(torch.float32), a_h.to(torch.float32)
+    if xh.device.type == "cpu":
+        y_intra, states, cs, decay = ref.ssd_chunk_reference(
+            xh, dt, a_h, bm, cm, chunk=q)
+    else:
+        y_intra, states, cs, decay = ssd_scan.ssd_chunk(
+            xh, dt, a_h, bm, cm, chunk=q)
+        ssd_chunked.launches += 1
+    f32 = torch.float32
+    # the state entering each chunk, laid out (B, nc, G, N, rep·P) so one
+    # batched product per (batch, chunk, group) gives every head of the
+    # group: C (Q, N) @ h (N, rep·P). Scaling by exp(cs) after the product
+    # keeps C unrepeated; torch.einsum would contract the reference's
+    # "bcqhn,bchnp,bchq" pairwise through a (B, nc, Q, H, N, P) tensor.
+    hprev = (torch.zeros((b, h, n, p), dtype=f32, device=xh.device)
+             if h0 is None else h0.to(f32).transpose(-1, -2))
+    hprevs = torch.empty((b, nc, g, n, rep, p), dtype=f32, device=xh.device)
+    for c in range(nc):
+        hprevs[:, c] = hprev.reshape(b, g, rep, n, p).transpose(2, 3)
+        hprev = hprev * decay[:, c, :, None, None] + states[:, c]
+    cg = cm.to(f32).reshape(b, nc, q, g, n).transpose(2, 3)  # (B,nc,G,Q,N)
+    y_inter = cg @ hprevs.reshape(b, nc, g, n, rep * p)      # (B,nc,G,Q,rep·P)
+    y_inter = y_inter.reshape(b, nc, g, q, rep, p) * torch.exp(
+        cs.reshape(b, nc, g, rep, q).transpose(3, 4))[..., None]
+    y_inter = y_inter.permute(0, 1, 3, 2, 4, 5).reshape(b, s, h, p)
+    y = y_intra + y_inter.to(xh.dtype)
+    return y, hprev.transpose(-1, -2).contiguous()
+
+
+ssd_chunked.launches = 0
+
+
 #: kernel name -> the wrapper that launches it
 WRAPPERS = {"elastic_sgd_update": fused_elastic_update,
             "flash_attention_fwd": flash.flash_fwd,
             "flash_attention_bwd_dkdv": flash.flash_bwd_dkdv,
-            "flash_attention_bwd_dq": flash.flash_bwd_dq}
+            "flash_attention_bwd_dq": flash.flash_bwd_dq,
+            "ssd_chunk": ssd_chunked}
 
 
 def launch_counts() -> Dict[str, int]:

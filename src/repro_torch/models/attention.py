@@ -97,11 +97,11 @@ def attention_block(p, cfg, x, qpos, *, kv_src=None, kv_pos=None, cache=None,
     if cache is not None or cache_pos is not None:
         raise NotImplementedError(
             "attention with a KV cache (decode/prefill) is not ported to "
-            "repro_torch yet: it comes with the serving slice")
+            "repro_torch yet: it comes with the dense serving slice")
     if kv_src is not None or cross_cached:
         raise NotImplementedError(
             "cross-attention is not ported to repro_torch yet: it comes "
-            "with the zoo-families slice (enc-dec) and the serving slice")
+            "with the zoo-families slice (enc-dec) and the dense serving slice")
     B, S, _ = x.shape
     dh = cfg.resolved_head_dim
     hq = p["wq"].shape[1] // dh

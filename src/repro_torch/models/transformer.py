@@ -86,7 +86,7 @@ def scan_decoder(layers_p, cfg, x, qpos, *, caches=None, cache_pos=None,
     if caches is not None:
         raise NotImplementedError(
             "decoding against layer caches is not ported to repro_torch "
-            "yet: it comes with the serving slice")
+            "yet: it comes with the dense serving slice")
     n_layers = tree_leaves(layers_p)[0].shape[0]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in range(n_layers):

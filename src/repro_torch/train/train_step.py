@@ -1,6 +1,6 @@
 """Elastic train step builders over the model zoo: the loss/gradient core
-shared by the plain train step and the zoo program, the train and eval
-steps, and the initial (params, opt_state). Gradients come from
+shared by the plain train step and the zoo program, the train, eval and
+serve steps, and the initial (params, opt_state). Gradients come from
 ``torch.autograd``."""
 from __future__ import annotations
 
@@ -134,6 +134,19 @@ def make_eval_step(cfg: ModelConfig):
                                    batch.get("label_mask"))
 
     return eval_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """One decode step: greedy next token (B, 1) and the updated caches.
+    Runs under ``torch.no_grad()``: serving keeps no graph."""
+
+    def serve_step(params, caches, tokens, pos):
+        with torch.no_grad():
+            logits, new_caches = model_zoo.decode_step(params, cfg, tokens,
+                                                       caches, pos)
+            return torch.argmax(logits[:, -1:], dim=-1), new_caches
+
+    return serve_step
 
 
 def init_train_state(cfg: ModelConfig, job: JobConfig, seed: int, *,

@@ -1,7 +1,8 @@
 """The port on the card: the CUDA kernels against their plain versions
-(K1 bit for bit; K2 forward and backward within stated tolerances), the
-engine's random bits and RNG-free market on CUDA against the CPU, a small
-megabatched run through K1 and a small zoo run through K2.
+(K1 bit for bit; K2 forward and backward and K3 within stated
+tolerances), the engine's random bits and RNG-free market on CUDA against
+the CPU, a small megabatched run through K1, a small zoo run through K2
+and a small Mamba2 served through K3.
 
 Every test here needs an NVIDIA GPU and skips itself elsewhere. The file
 imports neither ``jax`` nor the reference, so it runs on a machine that
@@ -17,7 +18,7 @@ from repro_torch.configs import ARCHS
 from repro_torch.configs.base import InputShape, JobConfig
 from repro_torch.core import bidding, strategies as strat
 from repro_torch.core.cost_model import RuntimeModel
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, ref, ssd_scan
 from repro_torch.kernels.elastic_update import elastic_sgd_update
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.sim import engine
@@ -273,3 +274,164 @@ def test_zoo_run_on_cuda_goes_through_k2(cuda_device):
                     tree_leaves(cpu.final_model)):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=5e-4,
                                    atol=1e-5)
+
+
+# ------------------------------------------------------------------ K3
+
+#: (B, S, H, P, G, N, chunk): Q = 16, 64, 100 (a ragged 64-row tile), 256
+#: and S < chunk (Q = S = 48); one and two B/C groups; P 32, 64 and 128;
+#: N 32, 64 and 128; two or more chunks wherever Q < S
+K3_SHAPES = [
+    (2, 32, 4, 32, 1, 32, 16),
+    (1, 128, 4, 64, 2, 128, 64),
+    (1, 300, 2, 64, 1, 64, 100),
+    (1, 512, 2, 64, 1, 128, 256),
+    (2, 768, 4, 32, 2, 32, 256),
+    (1, 48, 2, 128, 1, 128, 256),
+]
+
+#: K3 against its plain version per row (the last axis): the worst row's
+#: max |kernel - plain| over the larger of that row's max |plain| and the
+#: tensor's RMS. float32 sums in other orders (fmaf chains against cuBLAS,
+#: a warp scan against torch.cumsum). cs runs to about -180 over 256
+#: positions, where a float32 ulp is 1.5e-5: the two cumsums differ there
+#: by a random walk of 256 roundings of up to 7.6e-6, 1.2e-4 at one sigma,
+#: and exp(cs_i - cs_j) carries that into y, the states and the decay as a
+#: relative error. The worst of many rows sits in the tail: 5e-4 (measured
+#: on an H100 up to 1.2e-4 for y at the serving path's shape, a million
+#: rows); cs itself within 1e-5 of its row. bf16 inputs are widened exactly on both sides; y_intra is
+#: rounded to bf16 from float32 values that differ in their last bits: one
+#: ulp, at most 2^-7 of its row's largest entry, under 1e-2.
+K3_TOL = {torch.float32: {"y": 5e-4, "states": 5e-4, "cs": 1e-5,
+                          "decay": 5e-4},
+          torch.bfloat16: {"y": 1e-2, "states": 5e-4, "cs": 1e-5,
+                           "decay": 5e-4}}
+K3_OUTS = ("y", "states", "cs", "decay")
+
+
+def ssd_inputs(shape, dtype, device, seed=0):
+    """xh, dt (post-softplus), a_h < 0, bm, cm in the model's layouts."""
+    b, s, h, p, g, n = shape[:6]
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    xh = torch.randn(b, s, h, p, generator=gen) * 0.5
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=gen))
+    a_h = -torch.exp(torch.randn(h, generator=gen) * 0.2)
+    bm = torch.randn(b, s, g, n, generator=gen) * 0.3
+    cm = torch.randn(b, s, g, n, generator=gen) * 0.3
+    return (xh.to(device, dtype), dt.to(device), a_h.to(device),
+            bm.to(device, dtype), cm.to(device, dtype))
+
+
+def row_err(a, b):
+    a, b = a.float(), b.float()
+    num = (a - b).abs().amax(-1)
+    den = b.abs().amax(-1).clamp_min(b.pow(2).mean().sqrt().item())
+    return (num / den.clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K3_SHAPES)
+def test_k3_matches_plain(cuda_device, shape, dtype):
+    args = ssd_inputs(shape, dtype, cuda_device)
+    chunk = shape[6]
+    got = ssd_scan.ssd_chunk(*args, chunk=chunk)
+    want = ref.ssd_chunk_reference(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    for name, a, b in zip(K3_OUTS, got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert a.is_contiguous(), name
+        assert row_err(a, b) <= K3_TOL[dtype][name], name
+
+
+@pytest.mark.parametrize("shape", K3_SHAPES[1:4])
+def test_k3_glue_from_a_state_matches_naive_recurrence(cuda_device, shape):
+    """ops.ssd_chunked with a nonzero initial state against the per-token
+    recurrence from it, at the reference's own tolerance, one K3 launch
+    per call."""
+    b, _, h, p, _, n, chunk = shape
+    args = ssd_inputs(shape, torch.float32, cuda_device, seed=1)
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    h0 = (torch.randn(b, h, p, n, generator=gen) * 0.5).to(cuda_device)
+    ops.reset_launch_counts()
+    y, hfin = ops.ssd_chunked(*args, chunk=chunk, h0=h0)
+    assert ops.launch_counts()["ssd_chunk"] == 1
+    ops.ssd_chunked(*args, chunk=chunk, h0=h0)
+    assert ops.launch_counts()["ssd_chunk"] == 2
+    yr, hr = ref.ssd_reference(*args, h0=h0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, yr, rtol=5e-4, atol=5e-4)
+    torch.testing.assert_close(hfin, hr, rtol=5e-4, atol=5e-4)
+
+
+def test_k3_reads_strided_inputs_in_place(cuda_device):
+    """Views with other strides (heads sliced out of a wider tensor, B and
+    C sliced out of one concatenated projection, as the model hands them
+    over) give what contiguous copies give, bit for bit."""
+    shape = (2, 128, 4, 64, 1, 64, 64)
+    xh, dt, a_h, bm, cm = ssd_inputs(shape, torch.float32, cuda_device)
+    wide = torch.cat([xh, xh], dim=2)[:, :, :4]
+    bc = torch.cat([bm, cm], dim=-1)
+    dtw = torch.cat([dt, dt], dim=-1)[..., :4]
+    strided = ssd_scan.ssd_chunk(wide, dtw, a_h, bc[..., :64],
+                                 bc[..., 64:], chunk=64)
+    plain = ssd_scan.ssd_chunk(xh, dt, a_h, bm, cm, chunk=64)
+    for a, b in zip(strided, plain):
+        assert torch.equal(a, b)
+
+
+def test_k3_refuses_what_it_does_not_take(cuda_device):
+    xh, dt, a_h, bm, cm = ssd_inputs((1, 512, 4, 64, 2, 64), torch.float32,
+                                     cuda_device)
+    with pytest.raises(NotImplementedError, match="SSM training slice"):
+        ssd_scan.ssd_chunk(xh.clone().requires_grad_(), dt, a_h, bm, cm,
+                           chunk=64)
+    bad = [
+        ((xh.double(), dt, a_h, bm, cm), 64),
+        ((xh, dt, a_h, bm.bfloat16(), cm), 64),
+        ((xh, dt.cpu(), a_h, bm, cm), 64),
+        ((xh, dt, a_h, bm[:, :, :1], cm), 64),
+        ((xh[:, :, :3], dt[:, :, :3], a_h[:3], bm, cm), 64),
+        ((xh.transpose(2, 3), dt, a_h, bm, cm), 64),
+        ((xh, dt, a_h, bm, cm), 512),                    # Q > 256
+        ((xh, dt, a_h, bm, cm), 100),                    # S % Q != 0
+        ((torch.cat([xh, xh, xh], -1), dt, a_h, bm, cm), 64),   # P > 128
+        ((xh.cpu(), dt.cpu(), a_h.cpu(), bm.cpu(), cm.cpu()), 64),
+    ]
+    for args, chunk in bad:
+        with pytest.raises(ValueError):
+            ssd_scan.ssd_chunk(*args, chunk=chunk)
+
+
+def test_serving_on_cuda_goes_through_k3(cuda_device):
+    """The reduced Mamba2 served on the card: K3 launched once per layer in
+    the prefill and never in decode, logits and caches within float32
+    reduction-order tolerance of the CPU run (which takes the plain
+    version), the same greedy tokens."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import init_params
+    from repro_torch.tree import tree_map
+
+    cfg = ARCHS["mamba2-1.3b"].reduced()
+    params = init_params(model_zoo.param_defs(cfg), 0, device="cpu")
+    caches = init_params(model_zoo.cache_defs(cfg, 2, 160), 0, device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 128),
+                           generator=torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        p = tree_map(lambda t: t.to(dev), params)
+        c = tree_map(lambda t: t.to(dev), caches)
+        ops.reset_launch_counts()
+        nxt, c = serve.prefill_prompt(cfg, p, c, prompt.to(dev))
+        n_prefill = ops.launch_counts()["ssd_chunk"]
+        toks, c = serve.greedy_decode(cfg, p, c, nxt, 128, 8)
+        n_decode = ops.launch_counts()["ssd_chunk"] - n_prefill
+        runs[str(dev)] = (toks.cpu(), {k: v.cpu() for k, v in c.items()},
+                          n_prefill, n_decode)
+    cpu, gpu = runs["cpu"], runs[str(cuda_device)]
+    assert cpu[2:] == (0, 0)
+    assert gpu[2:] == (cfg.num_layers, 0)
+    assert torch.equal(gpu[0], cpu[0])
+    for k in ("h", "conv"):
+        torch.testing.assert_close(gpu[1][k], cpu[1][k], rtol=1e-4,
+                                   atol=1e-4)
