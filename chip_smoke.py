@@ -7,11 +7,16 @@ Phases, each printing one JSON line and raising on failure:
 
 1. the card's name and power limit (``nvidia-smi``), then the build of
    every kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a, one process
-   per source, all at once) with each kernel's ``ptxas`` report;
+   per source, all at once) with each kernel's ``ptxas`` report, and the
+   count of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in
+   the tensor-core forward's SASS (``cuobjdump -sass``), neither of which
+   may be 0;
 2. each kernel against its plain PyTorch version on the card: K1 bit for
    bit on edge-case rows at a ragged width; K2 forward and backward on
    edge shapes (GQA g = 7, head_dim 64 and 128, float32 and bf16, ragged
-   S and T, windows, a query offset) within stated tolerances;
+   S and T, windows, a query offset) within stated tolerances: float32
+   through the CUDA-core forward, bf16 through the tensor-core forward
+   (its lse too), each backward from that forward's output and lse;
 3. slice 1's path through the launcher's own entry points: elastic
    megabatch training of full-width Qwen2-7B at depth 2 in float32, a
    grid of one strategy × 2 seeds (R = 2), the fused update through K1.
@@ -23,8 +28,9 @@ Phases, each printing one JSON line and raising on failure:
 4. slice 2's path: ``trainer.train_zoo`` of full-width Qwen2-7B at depth
    2 in bf16 mixed precision with ``use_flash_attention`` (K2), the same
    strategy, market and 2 seeds, 8 workers, batch 8, sequence 1024. Checks
-   finite losses, first losses near ln V and K2's launches (one forward
-   and one of each backward kernel per layer, cell and tick); reports time
+   finite losses, first losses near ln V and K2's launches (one
+   tensor-core forward and one of each backward kernel per layer, cell and
+   tick, and no CUDA-core forward); reports time
    per tick, a steady step over both cells, tokens per second and peak
    memory; one zoo step on the initial weights with K2 against the same
    step through the plain attention core (the loss and each attention
@@ -32,7 +38,8 @@ Phases, each printing one JSON line and raising on failure:
    (B 8, H 28, Hkv 4, S = T = 1023, D 128, bf16, causal): each kernel's
    time beside its bound, the plain version's time and
    ``scaled_dot_product_attention``'s (timed here only; the port never
-   calls it);
+   calls it), the CUDA-core forward's bf16 time beside the tensor-core
+   forward's;
 5. slice 3's path: serving full-width Mamba2-1.3B (48 layers, float32
    parameters initialised on the card, bf16 activations) through
    ``launch.serve``'s ``prefill_prompt`` (batch 8, a 2048-token prompt)
@@ -63,6 +70,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -93,10 +101,21 @@ KERNEL_SOURCES = {"elastic_sgd_update": (
     "src/repro_torch/csrc/elastic_update.cu",
     "src/repro/kernels/elastic_update.py:56"),
     "flash_attention_fwd": K2_SOURCE,
+    "flash_attention_fwd_tc": ("src/repro_torch/csrc/flash_attention_sm90.cu",
+                               "src/repro/kernels/flash_attention.py:88"),
     "flash_attention_bwd_dkdv": K2_SOURCE,
     "flash_attention_bwd_dq": K2_SOURCE}
-K2_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
-              "flash_attention_bwd_dq")
+#: the CUDA-core forward takes float32 (and bf16 when called directly); the
+#: tensor-core forward takes bf16, which is what the zoo path runs
+K2_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_tc",
+              "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+K2_ZOO_KERNELS = ("flash_attention_fwd_tc", "flash_attention_bwd_dkdv",
+                  "flash_attention_bwd_dq")
+#: the forward each dtype routes to (kernels.flash_attention.forward_for)
+K2_FWD_OF = {"float32": "flash_attention_fwd",
+             "bfloat16": "flash_attention_fwd_tc"}
+#: instructions the tensor-core forward's SASS must hold: wgmma and TMA
+TC_OPCODES = ("HGMMA", "UTMALDG")
 KERNEL_SOURCES["ssd_chunk"] = ("src/repro_torch/csrc/ssd_scan.cu",
                                "src/repro/kernels/ssd_scan.py:72")
 
@@ -115,10 +134,23 @@ KERNEL_SOURCES["ssd_chunk"] = ("src/repro_torch/csrc/ssd_scan.cu",
 #: beside the row's dQ. The inputs are seeded, so the errors repeat from
 #: run to run; on an H100 the worst were, float32 over the shapes below:
 #: 3.1e-6 (out), 1.3e-5 (dq), 6.2e-6 (dk, dv); bf16 over those and the
-#: path's shape: 7.4e-3 (out), 9.2e-2 (dq), 7.8e-3 (dk, dv).
+#: path's shape: 7.4e-3 (out), 9.2e-2 (dq), 7.8e-3 (dk, dv). The bf16
+#: forward runs on the tensor cores, which take P = exp(s - m) rounded to
+#: bf16 before P·V where the plain version keeps it float32: a unit
+#: roundoff of 2^-8 on each weight, summed over hundreds of keys with random
+#: signs, about 1e-3 of a row's largest output (3.3e-3 in the worst row of
+#: tests/test_torch_flash_tc.py's shapes), under the one-ulp 1e-2. Its
+#: worst row measured on an H100 over these shapes and the path's: 7.8e-3
+#: (out); the backward from its output and lse 9.0e-2 (dq, at the path's
+#: shape), 7.8e-3 (dk, dv).
 K2_TOL = {"float32": {"out": 1e-5, "dq": 5e-5, "dk": 2e-5, "dv": 2e-5},
           "bfloat16": {"out": 1e-2, "dq": 0.1, "dk": 1e-2, "dv": 1e-2}}
 K2_GRADS = ("out", "dq", "dk", "dv")
+#: the tensor-core forward's lse (float32) against the plain version's
+#: logsumexp of the same float32 scores, absolute: the two sum the scores
+#: in other orders, and an lse of 5 to 12 has an ulp of 9.5e-7 (measured
+#: on an H100: 9.5e-7), so ten ulps
+K2_LSE_TOL = 1e-5
 
 #: K2 on edge shapes: (B, S, T, H, Hkv, D, causal, window, q_offset)
 K2_EDGE_SHAPES = [
@@ -239,7 +271,31 @@ def phase_card_and_build():
                           "ptxas": [ln.strip() for ln in r.ptxas.splitlines()
                                     if "registers" in ln or "spill" in ln]}
                       for n, r in records.items()}})
+    phase_sass(records["flash_attention_sm90"].path)
     return smi
+
+
+def phase_sass(lib_path):
+    """Count the tensor-core forward's wgmma (``HGMMA``) and TMA load
+    (``UTMALDG``) instructions in its library's SASS: the forward really
+    runs on the tensor cores and is fed by TMA only if neither is 0."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", lib_path],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    ops = []
+    for ln in sass.splitlines():      # "/*0a50*/  [@P0] OPCODE.MODS ..."
+        words = ln.split()
+        if len(words) > 2 and words[0].startswith("/*") \
+                and words[0].endswith("*/"):
+            ops.append(words[2 if words[1].startswith("@") else 1])
+    counts = {op: sum(o.split(".")[0] == op for o in ops)
+              for op in TC_OPCODES}
+    emit({"phase": "sass", "library": os.path.relpath(lib_path, ROOT),
+          "instructions": len(ops), "counts": counts})
+    if not all(counts.values()):
+        raise AssertionError(f"the tensor-core forward's SASS lacks "
+                             f"{[op for op, n in counts.items() if not n]}")
 
 
 def edge_inputs(torch, r, p, seed=0):
@@ -478,25 +534,48 @@ def k2_check(errs, dtype: str, where) -> list:
 
 
 def phase_k2_small(torch):
-    worst, bad = {}, []
+    """Through ``ops.flash_mha`` (the forward of the dtype's route and
+    both backward kernels) against autograd through the plain version;
+    then the tensor-core forward's lse against the plain logsumexp."""
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import ops, ref
+
+    worst, bad, lse_err = {}, [], 0.0
     for dtype in (torch.float32, torch.bfloat16):
         key = str(dtype).split(".")[-1]
         worst[key] = dict.fromkeys(K2_GRADS, 0.0)
         for shape in K2_EDGE_SHAPES:
             causal, window, q_offset = shape[6:]
             mask = dict(causal=causal, window=window, q_offset=q_offset)
-            kern, plain = k2_both(torch, *k2_inputs(torch, shape, dtype),
-                                  mask)
+            inputs = k2_inputs(torch, shape, dtype)
+            ops.reset_launch_counts()
+            kern, plain = k2_both(torch, *inputs, mask)
+            fwd = {n: c for n, c in ops.launch_counts().items()
+                   if n in K2_FWD_OF.values()}
+            if fwd != {n: int(n == K2_FWD_OF[key])
+                       for n in K2_FWD_OF.values()}:
+                raise AssertionError(f"K2 {key} forward launches {fwd}: "
+                                     f"{K2_FWD_OF[key]} is its route")
             errs = {n: row_err(a, b) for n, a, b in zip(K2_GRADS, kern,
                                                          plain)}
             bad += k2_check(errs, key, shape)
             for n, e in errs.items():
                 worst[key][n] = max(worst[key][n], e)
+            if dtype == torch.bfloat16:
+                qt, kt, vt = (x.transpose(1, 2) for x in inputs[:3])
+                _, lse = flash.flash_fwd_tc(qt, kt, vt, **mask)
+                lse_err = max(lse_err, abs_err(
+                    lse, ref.mha_lse_reference(qt, kt, **mask)))
     emit({"phase": "k2_vs_plain_small", "shapes": K2_EDGE_SHAPES,
-          "tolerance_per_row": K2_TOL, "worst_row_err": worst})
+          "forward_of": K2_FWD_OF, "tolerance_per_row": K2_TOL,
+          "worst_row_err": worst, "tc_lse_abs_err": lse_err,
+          "lse_tolerance": K2_LSE_TOL})
     if bad:
         raise AssertionError(f"K2 differs from its plain version (shape, "
                              f"dtype, tensor, per-row error): {bad}")
+    if not lse_err <= K2_LSE_TOL:
+        raise AssertionError(f"the tensor-core forward's lse differs from "
+                             f"the plain logsumexp by {lse_err}")
 
 
 def zoo_job_and_scenario():
@@ -543,7 +622,7 @@ def phase_zoo_path(torch):
                              f"{math.log(vocab):.3f}")
     # every cell's step runs on every tick (idle ones are gated away)
     per_kernel = job.model.num_layers * cells * n_ticks
-    want = {n: per_kernel if n in K2_KERNELS else 0 for n in launches}
+    want = {n: per_kernel if n in K2_ZOO_KERNELS else 0 for n in launches}
     if launches != want:
         raise AssertionError(f"zoo: kernel launches {launches}, designed "
                              f"{want} ({job.model.num_layers} layers × "
@@ -648,7 +727,9 @@ def valid_pairs(s, t, causal, window, q_offset) -> int:
 def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
     """K2 at the zoo path's shape, in the model layout it receives there:
     each kernel's time beside its bound, the plain version's and
-    ``scaled_dot_product_attention``'s."""
+    ``scaled_dot_product_attention``'s. The path runs the tensor-core
+    forward; the CUDA-core forward is held and timed here in bf16 beside
+    it."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import ops, ref
@@ -659,18 +740,28 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
     q, k, v, do = k2_inputs(torch, shape, torch.bfloat16, seed=5)
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     kern, plain = k2_both(torch, q, k, v, do, mask)
-    errs = {"flash_attention_fwd": abs_err(kern[0], plain[0]),
+    cuda_core_out, _ = flash.flash_fwd(qt, kt, vt, **mask)
+    errs = {"flash_attention_fwd_tc": abs_err(kern[0], plain[0]),
+            "flash_attention_fwd": abs_err(cuda_core_out.transpose(1, 2),
+                                           plain[0]),
             "flash_attention_bwd_dq": abs_err(kern[1], plain[1]),
             "flash_attention_bwd_dkdv": max(abs_err(kern[2], plain[2]),
                                             abs_err(kern[3], plain[3]))}
     rels = {n: row_err(a, c) for n, a, c in zip(K2_GRADS, kern, plain)}
     bad = k2_check(rels, "bfloat16", shape)
+    cuda_core_rel = row_err(cuda_core_out.transpose(1, 2), plain[0])
+    if not cuda_core_rel <= K2_TOL["bfloat16"]["out"]:
+        bad.append((shape, "bfloat16", "flash_attention_fwd out",
+                    cuda_core_rel))
+    del cuda_core_out
     if bad:
         raise AssertionError(f"K2 at the path's shape differs from its plain "
                              f"version: {bad}")
-    out, lse = flash.flash_fwd(qt, kt, vt, **mask)
+    out, lse = flash.flash_fwd_tc(qt, kt, vt, **mask)
     n = 10
-    ms = {"flash_attention_fwd": timed(
+    ms = {"flash_attention_fwd_tc": timed(
+        lambda: flash.flash_fwd_tc(qt, kt, vt, **mask), 5 * n, torch),
+        "flash_attention_fwd": timed(
         lambda: flash.flash_fwd(qt, kt, vt, **mask), n, torch),
         "flash_attention_bwd_dkdv": timed(
             lambda: flash.flash_bwd_dkdv(qt, kt, vt, out, lse, dot, **mask),
@@ -699,7 +790,8 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
             o, leaves[1:], dot, retain_graph=True), reps, torch)
         q_ms = timed(lambda: torch.autograd.grad(
             o, leaves[:1], dot, retain_graph=True), reps, torch)
-        return {"flash_attention_fwd": f_ms, "flash_attention_bwd_dkdv": kv_ms,
+        return {"flash_attention_fwd": f_ms, "flash_attention_fwd_tc": f_ms,
+                "flash_attention_bwd_dkdv": kv_ms,
                 "flash_attention_bwd_dq": q_ms}
 
     plain_ms = split_times(lambda a, b_, c: ref.mha_reference(
@@ -713,9 +805,9 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
     el = 2                                     # bytes per bf16 element
     q_bytes, kv_bytes = b * s * h * d * el, b * t * hkv * d * el
     lse_bytes = b * h * s * 4
+    fwd_work = (4 * b * h * d * pairs, 2 * q_bytes + 2 * kv_bytes + lse_bytes)
     work = {  # (FLOP, bytes): products × 2·pairs·D per head; reads, writes
-        "flash_attention_fwd": (4 * b * h * d * pairs,
-                                2 * q_bytes + 2 * kv_bytes + lse_bytes),
+        "flash_attention_fwd": fwd_work, "flash_attention_fwd_tc": fwd_work,
         "flash_attention_bwd_dkdv": (8 * b * h * d * pairs,
                                      3 * q_bytes + 4 * kv_bytes + lse_bytes),
         "flash_attention_bwd_dq": (6 * b * h * d * pairs,
@@ -733,7 +825,7 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
                      "bound_by": "operations" if t_ops >= t_bytes
                      else "bytes",
                      "library_ms": library_ms[kname]})
-    fb_flops = sum(work[kk][0] for kk in K2_KERNELS)
+    fb_flops = sum(work[kk][0] for kk in K2_ZOO_KERNELS)
     emit({"phase": "k2_at_path_shape", "shape": shape, "dtype": "bfloat16",
           "valid_pairs": pairs, "row_err": rels, "peak": label,
           "kernels": {r["name"]: {kk: r[kk] for kk in
@@ -742,7 +834,10 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
                       for r in rows},
           "achieved_TFLOPs": {kk: work[kk][0] / ms[kk] / 1e9
                               for kk in K2_KERNELS},
-          "fwd_ms": ms["flash_attention_fwd"], "fwd_bwd_ms": fwd_bwd_ms,
+          "fwd_ms": ms["flash_attention_fwd_tc"],
+          "cuda_core_fwd_ms": ms["flash_attention_fwd"],
+          "fwd_speedup_over_cuda_core": ms["flash_attention_fwd"]
+          / ms["flash_attention_fwd_tc"], "fwd_bwd_ms": fwd_bwd_ms,
           "fwd_bwd_bound_ms": 1e3 * fb_flops / bf16,
           "plain_fwd_bwd_ms": sum(plain_ms.values()),
           "library_fwd_ms": library_ms["flash_attention_fwd"],

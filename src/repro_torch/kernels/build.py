@@ -28,6 +28,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 #: kernel name -> source file under csrc/
 SOURCES = {"elastic_update": "elastic_update.cu",
            "flash_attention": "flash_attention.cu",
+           "flash_attention_sm90": "flash_attention_sm90.cu",
            "ssd_scan": "ssd_scan.cu"}
 
 #: -fmad=false keeps every multiply and add separately rounded, as in the

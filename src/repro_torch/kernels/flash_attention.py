@@ -9,13 +9,17 @@ taken as long as the head dimension is contiguous, so `kernels.ops.
 flash_mha` hands over the model's (B, S, H, D) tensors as transposed views
 and the kernels read them in place.
 
-The kernels are CUDA C++ in ``csrc/flash_attention.cu`` (its header says
-what bounds them and how they are laid out): a forward that also writes the
-per-row logsumexp (B, H, S) in float32, and a FlashAttention-2 backward in
-two kernels, one for dK/dV per (key tile, kv head) and one for dQ per
-(query tile, head), which recompute the probabilities from that
-logsumexp. `flash_attention` joins them in a ``torch.autograd.Function``.
-Each launch function keeps a count of its launches. The plain version of
+The kernels are CUDA C++ (each source's header says what bounds it and
+how it is laid out). Two forwards, each also writing the per-row
+logsumexp (B, H, S) in float32: ``csrc/flash_attention_sm90.cu`` runs
+bf16 inputs on the tensor cores (wgmma, tiles loaded by TMA), and
+``csrc/flash_attention.cu`` runs float32 inputs on the CUDA cores (TF32
+would change float32 results); `forward_for` picks one by dtype alone.
+``csrc/flash_attention.cu`` also holds a FlashAttention-2 backward in two
+kernels, one for dK/dV per (key tile, kv head) and one for dQ per (query
+tile, head), which recompute the probabilities from that logsumexp.
+`flash_attention` joins them in a ``torch.autograd.Function``. Each
+launch function keeps a count of its launches. The plain version of
 both directions is ``kernels.ref.mha_reference`` under autograd;
 ``kernels.ops.flash_mha`` picks between the two by the device of the
 tensors."""
@@ -47,14 +51,27 @@ _ARGTYPES = {
 }
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("flash_attention")
-    for name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, name)
+#: head_dim, q, k, v, o, lse, strides, problem
+_ARGTYPES_TC = {"flash_attention_fwd_tc": [ctypes.c_int]
+                + [ctypes.c_void_p] * 6 + _COMMON}
+
+
+def _bind(name: str, argtypes_by_fn) -> ctypes.CDLL:
+    lib = build.load(name)
+    for fn_name, argtypes in argtypes_by_fn.items():
+        fn = getattr(lib, fn_name)
         if fn.argtypes is None:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
+
+
+def _lib() -> ctypes.CDLL:
+    return _bind("flash_attention", _ARGTYPES)
+
+
+def _lib_tc() -> ctypes.CDLL:
+    return _bind("flash_attention_sm90", _ARGTYPES_TC)
 
 
 def rows_without_keys(s: int, t: int, *, causal: bool,
@@ -127,8 +144,39 @@ def _stream(t) -> int:
 
 
 def _raise_on(err: int, what: str) -> None:
+    if err < 0:
+        raise RuntimeError(f"{what}: a TMA tensor map could not be encoded "
+                           f"(CUresult {-err})")
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def tma_refusal(shape, strides, address: int, itemsize: int = 2
+                ) -> Optional[str]:
+    """Why TMA cannot load a (B, H, S, D) tensor of this shape, element
+    strides and base byte address, or None when it can: head_dim 64 or 128
+    with a unit stride, the base on 16 bytes, and the stride of every other
+    dimension longer than 1 a positive multiple of 16 bytes. TMA never
+    steps along a dimension of length 1, so that stride is not checked
+    (`_tma_strides` hands the kernel one TMA takes)."""
+    if shape[-1] not in HEAD_DIMS:
+        return f"head_dim {shape[-1]} is not one of {HEAD_DIMS}"
+    if strides[-1] != 1:
+        return f"the head dimension has stride {strides[-1]}, not 1"
+    if address % 16:
+        return f"base address {address:#x} is not a multiple of 16 bytes"
+    for n, st in zip(shape[:-1], strides[:-1]):
+        if n > 1 and (st <= 0 or st * itemsize % 16):
+            return (f"stride {st} ({st * itemsize} bytes) is not a positive "
+                    "multiple of 16 bytes")
+    return None
+
+
+def _tma_strides(t):
+    """t's (batch, head, position) element strides, the head dimension's
+    length standing in for the stride of a dimension of length 1."""
+    return [st if n > 1 else t.shape[-1]
+            for n, st in zip(t.shape[:3], t.stride()[:3])]
 
 
 def flash_fwd(q, k, v, *, causal: bool, window: Optional[int],
@@ -149,6 +197,50 @@ def flash_fwd(q, k, v, *, causal: bool, window: Optional[int],
     _raise_on(err, "flash_attention_fwd")
     flash_fwd.launches += 1
     return out, lse
+
+
+def flash_fwd_tc(q, k, v, *, causal: bool, window: Optional[int],
+                 q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the tensor-core forward kernel (bf16 only): returns (out laid
+    out like q, lse (B, H, S) float32), the same function as `flash_fwd`
+    with P rounded to bf16 before P·V. Raises on arguments it does not
+    take, TMA's alignment rules included, and when the launch is
+    refused; it never falls back to another kernel."""
+    _check(q, k, v, causal, window, q_offset)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_fwd_tc takes bfloat16, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        why = tma_refusal(tuple(t.shape), t.stride(), t.data_ptr(),
+                          t.element_size())
+        if why is not None:
+            raise ValueError(f"flash_fwd_tc: TMA cannot load {name}: {why}")
+    lib = _lib_tc()
+    b, h, s, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    flat = (_tma_strides(q) + _tma_strides(k) + _tma_strides(v)
+            + list(out.stride()[:3]))
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_fwd_tc(
+            d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), (ctypes.c_longlong * len(flat))(*flat),
+            *_problem(q, k, causal, window, q_offset), _stream(q))
+    _raise_on(err, "flash_attention_fwd_tc")
+    flash_fwd_tc.launches += 1
+    return out, lse
+
+
+def forward_for(dtype: torch.dtype):
+    """The forward kernel's launch function for inputs of this dtype:
+    bf16 runs on the tensor cores (`flash_fwd_tc`), float32 on the CUDA
+    cores (`flash_fwd`: TF32 would change float32 results). Any other
+    dtype raises."""
+    if dtype == torch.bfloat16:
+        return flash_fwd_tc
+    if dtype == torch.float32:
+        return flash_fwd
+    raise ValueError(f"flash_attention takes float32 or bfloat16, got "
+                     f"{dtype}")
 
 
 def flash_bwd_dkdv(q, k, v, out, lse, dout, *, causal: bool,
@@ -187,18 +279,20 @@ def flash_bwd_dq(q, k, v, out, lse, dout, *, causal: bool,
 
 
 flash_fwd.launches = 0
+flash_fwd_tc.launches = 0
 flash_bwd_dkdv.launches = 0
 flash_bwd_dq.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel, and the two backward kernels as its gradient.
-    The forward saves q, k, v, the output and the float32 logsumexp."""
+    """The forward kernel of q's dtype (`forward_for`), and the two backward
+    kernels as its gradient. The forward saves q, k, v, the output and the
+    float32 logsumexp."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset):
-        out, lse = flash_fwd(q, k, v, causal=causal, window=window,
-                             q_offset=q_offset)
+        out, lse = forward_for(q.dtype)(q, k, v, causal=causal,
+                                        window=window, q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
         return out
@@ -222,7 +316,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0) -> torch.Tensor:
     """q: (B, H, S, D); k/v: (B, Hkv, T, D) CUDA tensors with H = G·Hkv,
-    float32 or bfloat16, head_dim 64 or 128. Differentiable: the gradient
-    runs the two backward kernels. Raises on anything the kernels do not
-    take, CPU tensors included."""
+    float32 or bfloat16, head_dim 64 or 128. The forward runs on the
+    tensor cores for bfloat16 and on the CUDA cores for float32.
+    Differentiable: the gradient runs the two backward kernels. Raises on
+    anything the kernels do not take, CPU tensors included."""
     return _FlashAttention.apply(q, k, v, causal, window, q_offset)

@@ -45,7 +45,8 @@ def flash_mha(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     (B, S, H, D), differentiable.
 
     On CUDA tensors this runs K2 (``kernels.flash_attention``): the forward
-    kernel, and the two backward kernels as its gradient, each counting its
+    kernel of the dtype (tensor cores for bf16, CUDA cores for float32),
+    and the two backward kernels as its gradient, each counting its
     launches. The kernels read the model's layout through transposed views,
     and the output and gradients come back in it, so nothing is copied. On
     CPU tensors it runs ``ref.mha_reference`` under autograd."""
@@ -113,6 +114,7 @@ ssd_chunked.launches = 0
 #: kernel name -> the wrapper that launches it
 WRAPPERS = {"elastic_sgd_update": fused_elastic_update,
             "flash_attention_fwd": flash.flash_fwd,
+            "flash_attention_fwd_tc": flash.flash_fwd_tc,
             "flash_attention_bwd_dkdv": flash.flash_bwd_dkdv,
             "flash_attention_bwd_dq": flash.flash_bwd_dq,
             "ssd_chunk": ssd_chunked}

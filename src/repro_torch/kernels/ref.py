@@ -9,20 +9,15 @@ import torch
 NEG_INF = -1e30
 
 
-def mha_reference(q, k, v, *, causal: bool = True,
-                  window: Optional[int] = None, q_offset: int = 0
-                  ) -> torch.Tensor:
-    """Plain version of `kernels.flash_attention.flash_attention`: dense
-    softmax attention in float32, kv heads repeated for GQA, masked scores
-    set to the finite ``NEG_INF``. q: (B, H, S, D); k/v: (B, Hkv, T, D);
-    returns (B, H, S, D) in q's dtype. Its backward is autograd through
-    it."""
+def _masked_scores(q, k, causal: bool, window: Optional[int],
+                   q_offset: int) -> torch.Tensor:
+    """(B, H, S, T) float32 scores q·k·D^-1/2 of q (B, H, S, D) against k
+    (B, Hkv, T, D), kv heads repeated for GQA, masked scores set to the
+    finite ``NEG_INF``."""
     b, h, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
-    g = h // hkv
-    if g > 1:
-        k = k.repeat_interleave(g, dim=1)
-        v = v.repeat_interleave(g, dim=1)
+    if h // hkv > 1:
+        k = k.repeat_interleave(h // hkv, dim=1)
     scores = torch.einsum("bhsd,bhtd->bhst", q.to(torch.float32),
                           k.to(torch.float32)) * d ** -0.5
     qpos = torch.arange(s, device=q.device)[:, None] + q_offset
@@ -32,10 +27,32 @@ def mha_reference(q, k, v, *, causal: bool = True,
         mask = mask & (kpos <= qpos)
     if window is not None:
         mask = mask & (qpos - kpos < window)
-    scores = torch.where(mask, scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
+    return torch.where(mask, scores, NEG_INF)
+
+
+def mha_reference(q, k, v, *, causal: bool = True,
+                  window: Optional[int] = None, q_offset: int = 0
+                  ) -> torch.Tensor:
+    """Plain version of `kernels.flash_attention.flash_attention`: dense
+    softmax attention in float32, kv heads repeated for GQA, masked scores
+    set to the finite ``NEG_INF``. q: (B, H, S, D); k/v: (B, Hkv, T, D);
+    returns (B, H, S, D) in q's dtype. Its backward is autograd through
+    it."""
+    g = q.shape[1] // k.shape[1]
+    if g > 1:
+        v = v.repeat_interleave(g, dim=1)
+    p = torch.softmax(_masked_scores(q, k, causal, window, q_offset), dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", p,
                         v.to(torch.float32)).to(q.dtype)
+
+
+def mha_lse_reference(q, k, *, causal: bool = True,
+                      window: Optional[int] = None, q_offset: int = 0
+                      ) -> torch.Tensor:
+    """Plain version of the forward kernels' second output, the per-row
+    logsumexp of the masked float32 scores: (B, H, S) float32."""
+    return torch.logsumexp(_masked_scores(q, k, causal, window, q_offset),
+                           dim=-1)
 
 
 def elastic_update_reference(params, mom, grads, w_sum, running, lr, *,

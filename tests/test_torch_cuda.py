@@ -1,8 +1,9 @@
 """The port on the card: the CUDA kernels against their plain versions
 (K1 bit for bit; K2 forward and backward and K3 within stated
-tolerances), the engine's random bits and RNG-free market on CUDA against
-the CPU, a small megabatched run through K1, a small zoo run through K2
-and a small Mamba2 served through K3.
+tolerances; K2's tensor-core forward for bf16 beside its CUDA-core
+forward), the engine's random bits and RNG-free market on CUDA against
+the CPU, a small megabatched run through K1, small zoo runs through K2
+(float32 and bf16) and a small Mamba2 served through K3.
 
 Every test here needs an NVIDIA GPU and skips itself elsewhere. The file
 imports neither ``jax`` nor the reference, so it runs on a machine that
@@ -20,6 +21,7 @@ from repro_torch.core import bidding, strategies as strat
 from repro_torch.core.cost_model import RuntimeModel
 from repro_torch.kernels import ops, ref, ssd_scan
 from repro_torch.kernels.elastic_update import elastic_sgd_update
+from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.sim import engine
 from repro_torch.train import megabatch as mb
@@ -177,7 +179,8 @@ def rel_err(a, b):
 def test_k2_forward_and_backward_match_plain(cuda_device, shape, dtype):
     """Through ``ops.flash_mha`` in the model layout (B, S, H, D), which
     hands the kernels strided views: output and dq/dk/dv against autograd
-    through the plain version; each kernel launched once."""
+    through the plain version; the dtype's forward (tensor cores for bf16,
+    CUDA cores for float32) and each backward kernel launched once."""
     causal, window, q_offset = shape[6:]
     q, k, v, do = k2_inputs(shape, dtype, cuda_device)
     mask = dict(causal=causal, window=window, q_offset=q_offset)
@@ -191,7 +194,9 @@ def test_k2_forward_and_backward_match_plain(cuda_device, shape, dtype):
     got_g = torch.autograd.grad(out, mine, do)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    assert counts["flash_attention_fwd"] == 1
+    tc = dtype == torch.bfloat16
+    assert counts["flash_attention_fwd_tc"] == int(tc)
+    assert counts["flash_attention_fwd"] == int(not tc)
     assert counts["flash_attention_bwd_dkdv"] == 1
     assert counts["flash_attention_bwd_dq"] == 1
     assert out.dtype == dtype and out.shape == q.shape
@@ -238,6 +243,85 @@ def test_k2_refuses_what_it_does_not_take(cuda_device):
             flash_attention(a, b, c, **kw)
 
 
+#: the tensor-core forward per row (row_err: the worst row's max |a - b|
+#: over the larger of its max |b| and the tensor's RMS). Against the plain
+#: version: one bf16 ulp of the output (2^-7 of the row's largest) plus P
+#: rounded to bf16 before P·V (about 1e-3), under 1e-2 as chip_smoke.py's
+#: K2_TOL. Against the CUDA-core forward: each rounds its float32 result to
+#: bf16 once, so two ulps. lse: float32 sums of the same scores in other
+#: orders, ten ulps of an lse near 8 (measured on an H100: 9.5e-7).
+K2_TC_TOL = {"out": 1e-2, "out_vs_cuda_core": 2e-2, "lse": 1e-5}
+
+
+@pytest.mark.parametrize("shape", K2_SHAPES)
+def test_k2_tc_forward_matches_plain_out_and_lse(cuda_device, shape):
+    causal, window, q_offset = shape[6:]
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    q, k, v, _ = k2_inputs(shape, torch.bfloat16, cuda_device)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ops.reset_launch_counts()
+    out, lse = flash.flash_fwd_tc(qt, kt, vt, **mask)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention_fwd_tc"] == 1
+    assert out.dtype == torch.bfloat16 and out.stride() == qt.stride()
+    assert lse.dtype == torch.float32 and lse.shape == qt.shape[:3]
+    assert row_err(out, ref.mha_reference(qt, kt, vt, **mask)) \
+        <= K2_TC_TOL["out"]
+    lse_plain = ref.mha_lse_reference(qt, kt, **mask)
+    assert (lse - lse_plain).abs().max().item() <= K2_TC_TOL["lse"]
+
+
+@pytest.mark.parametrize("shape", K2_SHAPES)
+def test_k2_tc_forward_matches_cuda_core_forward(cuda_device, shape):
+    causal, window, q_offset = shape[6:]
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    q, k, v, _ = k2_inputs(shape, torch.bfloat16, cuda_device, seed=2)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out, lse = flash.flash_fwd_tc(qt, kt, vt, **mask)
+    old, old_lse = flash.flash_fwd(qt, kt, vt, **mask)
+    torch.cuda.synchronize()
+    assert row_err(out, old) <= K2_TC_TOL["out_vs_cuda_core"]
+    assert (lse - old_lse).abs().max().item() <= K2_TC_TOL["lse"]
+
+
+def test_k2_tc_forward_reads_model_layout_in_place(cuda_device):
+    """The (B, S, H, D) tensors through transposed views give what
+    contiguous (B, H, S, D) copies give, bit for bit, and the output keeps
+    the model's layout."""
+    q, k, v, _ = k2_inputs((2, 130, 130, 14, 2, 128), torch.bfloat16,
+                           cuda_device, seed=4)
+    views = [x.transpose(1, 2) for x in (q, k, v)]
+    out_v, lse_v = flash.flash_fwd_tc(*views, causal=True, window=None,
+                                      q_offset=0)
+    out_c, lse_c = flash.flash_fwd_tc(*(x.contiguous() for x in views),
+                                      causal=True, window=None, q_offset=0)
+    assert out_v.stride() == views[0].stride()
+    assert out_v.transpose(1, 2).is_contiguous()
+    assert torch.equal(out_v, out_c) and torch.equal(lse_v, lse_c)
+
+
+def test_k2_tc_forward_refuses_what_tma_cannot_take(cuda_device):
+    """A base not on 16 bytes, a stride not a multiple of 16 bytes, another
+    dtype or head_dim: raises, never falls back."""
+    b, s, h, d = 1, 64, 4, 64
+    q, k, v, _ = k2_inputs((b, s, s, h, 2, d), torch.bfloat16, cuda_device)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    flat = torch.zeros(q.numel() + 8, dtype=torch.bfloat16,
+                       device=cuda_device)
+    shifted = flat[1:1 + q.numel()].view(b, s, h, d).transpose(1, 2)
+    wide = torch.zeros(b, s, h, d + 4, dtype=torch.bfloat16,
+                       device=cuda_device)[..., :d].transpose(1, 2)
+    ops.reset_launch_counts()
+    for args, match in [((shifted, kt, vt), "16 bytes"),
+                        ((wide, kt, vt), "multiple of 16 bytes"),
+                        ((qt, kt[..., :32], vt), "k"),
+                        ((qt.float(), kt.float(), vt.float()), "bfloat16"),
+                        ((qt.cpu(), kt.cpu(), vt.cpu()), "CUDA")]:
+        with pytest.raises(ValueError, match=match):
+            flash.flash_fwd_tc(*args, causal=True, window=None, q_offset=0)
+    assert set(ops.launch_counts().values()) == {0}
+
+
 def test_zoo_run_on_cuda_goes_through_k2(cuda_device):
     """A small float32 zoo run with flash attention on the card: K2's
     three kernels launched once per layer, cell and tick, the RNG-free
@@ -274,6 +358,43 @@ def test_zoo_run_on_cuda_goes_through_k2(cuda_device):
                     tree_leaves(cpu.final_model)):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=5e-4,
                                    atol=1e-5)
+
+
+def test_zoo_bf16_run_on_cuda_goes_through_tc_forward(cuda_device):
+    """A small bf16 zoo run with flash attention on the card: the
+    tensor-core forward and both backward kernels launched once per layer,
+    cell and tick, the CUDA-core forward never; the RNG-free market
+    bit-equal to the CPU run's; finite losses, the first (on the initial
+    weights, before any update) within the bf16 train_zoo pin's 2e-2 of the
+    CPU run's."""
+    from repro_torch.train.trainer import train_zoo
+    from repro_torch.train.zoo_program import init_zoo_state
+
+    base = _job()
+    job = JobConfig(model=base.model.with_(
+        head_dim=64, use_flash_attention=True, dtype="bfloat16",
+        param_dtype="bfloat16"), shape=base.shape,
+        n_workers=base.n_workers, learning_rate=base.learning_rate)
+    model0 = init_zoo_state(job.model, job, 0, device="cpu")
+    n_ticks, seeds = 12, [0, 3]
+    cpu = train_zoo(job, _scenarios(), seeds, n_ticks=n_ticks,
+                    model0=model0, device="cpu")
+    ops.reset_launch_counts()
+    gpu = train_zoo(job, _scenarios(), seeds, n_ticks=n_ticks,
+                    model0=model0, device=cuda_device)
+    counts = ops.launch_counts()
+    per = job.model.num_layers * len(seeds) * n_ticks
+    assert counts["flash_attention_fwd_tc"] == per
+    assert counts["flash_attention_fwd"] == 0
+    assert counts["flash_attention_bwd_dkdv"] == per
+    assert counts["flash_attention_bwd_dq"] == per
+    for field in ("iterations", "ys", "total_time", "total_cost"):
+        np.testing.assert_array_equal(getattr(gpu, field),
+                                      getattr(cpu, field))
+    ran = gpu.iterations > 0
+    assert np.isfinite(gpu.errors[..., 0][ran]).all()
+    np.testing.assert_allclose(gpu.errors[..., 0][ran],
+                               cpu.errors[..., 0][ran], atol=2e-2)
 
 
 # ------------------------------------------------------------------ K3
