@@ -7,16 +7,19 @@ Phases, each printing one JSON line and raising on failure:
 
 1. the card's name and power limit (``nvidia-smi``), then the build of
    every kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a, one process
-   per source, all at once) with each kernel's ``ptxas`` report, and the
-   count of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in
-   the tensor-core forward's SASS (``cuobjdump -sass``), neither of which
-   may be 0;
+   per source, all at once) with each kernel's ``ptxas`` report (no
+   tensor-core kernel may spill), and the count of ``HGMMA`` (wgmma) and
+   ``UTMALDG`` (TMA load) instructions in the SASS of each tensor-core
+   kernel, the forward and the dK/dV kernel at both head dims
+   (``cuobjdump -sass``), none of which may be 0;
 2. each kernel against its plain PyTorch version on the card: K1 bit for
    bit on edge-case rows at a ragged width; K2 forward and backward on
-   edge shapes (GQA g = 7, head_dim 64 and 128, float32 and bf16, ragged
-   S and T, windows, a query offset) within stated tolerances: float32
-   through the CUDA-core forward, bf16 through the tensor-core forward
-   (its lse too), each backward from that forward's output and lse;
+   edge shapes (GQA g = 7, head_dim 64 and 128, and 112 and 80 through
+   the entry point's zero padding, float32 and bf16, ragged S and T,
+   windows, a query offset) within stated tolerances: float32 through the
+   CUDA-core forward and dK/dV kernels, bf16 through the tensor-core ones
+   (the forward's lse and the D_i pre-pass too), dQ on the CUDA cores,
+   the backward from the forward's output and lse;
 3. slice 1's path through the launcher's own entry points: elastic
    megabatch training of full-width Qwen2-7B at depth 2 in float32, a
    grid of one strategy × 2 seeds (R = 2), the fused update through K1.
@@ -29,8 +32,8 @@ Phases, each printing one JSON line and raising on failure:
    2 in bf16 mixed precision with ``use_flash_attention`` (K2), the same
    strategy, market and 2 seeds, 8 workers, batch 8, sequence 1024. Checks
    finite losses, first losses near ln V and K2's launches (one
-   tensor-core forward and one of each backward kernel per layer, cell and
-   tick, and no CUDA-core forward); reports time
+   tensor-core forward, D_i pre-pass, tensor-core dK/dV and dQ kernel per
+   layer, cell and tick, and no CUDA-core forward or dK/dV); reports time
    per tick, a steady step over both cells, tokens per second and peak
    memory; one zoo step on the initial weights with K2 against the same
    step through the plain attention core (the loss and each attention
@@ -38,8 +41,8 @@ Phases, each printing one JSON line and raising on failure:
    (B 8, H 28, Hkv 4, S = T = 1023, D 128, bf16, causal): each kernel's
    time beside its bound, the plain version's time and
    ``scaled_dot_product_attention``'s (timed here only; the port never
-   calls it), the CUDA-core forward's bf16 time beside the tensor-core
-   forward's;
+   calls it), the CUDA-core forward's and dK/dV kernel's bf16 times
+   beside the tensor-core ones';
 5. slice 3's path: serving full-width Mamba2-1.3B (48 layers, float32
    parameters initialised on the card, bf16 activations) through
    ``launch.serve``'s ``prefill_prompt`` (batch 8, a 2048-token prompt)
@@ -70,6 +73,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -97,25 +101,35 @@ PEAKS = [("H200", 4.8e12, 67e12, 989e12, "H200 SXM"),
 
 K2_SOURCE = ("src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:88")
+K2_TC_SOURCE = ("src/repro_torch/csrc/flash_attention_sm90.cu",
+                "src/repro/kernels/flash_attention.py:88")
 KERNEL_SOURCES = {"elastic_sgd_update": (
     "src/repro_torch/csrc/elastic_update.cu",
     "src/repro/kernels/elastic_update.py:56"),
     "flash_attention_fwd": K2_SOURCE,
-    "flash_attention_fwd_tc": ("src/repro_torch/csrc/flash_attention_sm90.cu",
-                               "src/repro/kernels/flash_attention.py:88"),
+    "flash_attention_fwd_tc": K2_TC_SOURCE,
     "flash_attention_bwd_dkdv": K2_SOURCE,
+    "flash_attention_bwd_delta": K2_TC_SOURCE,
+    "flash_attention_bwd_dkdv_tc": K2_TC_SOURCE,
     "flash_attention_bwd_dq": K2_SOURCE}
-#: the CUDA-core forward takes float32 (and bf16 when called directly); the
-#: tensor-core forward takes bf16, which is what the zoo path runs
+#: the CUDA-core forward and dK/dV kernels take float32 (and bf16 when
+#: called directly); the tensor-core ones take bf16, which is what the zoo
+#: path runs, the dK/dV kernel after the D_i pre-pass
 K2_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_tc",
-              "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
-K2_ZOO_KERNELS = ("flash_attention_fwd_tc", "flash_attention_bwd_dkdv",
-                  "flash_attention_bwd_dq")
-#: the forward each dtype routes to (kernels.flash_attention.forward_for)
+              "flash_attention_bwd_dkdv", "flash_attention_bwd_delta",
+              "flash_attention_bwd_dkdv_tc", "flash_attention_bwd_dq")
+K2_ZOO_KERNELS = ("flash_attention_fwd_tc", "flash_attention_bwd_delta",
+                  "flash_attention_bwd_dkdv_tc", "flash_attention_bwd_dq")
+#: the forward and the dK/dV kernel each dtype routes to
+#: (kernels.flash_attention.forward_for, dkdv_for)
 K2_FWD_OF = {"float32": "flash_attention_fwd",
              "bfloat16": "flash_attention_fwd_tc"}
-#: instructions the tensor-core forward's SASS must hold: wgmma and TMA
+K2_DKDV_OF = {"float32": "flash_attention_bwd_dkdv",
+              "bfloat16": "flash_attention_bwd_dkdv_tc"}
+#: instructions the SASS of each tensor-core kernel must hold: wgmma and
+#: TMA loads
 TC_OPCODES = ("HGMMA", "UTMALDG")
+TC_FUNCTIONS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel")
 KERNEL_SOURCES["ssd_chunk"] = ("src/repro_torch/csrc/ssd_scan.cu",
                                "src/repro/kernels/ssd_scan.py:72")
 
@@ -142,7 +156,11 @@ KERNEL_SOURCES["ssd_chunk"] = ("src/repro_torch/csrc/ssd_scan.cu",
 #: tests/test_torch_flash_tc.py's shapes), under the one-ulp 1e-2. Its
 #: worst row measured on an H100 over these shapes and the path's: 7.8e-3
 #: (out); the backward from its output and lse 9.0e-2 (dq, at the path's
-#: shape), 7.8e-3 (dk, dv).
+#: shape), 7.8e-3 (dk, dv). The bf16 dK/dV kernel runs on the tensor
+#: cores too and rounds Pᵀ and dSᵀ to bf16 before its products: 4.9e-3 in
+#: the worst row alone on the CPU (tests/test_torch_flash_bwd_tc.py), and
+#: on an H100 over these shapes, the padded head_dims and the path's
+#: 7.8e-3 (dk) and 7.9e-3 (dv, at the path's shape), under the same 1e-2.
 K2_TOL = {"float32": {"out": 1e-5, "dq": 5e-5, "dk": 2e-5, "dv": 2e-5},
           "bfloat16": {"out": 1e-2, "dq": 0.1, "dk": 1e-2, "dv": 1e-2}}
 K2_GRADS = ("out", "dq", "dk", "dv")
@@ -162,8 +180,18 @@ K2_EDGE_SHAPES = [
     (1, 150, 150, 7, 1, 64, False, 50, 0),
     (1, 1023, 1023, 28, 4, 128, True, None, 0),
 ]
+#: K2 at head_dims its kernels do not take, through the entry point's
+#: zero padding: Zamba2-7B's 112, and 80 (not a multiple of 16)
+K2_ANY_D_SHAPES = [
+    (2, 100, 100, 14, 2, 112, True, None, 0),
+    (1, 77, 200, 7, 1, 80, True, 48, 123),
+]
 #: the shape the zoo path gives K2
 K2_PATH_SHAPE = (8, 1023, 1023, 28, 4, 128, True, None, 0)
+#: the D_i pre-pass against its plain version, per row over the row's sum
+#: of |dO_id O_id|: both sum exact float32 products of bf16 values in
+#: other orders, each within (D - 1) 2^-24 of that sum
+K2_DELTA_TOL = 2e-5
 
 #: one zoo step on the initial bf16 weights with K2 against the plain
 #: attention core: the loss relative to itself, and each attention weight's
@@ -255,6 +283,35 @@ def timed(fn, n: int, torch):
     return start.elapsed_time(end) / n
 
 
+def kernel_name(mangled: str) -> str:
+    """``name<D>`` (or ``name``) of a mangled kernel: the last of the
+    nested name's length-prefixed parts, and its integer template
+    argument."""
+    i, name = (3 if mangled.startswith("_ZN") else 2), mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    if mangled.startswith("ILi", i):
+        name += "<" + mangled[i + 3:mangled.index("E", i)] + ">"
+    return name
+
+
+def ptxas_report(text: str) -> dict:
+    """Each kernel's ``ptxas -v`` lines (registers, spills), keyed by
+    `kernel_name`, from nvcc's build log."""
+    out, name = {}, None
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            name = kernel_name(ln.split("'")[1])
+            out[name] = []
+        elif name and ("registers" in ln or "spill" in ln):
+            out[name].append(ln.replace("ptxas info    :", "").strip())
+    return out
+
+
 def phase_card_and_build():
     from repro_torch.kernels import build
 
@@ -265,37 +322,51 @@ def phase_card_and_build():
     print(smi, flush=True)
     t0 = time.perf_counter()
     records = build.build_all()
+    reports = {n: ptxas_report(r.ptxas) for n, r in records.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {n: {"path": os.path.relpath(r.path, ROOT),
-                          "nvcc_s": r.seconds,
-                          "ptxas": [ln.strip() for ln in r.ptxas.splitlines()
-                                    if "registers" in ln or "spill" in ln]}
+                          "nvcc_s": r.seconds, "ptxas": reports[n]}
                       for n, r in records.items()}})
+    spilled = {k: v for k, v in reports["flash_attention_sm90"].items()
+               if any(int(n) for ln in v
+                      for n in re.findall(r"(\d+) bytes spill", ln))}
+    if spilled:
+        raise AssertionError(f"a tensor-core kernel spills: {spilled}")
     phase_sass(records["flash_attention_sm90"].path)
     return smi
 
 
 def phase_sass(lib_path):
-    """Count the tensor-core forward's wgmma (``HGMMA``) and TMA load
-    (``UTMALDG``) instructions in its library's SASS: the forward really
+    """Count the wgmma (``HGMMA``) and TMA load (``UTMALDG``)
+    instructions of each tensor-core kernel (the forward and the dK/dV
+    kernel, each at both head dims) in its library's SASS: a kernel really
     runs on the tensor cores and is fed by TMA only if neither is 0."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", lib_path],
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout
-    ops = []
+    ops, fn = {}, None
     for ln in sass.splitlines():      # "/*0a50*/  [@P0] OPCODE.MODS ..."
         words = ln.split()
-        if len(words) > 2 and words[0].startswith("/*") \
+        if "Function :" in ln:
+            fn = words[-1]
+            ops[fn] = []
+        elif fn and len(words) > 2 and words[0].startswith("/*") \
                 and words[0].endswith("*/"):
-            ops.append(words[2 if words[1].startswith("@") else 1])
-    counts = {op: sum(o.split(".")[0] == op for o in ops)
-              for op in TC_OPCODES}
+            ops[fn].append(words[2 if words[1].startswith("@") else 1])
+    counts = {kernel_name(f): {op: sum(o.split(".")[0] == op for o in seen)
+                               for op in TC_OPCODES}
+              for f, seen in ops.items()
+              if any(k in f for k in TC_FUNCTIONS)}
     emit({"phase": "sass", "library": os.path.relpath(lib_path, ROOT),
-          "instructions": len(ops), "counts": counts})
-    if not all(counts.values()):
-        raise AssertionError(f"the tensor-core forward's SASS lacks "
-                             f"{[op for op, n in counts.items() if not n]}")
+          "instructions": sum(map(len, ops.values())), "counts": counts})
+    want = {f"{k}<{w}>" for k in TC_FUNCTIONS for w in ("64", "128")}
+    lacking = {k: [op for op, n in c.items() if not n]
+               for k, c in counts.items() if not all(c.values())}
+    if set(counts) != want or lacking:
+        raise AssertionError(f"the tensor-core kernels' SASS: found "
+                             f"{sorted(counts)} of {sorted(want)}, lacking "
+                             f"{lacking}")
 
 
 def edge_inputs(torch, r, p, seed=0):
@@ -533,49 +604,68 @@ def k2_check(errs, dtype: str, where) -> list:
             if not e <= K2_TOL[dtype][n]]
 
 
+def delta_err(torch, delta, out, dout) -> float:
+    """The D_i pre-pass against its plain version: the worst row's
+    |kernel - plain| over its sum of |dO_id O_id|."""
+    from repro_torch.kernels import ref
+
+    terms = (out.float() * dout.float()).abs().sum(-1).clamp_min(1e-30)
+    return ((delta - ref.mha_delta_reference(out, dout)).abs()
+            / terms).max().item()
+
+
 def phase_k2_small(torch):
-    """Through ``ops.flash_mha`` (the forward of the dtype's route and
-    both backward kernels) against autograd through the plain version;
-    then the tensor-core forward's lse against the plain logsumexp."""
+    """Through ``ops.flash_mha`` (the forward and dK/dV kernels of the
+    dtype's route and the dQ kernel) against autograd through the plain
+    version, head_dims 64 and 128 and, through the entry point's padding,
+    112 and 80; then the tensor-core forward's lse against the plain
+    logsumexp and the D_i pre-pass against its plain version."""
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import ops, ref
 
-    worst, bad, lse_err = {}, [], 0.0
+    worst, bad, lse_err, d_err = {}, [], 0.0, 0.0
     for dtype in (torch.float32, torch.bfloat16):
         key = str(dtype).split(".")[-1]
         worst[key] = dict.fromkeys(K2_GRADS, 0.0)
-        for shape in K2_EDGE_SHAPES:
+        for shape in K2_EDGE_SHAPES + K2_ANY_D_SHAPES:
             causal, window, q_offset = shape[6:]
             mask = dict(causal=causal, window=window, q_offset=q_offset)
             inputs = k2_inputs(torch, shape, dtype)
             ops.reset_launch_counts()
             kern, plain = k2_both(torch, *inputs, mask)
-            fwd = {n: c for n, c in ops.launch_counts().items()
-                   if n in K2_FWD_OF.values()}
-            if fwd != {n: int(n == K2_FWD_OF[key])
-                       for n in K2_FWD_OF.values()}:
-                raise AssertionError(f"K2 {key} forward launches {fwd}: "
-                                     f"{K2_FWD_OF[key]} is its route")
+            counts = ops.launch_counts()
+            for route in (K2_FWD_OF, K2_DKDV_OF):
+                got = {n: counts[n] for n in route.values()}
+                if got != {n: int(n == route[key]) for n in route.values()}:
+                    raise AssertionError(f"K2 {key} launches {got}: "
+                                         f"{route[key]} is its route")
             errs = {n: row_err(a, b) for n, a, b in zip(K2_GRADS, kern,
                                                          plain)}
             bad += k2_check(errs, key, shape)
             for n, e in errs.items():
                 worst[key][n] = max(worst[key][n], e)
-            if dtype == torch.bfloat16:
-                qt, kt, vt = (x.transpose(1, 2) for x in inputs[:3])
-                _, lse = flash.flash_fwd_tc(qt, kt, vt, **mask)
+            if dtype == torch.bfloat16 and shape[5] in flash.HEAD_DIMS:
+                qt, kt, vt, dot = (x.transpose(1, 2) for x in inputs)
+                out, lse = flash.flash_fwd_tc(qt, kt, vt, **mask)
                 lse_err = max(lse_err, abs_err(
                     lse, ref.mha_lse_reference(qt, kt, **mask)))
-    emit({"phase": "k2_vs_plain_small", "shapes": K2_EDGE_SHAPES,
-          "forward_of": K2_FWD_OF, "tolerance_per_row": K2_TOL,
-          "worst_row_err": worst, "tc_lse_abs_err": lse_err,
-          "lse_tolerance": K2_LSE_TOL})
+                d_err = max(d_err, delta_err(
+                    torch, flash.flash_bwd_delta(out, dot), out, dot))
+    emit({"phase": "k2_vs_plain_small",
+          "shapes": K2_EDGE_SHAPES + K2_ANY_D_SHAPES,
+          "forward_of": K2_FWD_OF, "dkdv_of": K2_DKDV_OF,
+          "tolerance_per_row": K2_TOL, "worst_row_err": worst,
+          "tc_lse_abs_err": lse_err, "lse_tolerance": K2_LSE_TOL,
+          "delta_rel_err": d_err, "delta_tolerance": K2_DELTA_TOL})
     if bad:
         raise AssertionError(f"K2 differs from its plain version (shape, "
                              f"dtype, tensor, per-row error): {bad}")
     if not lse_err <= K2_LSE_TOL:
         raise AssertionError(f"the tensor-core forward's lse differs from "
                              f"the plain logsumexp by {lse_err}")
+    if not d_err <= K2_DELTA_TOL:
+        raise AssertionError(f"the D_i pre-pass differs from its plain "
+                             f"version by {d_err} of a row's terms")
 
 
 def zoo_job_and_scenario():
@@ -728,8 +818,8 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
     """K2 at the zoo path's shape, in the model layout it receives there:
     each kernel's time beside its bound, the plain version's and
     ``scaled_dot_product_attention``'s. The path runs the tensor-core
-    forward; the CUDA-core forward is held and timed here in bf16 beside
-    it."""
+    forward and dK/dV kernels; the CUDA-core forward and dK/dV kernels are
+    held and timed here in bf16 beside them."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import ops, ref
@@ -740,29 +830,48 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
     q, k, v, do = k2_inputs(torch, shape, torch.bfloat16, seed=5)
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     kern, plain = k2_both(torch, q, k, v, do, mask)
+    out, lse = flash.flash_fwd_tc(qt, kt, vt, **mask)
+    delta = flash.flash_bwd_delta(out, dot)
     cuda_core_out, _ = flash.flash_fwd(qt, kt, vt, **mask)
+    cc_dk, cc_dv = (x.transpose(1, 2) for x in flash.flash_bwd_dkdv(
+        qt, kt, vt, out, lse, dot, **mask))
+    d_err = delta_err(torch, delta, out, dot)
     errs = {"flash_attention_fwd_tc": abs_err(kern[0], plain[0]),
             "flash_attention_fwd": abs_err(cuda_core_out.transpose(1, 2),
                                            plain[0]),
             "flash_attention_bwd_dq": abs_err(kern[1], plain[1]),
-            "flash_attention_bwd_dkdv": max(abs_err(kern[2], plain[2]),
-                                            abs_err(kern[3], plain[3]))}
+            "flash_attention_bwd_dkdv_tc": max(abs_err(kern[2], plain[2]),
+                                               abs_err(kern[3], plain[3])),
+            "flash_attention_bwd_dkdv": max(abs_err(cc_dk, plain[2]),
+                                            abs_err(cc_dv, plain[3])),
+            "flash_attention_bwd_delta": abs_err(
+                delta, ref.mha_delta_reference(out, dot))}
     rels = {n: row_err(a, c) for n, a, c in zip(K2_GRADS, kern, plain)}
     bad = k2_check(rels, "bfloat16", shape)
-    cuda_core_rel = row_err(cuda_core_out.transpose(1, 2), plain[0])
-    if not cuda_core_rel <= K2_TOL["bfloat16"]["out"]:
-        bad.append((shape, "bfloat16", "flash_attention_fwd out",
-                    cuda_core_rel))
-    del cuda_core_out
+    off_path = {"flash_attention_fwd out": row_err(
+        cuda_core_out.transpose(1, 2), plain[0]),
+        "flash_attention_bwd_dkdv dk": row_err(cc_dk, plain[2]),
+        "flash_attention_bwd_dkdv dv": row_err(cc_dv, plain[3])}
+    bad += [(shape, "bfloat16", n, e) for n, e in off_path.items()
+            if not e <= K2_TOL["bfloat16"][n.split()[-1]]]
+    if not d_err <= K2_DELTA_TOL:
+        bad.append((shape, "bfloat16", "flash_attention_bwd_delta", d_err))
+    tc_vs_cc = max(row_err(kern[2], cc_dk), row_err(kern[3], cc_dv))
+    del cuda_core_out, cc_dk, cc_dv
     if bad:
         raise AssertionError(f"K2 at the path's shape differs from its plain "
                              f"version: {bad}")
-    out, lse = flash.flash_fwd_tc(qt, kt, vt, **mask)
     n = 10
     ms = {"flash_attention_fwd_tc": timed(
         lambda: flash.flash_fwd_tc(qt, kt, vt, **mask), 5 * n, torch),
         "flash_attention_fwd": timed(
         lambda: flash.flash_fwd(qt, kt, vt, **mask), n, torch),
+        "flash_attention_bwd_delta": timed(
+            lambda: flash.flash_bwd_delta(out, dot), 5 * n, torch),
+        "flash_attention_bwd_dkdv_tc": timed(
+            lambda: flash.flash_bwd_dkdv_tc(qt, kt, vt, out, lse, dot,
+                                            **mask, delta=delta),
+            5 * n, torch),
         "flash_attention_bwd_dkdv": timed(
             lambda: flash.flash_bwd_dkdv(qt, kt, vt, out, lse, dot, **mask),
             n, torch),
@@ -792,12 +901,17 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
             o, leaves[:1], dot, retain_graph=True), reps, torch)
         return {"flash_attention_fwd": f_ms, "flash_attention_fwd_tc": f_ms,
                 "flash_attention_bwd_dkdv": kv_ms,
+                "flash_attention_bwd_dkdv_tc": kv_ms,
                 "flash_attention_bwd_dq": q_ms}
 
     plain_ms = split_times(lambda a, b_, c: ref.mha_reference(
         a, b_, c, causal=True), 3)
+    plain_ms["flash_attention_bwd_delta"] = timed(
+        lambda: ref.mha_delta_reference(out, dot), n, torch)
     library_ms = split_times(lambda a, b_, c: F.scaled_dot_product_attention(
         a, b_, c, is_causal=True, enable_gqa=True), n)
+    # no one PyTorch call forms rowsum(dO∘O) in float32 from bf16 inputs
+    library_ms["flash_attention_bwd_delta"] = None
 
     name = torch.cuda.get_device_name(0)
     hbm, _, bf16, label = card_peaks(name)
@@ -810,6 +924,12 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
         "flash_attention_fwd": fwd_work, "flash_attention_fwd_tc": fwd_work,
         "flash_attention_bwd_dkdv": (8 * b * h * d * pairs,
                                      3 * q_bytes + 4 * kv_bytes + lse_bytes),
+        # q, dout, lse, D_i in; k, v in; dk, dv out
+        "flash_attention_bwd_dkdv_tc": (
+            8 * b * h * d * pairs, 2 * q_bytes + 4 * kv_bytes
+            + 2 * lse_bytes),
+        "flash_attention_bwd_delta": (2 * b * h * s * d,
+                                      2 * q_bytes + lse_bytes),
         "flash_attention_bwd_dq": (6 * b * h * d * pairs,
                                    4 * q_bytes + 2 * kv_bytes + lse_bytes)}
     rows = []
@@ -827,7 +947,9 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
                      "library_ms": library_ms[kname]})
     fb_flops = sum(work[kk][0] for kk in K2_ZOO_KERNELS)
     emit({"phase": "k2_at_path_shape", "shape": shape, "dtype": "bfloat16",
-          "valid_pairs": pairs, "row_err": rels, "peak": label,
+          "valid_pairs": pairs, "row_err": rels,
+          "off_path_row_err": off_path, "delta_rel_err": d_err,
+          "dkdv_tc_vs_cuda_core_row_err": tc_vs_cc, "peak": label,
           "kernels": {r["name"]: {kk: r[kk] for kk in
                                   ("ms", "bound_ms", "plain_ms",
                                    "library_ms", "max_abs_err")}
@@ -837,9 +959,16 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
           "fwd_ms": ms["flash_attention_fwd_tc"],
           "cuda_core_fwd_ms": ms["flash_attention_fwd"],
           "fwd_speedup_over_cuda_core": ms["flash_attention_fwd"]
-          / ms["flash_attention_fwd_tc"], "fwd_bwd_ms": fwd_bwd_ms,
+          / ms["flash_attention_fwd_tc"],
+          "dkdv_ms": ms["flash_attention_bwd_dkdv_tc"]
+          + ms["flash_attention_bwd_delta"],
+          "cuda_core_dkdv_ms": ms["flash_attention_bwd_dkdv"],
+          "dkdv_speedup_over_cuda_core": ms["flash_attention_bwd_dkdv"]
+          / ms["flash_attention_bwd_dkdv_tc"], "fwd_bwd_ms": fwd_bwd_ms,
           "fwd_bwd_bound_ms": 1e3 * fb_flops / bf16,
-          "plain_fwd_bwd_ms": sum(plain_ms.values()),
+          "plain_fwd_bwd_ms": sum(plain_ms[kk] for kk in (
+              "flash_attention_fwd_tc", "flash_attention_bwd_dkdv_tc",
+              "flash_attention_bwd_dq")),
           "library_fwd_ms": library_ms["flash_attention_fwd"],
           "share_of_zoo_cell_step": fwd_bwd_ms * n_layers / step_ms,
           "card": smi})

@@ -45,8 +45,10 @@
 // bf16, causal): the forward does 4 B H D S(S+1)/2 = 6.0e10 FLOP and moves
 // 135 MB, so it is bound by operations (0.061 ms at the bf16 tensor-core
 // peak of 989 TFLOP/s). This version runs those operations in float32 on
-// the CUDA cores (67 TFLOP/s peak), so it sits far from that bound; tensor
-// cores (wgmma) are the later work that closes the gap.
+// the CUDA cores (67 TFLOP/s peak), so it sits far from that bound. For
+// bf16 the forward and dK/dV run on the tensor cores instead
+// (flash_attention_sm90.cu); these kernels serve float32, where TF32
+// would change results, and dQ in both dtypes.
 //
 // Limits: head_dim 64 or 128; dtype float32 or bfloat16; the dynamic
 // shared memory of each kernel (67-167 KB) is opted into with

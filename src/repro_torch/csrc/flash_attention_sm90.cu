@@ -1,5 +1,7 @@
-// Flash attention (K2) forward on Hopper's tensor cores (sm_90a): bf16
-// inputs, products by wgmma, tiles loaded by TMA.
+// Flash attention (K2) on Hopper's tensor cores (sm_90a) for bf16 inputs:
+// the forward and the dK/dV half of the backward, products by wgmma,
+// tiles loaded by TMA. The backward's dK/dV kernel and its D_i pre-pass
+// are described after the forward, above flash_bwd_delta_kernel.
 //
 // Replaces, for bf16 inputs, the forward of the Pallas kernel
 // src/repro/kernels/flash_attention.py::flash_attention (:88, body
@@ -18,8 +20,7 @@
 // rounded to bf16 before P.V, because the tensor cores take bf16 operands;
 // l sums the float32 values. Query head h reads kv head h / (H / Hkv).
 // The output is written in q's layout through its strides; lse is a
-// contiguous (B, H, S) float32 array, which the backward kernels of
-// flash_attention.cu read.
+// contiguous (B, H, S) float32 array, which the backward kernels read.
 //
 // Bound at the zoo path's shape (B 8, H 28, Hkv 4, S = T = 1023, D 128,
 // causal): 4 B H D S(S+1)/2 = 6.0e10 FLOP against 135 MB moved, so
@@ -72,7 +73,7 @@ namespace {
 constexpr int kBQ = 64;                 // query rows per block
 constexpr int kBK = 64;                 // keys per tile
 constexpr int kThreads = 128;           // one warpgroup
-constexpr int kStages = 2;              // K/V ring depth
+constexpr int kStages = 2;              // depth of a tile ring
 constexpr int kAtom = 64;               // bf16 elements in a 128-byte row
 constexpr int kBoxBytes = kBQ * 128;    // one 64-row x 64-element box
 constexpr float kNegInf = -1e30f;
@@ -288,20 +289,21 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
              batch);
 }
 
-// Key tile kt0 + j into stage j % kStages: K and V, counted on the stage's
-// barrier.
+// The j-th tile pair of a ring into stage j % kStages: the 64-row tiles at
+// (row, head, batch) of map ta into ring sa and of map tb into ring sb,
+// counted on the stage's barrier (bars + 8 * stage).
 template <int D>
-__device__ __forceinline__ void load_kv(uint32_t sk, uint32_t sv,
-                                        const CUtensorMap* tk,
-                                        const CUtensorMap* tv,
-                                        uint32_t bar_kv, int j, int kt0,
-                                        int hk, int b) {
+__device__ __forceinline__ void load_stage(uint32_t sa, uint32_t sb,
+                                           const CUtensorMap* ta,
+                                           const CUtensorMap* tb,
+                                           uint32_t bars, int j, int row,
+                                           int head, int batch) {
   constexpr int kTile = tile_bytes<D>();
   const int st = j % kStages;
-  const uint32_t bar = bar_kv + 8 * st;
+  const uint32_t bar = bars + 8 * st;
   mbar_expect_tx(bar, 2 * kTile);
-  load_tile<D>(sk + st * kTile, tk, bar, (kt0 + j) * kBK, hk, b);
-  load_tile<D>(sv + st * kTile, tv, bar, (kt0 + j) * kBK, hk, b);
+  load_tile<D>(sa + st * kTile, ta, bar, row, head, batch);
+  load_tile<D>(sb + st * kTile, tb, bar, row, head, batch);
 }
 
 template <int D>
@@ -342,7 +344,7 @@ __global__ void __launch_bounds__(kThreads)
     mbar_expect_tx(bar_q, kTile);
     load_tile<D>(sq, &tq, bar_q, q0, h, b);
     for (int j = 0; j < kStages - 1 && j < n; ++j)
-      load_kv<D>(sk, sv, &tk, &tv, bar_kv, j, kt0, hk, b);
+      load_stage<D>(sk, sv, &tk, &tv, bar_kv, j, (kt0 + j) * kBK, hk, b);
   }
   __syncwarp();
 
@@ -356,7 +358,8 @@ __global__ void __launch_bounds__(kThreads)
     // the stage of tile it + kStages - 1 was freed by the last iteration's
     // __syncthreads()
     if (tid == 0 && it + kStages - 1 < n)
-      load_kv<D>(sk, sv, &tk, &tv, bar_kv, it + kStages - 1, kt0, hk, b);
+      load_stage<D>(sk, sv, &tk, &tv, bar_kv, it + kStages - 1,
+                    (kt0 + it + kStages - 1) * kBK, hk, b);
     __syncwarp();
     const int st = it % kStages;
     mbar_wait(bar_kv + 8 * st, (it / kStages) & 1);
@@ -459,6 +462,279 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------------ backward: dK, dV
+//
+// dK and dV of the forward above, for bf16 inputs: what flash_bwd_dkdv_kernel
+// in flash_attention.cu computes (the TPU kernel has no backward), with the
+// same masks, NEG_INF and the forward's lse. Per valid (query row, key):
+//
+//     P  = exp(s * scale - lse),   dP = dO . v,   dS = P (dP - D_i)
+//     dV = sum over the group's query rows of P dO
+//     dK = scale * sum of dS q,    D_i = sum_d dO_id O_id
+//
+// and P = dS = 0 where the mask holds. Two rounding points are new: P and
+// dS are rounded to bf16 before their products, as the forward rounds P.
+//
+// Bound at the zoo path's shape (B 8, H 28, Hkv 4, S = T = 1023, D 128,
+// causal): four products of 2 D FLOP per valid pair and head, 8 B H D
+// S(S+1)/2 = 1.2e11 FLOP against 100 MB moved, so operations bound it:
+// 0.121 ms at the bf16 tensor-core peak of 989 TFLOP/s.
+//
+// Design: keys on wgmma's M dimension, so all four products take the
+// forward's operand layouts.
+// - flash_bwd_delta_kernel first writes D_i, a (B, H, S) float32 array,
+//   one warp per query row, so no key tile recomputes it.
+// - One block of one warpgroup per (64-key tile, kv head, batch), the
+//   lowest key tiles (under a causal mask, the ones most query tiles see)
+//   first. K and V are loaded once by TMA; the block loops over the
+//   (query head of the group, query tile) pairs that query_tiles() says
+//   meet its keys. Q and dO go through a two-stage ring, one mbarrier per
+//   stage, as the forward's K/V ring; the 64 lse and D_i values of a pair
+//   are read into registers one pair ahead and stored into the stage's
+//   slot of a small shared array before the iteration's closing
+//   __syncthreads().
+// - S^T = K Q^T and dP^T = V dO^T: wgmma m64n64k16, both operands K-major,
+//   as the forward's Q K^T. The accumulators' rows are keys, their columns
+//   query rows.
+// - P^T and dS^T in registers, masked per (key, query row); each rounded
+//   to bf16 straight into an A fragment.
+// - dV += P^T dO and dK += dS^T Q: wgmma m64nDk16 with A from registers and
+//   B read MN-major through the transpose bit, as the forward's P V.
+// - dK and dV stay float32 in registers for the whole block (D / 2 each a
+//   thread); the epilogue scales dK, rounds both to bf16 and stores them
+//   through their strides, rows past T left alone.
+//
+// Shared memory (from a 1024-byte-aligned base): K, V, two stages of Q and
+// two of dO, each D x 128 bytes: 96 KB at D = 128, two blocks per SM.
+
+// D_i = sum_d dO_id O_id in float32 for every query row of o and dout
+// (bf16, (batch, head, row) element strides, unit stride on d, each row
+// on 4 bytes), into delta, a contiguous (B, H, S) array. One warp per
+// row; a lane reads bf16 pairs, the warp sums by shuffles.
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o,
+                           const __nv_bfloat16* __restrict__ dout,
+                           float* __restrict__ delta, Strides so,
+                           Strides sd, int H, int S, int D,
+                           long long rows) {
+  const long long r =
+      static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
+  if (r >= rows) return;  // the whole warp
+  const int lane = threadIdx.x % 32;
+  const long long s = r % S, h = (r / S) % H;
+  const long long b = r / (static_cast<long long>(S) * H);
+  const __nv_bfloat16* orow = o + b * so.b + h * so.h + s * so.s;
+  const __nv_bfloat16* drow = dout + b * sd.b + h * sd.h + s * sd.s;
+  float sum = 0.0f;
+  for (int c = 2 * lane; c < D; c += 64) {
+    const float2 x = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(orow + c));
+    const float2 y = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(drow + c));
+    sum = fmaf(x.x, y.x, sum);
+    sum = fmaf(x.y, y.y, sum);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (lane == 0) delta[r] = sum;
+}
+
+// The query tiles [begin, end) that hold a valid query row for some key of
+// the key tile starting at k0 (the counterpart of key_tiles; empty when no
+// row sees these keys).
+__device__ __forceinline__ void query_tiles(const Problem& p, int k0,
+                                            int* begin, int* end) {
+  const int nq = (p.S + kBQ - 1) / kBQ;
+  const int k_hi = min(k0 + kBK, p.T) - 1;
+  int b = 0, e = nq;
+  if (p.causal) {  // row r sees key k0 iff r + q_offset >= k0
+    const int lo = k0 - p.q_offset;
+    b = lo > 0 ? min(lo / kBQ, nq) : 0;
+  }
+  if (p.has_window) {  // the newest row that sees key k_hi
+    const int hi = k_hi + p.window - 1 - p.q_offset;
+    e = hi < 0 ? 0 : min(nq, hi / kBQ + 1);
+  }
+  *begin = b;
+  *end = max(b, e);
+}
+
+template <int D>
+__host__ __device__ constexpr int bwd_smem_bytes() {
+  return (2 + 2 * kStages) * tile_bytes<D>() + 1024;  // + alignment slack
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dk,
+                             __nv_bfloat16* __restrict__ dv, Strides sdk,
+                             Strides sdv, Problem p) {
+  constexpr int kTile = tile_bytes<D>();
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + kStages];
+  __shared__ float rows_s[kStages][2][kBQ];  // a stage's lse and D_i
+
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = base;
+  const uint32_t sv = base + kTile;
+  const uint32_t sq = base + 2 * kTile;               // + stage * kTile
+  const uint32_t sdo = base + (2 + kStages) * kTile;  // + stage * kTile
+  const uint32_t bar_kv = smem_u32(&bars[0]);
+  const uint32_t bar_qd = smem_u32(&bars[1]);         // + stage * 8
+
+  const int k0 = blockIdx.x * kBK;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int g = p.H / p.Hkv;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gr = lane / 4, t4 = lane % 4;
+  const int key0 = k0 + warp * 16 + gr;  // this thread's keys: key0, key0 + 8
+  int qt0, qt1;
+  query_tiles(p, k0, &qt0, &qt1);
+  const int nqt = qt1 - qt0;
+  const int n = g * nqt;  // (query head, query tile) pairs, head-major
+
+  // pair j: its query head and first row; then the value thread tid keeps
+  // of it, lse (tid < 64) or D_i (tid >= 64) of row tid % 64, 0 past S
+  auto head_of = [&](int j) { return hk * g + j / nqt; };
+  auto row0_of = [&](int j) { return (qt0 + j % nqt) * kBQ; };
+  auto row_value = [&](int j) {
+    const int row = row0_of(j) + tid % kBQ;
+    if (row >= p.S) return 0.0f;
+    const float* src = tid < kBQ ? lse : delta;
+    return src[(static_cast<long long>(b) * p.H + head_of(j)) * p.S + row];
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int st = 0; st < kStages; ++st) mbar_init(bar_qd + 8 * st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_kv, 2 * kTile);
+    load_tile<D>(sk, &tk, bar_kv, k0, hk, b);
+    load_tile<D>(sv, &tv, bar_kv, k0, hk, b);
+    for (int j = 0; j < kStages - 1 && j < n; ++j)
+      load_stage<D>(sq, sdo, &tq, &tdo, bar_qd, j, row0_of(j), head_of(j), b);
+  }
+  if (n > 0) rows_s[0][tid / kBQ][tid % kBQ] = row_value(0);
+  __syncthreads();
+
+  float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.0f;
+
+  mbar_wait(bar_kv, 0);
+  for (int it = 0; it < n; ++it) {
+    // the stage of pair it + kStages - 1 was freed by the last iteration's
+    // __syncthreads()
+    if (tid == 0 && it + kStages - 1 < n) {
+      const int j = it + kStages - 1;
+      load_stage<D>(sq, sdo, &tq, &tdo, bar_qd, j, row0_of(j), head_of(j), b);
+    }
+    __syncwarp();
+    const float next = it + 1 < n ? row_value(it + 1) : 0.0f;
+    const int st = it % kStages;
+    mbar_wait(bar_qd + 8 * st, (it / kStages) & 1);
+    const int q0 = row0_of(it);
+    const uint32_t sq_st = sq + st * kTile, sdo_st = sdo + st * kTile;
+
+    // S^T = K Q^T and dP^T = V dO^T over D / 16 k-steps each
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      wgmma_ss_n64(s, sw128_desc(sk + off, 16, 1024),
+                   sw128_desc(sq_st + off, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      wgmma_ss_n64(dp, sw128_desc(sv + off, 16, 1024),
+                   sw128_desc(sdo_st + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // s[4i + j]: key key0 + 8 (j / 2), query row q0 + 8 i + 2 t4 + j % 2;
+    // P^T into s, dS^T into dp
+    const float* lse_s = rows_s[st][0];
+    const float* d_s = rows_s[st][1];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 8 * i + 2 * t4 + j % 2;
+        const float pr = is_valid(p, q0 + c, key0 + 8 * (j / 2))
+                             ? expf(s[4 * i + j] * p.scale - lse_s[c])
+                             : 0.0f;
+        s[4 * i + j] = pr;
+        dp[4 * i + j] = pr * (dp[4 * i + j] - d_s[c]);
+      }
+
+    // P^T and dS^T as A fragments, one 16-row slice of the query tile per
+    // k-step (the forward's P layout: register j holds keys gr + 8 (j % 2),
+    // query rows 16 kk + 8 (j / 2) + 2 t4, +1)
+    uint32_t ap[4][4], ads[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ap[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+        ads[kk][j] = pack_bf16(dp[8 * kk + 2 * j], dp[8 * kk + 2 * j + 1]);
+      }
+
+    // dV += P^T dO and dK += dS^T Q; a k-step is 16 query rows = 2048 bytes
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(acc_dv, ap[kk],
+                  sw128_desc(sdo_st + kk * 2048, kBoxBytes, 1024));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(acc_dk, ads[kk],
+                  sw128_desc(sq_st + kk * 2048, kBoxBytes, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+    // the slot of pair it + 1 was last read in iteration it - 1
+    if (it + 1 < n) rows_s[(it + 1) % kStages][tid / kBQ][tid % kBQ] = next;
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  __nv_bfloat16* dkb = dk + b * sdk.b + hk * sdk.h;
+  __nv_bfloat16* dvb = dv + b * sdv.b + hk * sdv.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= p.T) continue;
+    __nv_bfloat16* krow = dkb + static_cast<long long>(key) * sdk.s + 2 * t4;
+    __nv_bfloat16* vrow = dvb + static_cast<long long>(key) * sdv.s + 2 * t4;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      *reinterpret_cast<__nv_bfloat162*>(krow + 8 * i) =
+          __floats2bfloat162_rn(acc_dk[4 * i + 2 * r] * p.scale,
+                                acc_dk[4 * i + 2 * r + 1] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * i) =
+          __floats2bfloat162_rn(acc_dv[4 * i + 2 * r],
+                                acc_dv[4 * i + 2 * r + 1]);
+    }
+  }
+}
+
 // ------------------------------------------------------------------ host
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -521,6 +797,23 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_dkdv(const CUtensorMap& tq, const CUtensorMap& tk,
+                const CUtensorMap& tv, const CUtensorMap& tdo,
+                const float* lse, const float* delta, void* dk, void* dv,
+                Strides sdk, Strides sdv, Problem p, cudaStream_t stream) {
+  const int bytes = bwd_smem_bytes<D>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_tc_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.T + kBK - 1) / kBK, p.Hkv, p.B);
+  flash_bwd_dkdv_tc_kernel<D><<<grid, kThreads, bytes, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), sdk, sdv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // bf16 only. head_dim: 64 or 128. strides: three (batch, head, position)
@@ -555,4 +848,66 @@ extern "C" int flash_attention_fwd_tc(int head_dim, const void* q,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return launch<64>(tq, tk, tv, o, lse, so, p, st);
   return launch<128>(tq, tk, tv, o, lse, so, p, st);
+}
+
+// bf16 only. head_dim: 64 or 128. o and dout: (B, H, S, head_dim) with the
+// element strides (batch, head, position) of o then dout; the caller checks
+// the unit stride on head_dim and that each row starts on 4 bytes. delta:
+// a contiguous (B, H, S) float32 array. Returns cudaErrorInvalidValue for
+// a head_dim it does not take, else the launch's cudaGetLastError().
+extern "C" int flash_attention_bwd_delta(int head_dim, const void* o,
+                                         const void* dout, float* delta,
+                                         const long long* strides, int B,
+                                         int H, int S, void* stream) {
+  if (head_dim != 64 && head_dim != 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(B) * H * S;
+  const int per_block = kThreads / 32;
+  const unsigned blocks =
+      static_cast<unsigned>((rows + per_block - 1) / per_block);
+  const Strides so = {strides[0], strides[1], strides[2]};
+  const Strides sd = {strides[3], strides[4], strides[5]};
+  flash_bwd_delta_kernel<<<blocks, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), delta, so, sd, H, S,
+      head_dim, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 only. head_dim: 64 or 128. strides: three (batch, head, position)
+// element strides for q, k, v, dout, dk and dv in that order; lse (from
+// the forward) and delta (flash_attention_bwd_delta's) are contiguous
+// (B, H, S) float32. The caller checks shapes and TMA's rules for q, k, v
+// and dout, as for flash_attention_fwd_tc. Returns what that function
+// returns.
+extern "C" int flash_attention_bwd_dkdv_tc(
+    int head_dim, const void* q, const void* k, const void* v,
+    const void* dout, const float* lse, const float* delta, void* dk,
+    void* dv, const long long* strides, int B, int H, int Hkv, int S, int T,
+    int causal, int has_window, int window, int q_offset, float scale,
+    void* stream) {
+  if (head_dim != 64 && head_dim != 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tq, tk, tv, tdo;
+  CUresult r = encode(fn, &tq, q, head_dim, S, H, B, strides);
+  if (r == CUDA_SUCCESS) r = encode(fn, &tk, k, head_dim, T, Hkv, B,
+                                    strides + 3);
+  if (r == CUDA_SUCCESS) r = encode(fn, &tv, v, head_dim, T, Hkv, B,
+                                    strides + 6);
+  if (r == CUDA_SUCCESS) r = encode(fn, &tdo, dout, head_dim, S, H, B,
+                                    strides + 9);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  const Strides sdk = {strides[12], strides[13], strides[14]};
+  const Strides sdv = {strides[15], strides[16], strides[17]};
+  const Problem p = {B,      H,          Hkv,    S,        T,
+                     causal, has_window, window, q_offset, scale};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64)
+    return launch_dkdv<64>(tq, tk, tv, tdo, lse, delta, dk, dv, sdk, sdv, p,
+                           st);
+  return launch_dkdv<128>(tq, tk, tv, tdo, lse, delta, dk, dv, sdk, sdv, p,
+                          st);
 }

@@ -10,15 +10,19 @@ flash_mha` hands over the model's (B, S, H, D) tensors as transposed views
 and the kernels read them in place.
 
 The kernels are CUDA C++ (each source's header says what bounds it and
-how it is laid out). Two forwards, each also writing the per-row
-logsumexp (B, H, S) in float32: ``csrc/flash_attention_sm90.cu`` runs
-bf16 inputs on the tensor cores (wgmma, tiles loaded by TMA), and
+how it is laid out) and take head_dim 64 or 128; `flash_attention` takes
+any head_dim up to 128 by zero-padding to the next of those
+(`pad_head_dim`). Two forwards, each also writing the per-row logsumexp
+(B, H, S) in float32: ``csrc/flash_attention_sm90.cu`` runs bf16 inputs
+on the tensor cores (wgmma, tiles loaded by TMA), and
 ``csrc/flash_attention.cu`` runs float32 inputs on the CUDA cores (TF32
 would change float32 results); `forward_for` picks one by dtype alone.
-``csrc/flash_attention.cu`` also holds a FlashAttention-2 backward in two
-kernels, one for dK/dV per (key tile, kv head) and one for dQ per (query
-tile, head), which recompute the probabilities from that logsumexp.
-`flash_attention` joins them in a ``torch.autograd.Function``. Each
+The backward recomputes the probabilities from that logsumexp, in two
+halves: dK/dV per (key tile, kv head), on the tensor cores for bf16
+(``flash_attention_sm90.cu``, after a pre-pass that writes D_i =
+rowsum(dO∘O)) and on the CUDA cores for float32 (``flash_attention.cu``),
+picked by `dkdv_for`; and dQ per (query tile, head) on the CUDA cores for
+both. `flash_attention` joins them in a ``torch.autograd.Function``. Each
 launch function keeps a count of its launches. The plain version of
 both directions is ``kernels.ref.mha_reference`` under autograd;
 ``kernels.ops.flash_mha`` picks between the two by the device of the
@@ -29,6 +33,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
@@ -51,9 +56,17 @@ _ARGTYPES = {
 }
 
 
-#: head_dim, q, k, v, o, lse, strides, problem
-_ARGTYPES_TC = {"flash_attention_fwd_tc": [ctypes.c_int]
-                + [ctypes.c_void_p] * 6 + _COMMON}
+_ARGTYPES_TC = {
+    # head_dim, q, k, v, o, lse, strides, problem
+    "flash_attention_fwd_tc": [ctypes.c_int] + [ctypes.c_void_p] * 6
+    + _COMMON,
+    # head_dim, q, k, v, dout, lse, delta, dk, dv, strides, problem
+    "flash_attention_bwd_dkdv_tc": [ctypes.c_int] + [ctypes.c_void_p] * 9
+    + _COMMON,
+    # head_dim, o, dout, delta, strides, B, H, S, stream
+    "flash_attention_bwd_delta": [ctypes.c_int] + [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+}
 
 
 def _bind(name: str, argtypes_by_fn) -> ctypes.CDLL:
@@ -127,11 +140,18 @@ def _check(q, k, v, causal, window, q_offset) -> None:
             "take fully masked rows")
 
 
-def _problem(q, k, causal, window, q_offset):
-    b, h, s, d = q.shape
+def _problem(q, k, causal, window, q_offset, scale):
+    """The kernels' problem arguments; ``scale`` multiplies q·k, and comes
+    from the caller because a padded head dimension must keep the
+    unpadded one's D^-1/2."""
+    b, h, s, _ = q.shape
     return [b, h, k.shape[1], s, k.shape[2], int(causal),
             int(window is not None), int(window or 0), int(q_offset),
-            float(d) ** -0.5]
+            float(scale)]
+
+
+def _scale(q, scale: Optional[float]) -> float:
+    return float(q.shape[3]) ** -0.5 if scale is None else float(scale)
 
 
 def _strides(*tensors):
@@ -179,11 +199,21 @@ def _tma_strides(t):
             for n, st in zip(t.shape[:3], t.stride()[:3])]
 
 
+def _require_tma(what: str, tensors) -> None:
+    """Raise unless TMA can load each (name, tensor) of ``tensors``."""
+    for name, t in tensors:
+        why = tma_refusal(tuple(t.shape), t.stride(), t.data_ptr(),
+                          t.element_size())
+        if why is not None:
+            raise ValueError(f"{what}: TMA cannot load {name}: {why}")
+
+
 def flash_fwd(q, k, v, *, causal: bool, window: Optional[int],
-              q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+              q_offset: int, scale: Optional[float] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel: returns (out laid out like q, lse (B, H,
-    S) float32). Raises on arguments it does not take and when the launch
-    is refused."""
+    S) float32). ``scale`` multiplies q·k (default D^-1/2). Raises on
+    arguments it does not take and when the launch is refused."""
     _check(q, k, v, causal, window, q_offset)
     lib = _lib()
     b, h, s, d = q.shape
@@ -193,14 +223,16 @@ def flash_fwd(q, k, v, *, causal: bool, window: Optional[int],
         err = lib.flash_attention_fwd(
             _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), _strides(q, k, v, out),
-            *_problem(q, k, causal, window, q_offset), _stream(q))
+            *_problem(q, k, causal, window, q_offset, _scale(q, scale)),
+            _stream(q))
     _raise_on(err, "flash_attention_fwd")
     flash_fwd.launches += 1
     return out, lse
 
 
 def flash_fwd_tc(q, k, v, *, causal: bool, window: Optional[int],
-                 q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                 q_offset: int, scale: Optional[float] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the tensor-core forward kernel (bf16 only): returns (out laid
     out like q, lse (B, H, S) float32), the same function as `flash_fwd`
     with P rounded to bf16 before P·V. Raises on arguments it does not
@@ -209,11 +241,7 @@ def flash_fwd_tc(q, k, v, *, causal: bool, window: Optional[int],
     _check(q, k, v, causal, window, q_offset)
     if q.dtype != torch.bfloat16:
         raise ValueError(f"flash_fwd_tc takes bfloat16, got {q.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        why = tma_refusal(tuple(t.shape), t.stride(), t.data_ptr(),
-                          t.element_size())
-        if why is not None:
-            raise ValueError(f"flash_fwd_tc: TMA cannot load {name}: {why}")
+    _require_tma("flash_fwd_tc", (("q", q), ("k", k), ("v", v)))
     lib = _lib_tc()
     b, h, s, d = q.shape
     out = torch.empty_like(q)
@@ -224,7 +252,8 @@ def flash_fwd_tc(q, k, v, *, causal: bool, window: Optional[int],
         err = lib.flash_attention_fwd_tc(
             d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), (ctypes.c_longlong * len(flat))(*flat),
-            *_problem(q, k, causal, window, q_offset), _stream(q))
+            *_problem(q, k, causal, window, q_offset, _scale(q, scale)),
+            _stream(q))
     _raise_on(err, "flash_attention_fwd_tc")
     flash_fwd_tc.launches += 1
     return out, lse
@@ -244,9 +273,11 @@ def forward_for(dtype: torch.dtype):
 
 
 def flash_bwd_dkdv(q, k, v, out, lse, dout, *, causal: bool,
-                   window: Optional[int], q_offset: int
+                   window: Optional[int], q_offset: int,
+                   scale: Optional[float] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dK/dV kernel: returns (dk, dv) laid out like k and v."""
+    """Launch the CUDA-core dK/dV kernel: returns (dk, dv) laid out like k
+    and v."""
     lib = _lib()
     d = q.shape[3]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -255,14 +286,114 @@ def flash_bwd_dkdv(q, k, v, out, lse, dout, *, causal: bool,
             _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), _strides(q, k, v, out, dout, dk, dv),
-            *_problem(q, k, causal, window, q_offset), _stream(q))
+            *_problem(q, k, causal, window, q_offset, _scale(q, scale)),
+            _stream(q))
     _raise_on(err, "flash_attention_bwd_dkdv")
     flash_bwd_dkdv.launches += 1
     return dk, dv
 
 
+def flash_bwd_delta(out, dout) -> torch.Tensor:
+    """Launch the backward's pre-pass (bf16 only): D_i = rowsum(dO∘O) in
+    float32 for every query row, a contiguous (B, H, S) array, which
+    `flash_bwd_dkdv_tc` reads. Raises on arguments it does not take: CUDA
+    bf16 tensors of one (B, H, S, D) shape with D 64 or 128, a unit stride
+    on D and every row on 4 bytes."""
+    for name, t in (("out", out), ("dout", dout)):
+        if t.device.type != "cuda":
+            raise ValueError(f"flash_bwd_delta runs on CUDA tensors, {name} "
+                             f"is on {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"flash_bwd_delta takes bfloat16, {name} is "
+                             f"{t.dtype}")
+        if t.dim() != 4 or t.shape != out.shape or t.device != out.device:
+            raise ValueError(f"{name} {tuple(t.shape)} on {t.device} does "
+                             f"not match out {tuple(out.shape)} on "
+                             f"{out.device}")
+        if (t.stride(-1) != 1 or t.data_ptr() % 4
+                or any(st % 2 for st in t.stride()[:3])):
+            raise ValueError(f"flash_bwd_delta: {name} (strides "
+                             f"{t.stride()}) does not put every row on 4 "
+                             "bytes with a unit stride on the head "
+                             "dimension")
+    b, h, s, d = out.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} is not one of {HEAD_DIMS}")
+    lib = _lib_tc()
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=out.device)
+    with torch.cuda.device(out.device):
+        err = lib.flash_attention_bwd_delta(
+            d, out.data_ptr(), dout.data_ptr(), delta.data_ptr(),
+            _strides(out, dout), b, h, s, _stream(out))
+    _raise_on(err, "flash_attention_bwd_delta")
+    flash_bwd_delta.launches += 1
+    return delta
+
+
+def flash_bwd_dkdv_tc(q, k, v, out, lse, dout, *, causal: bool,
+                      window: Optional[int], q_offset: int,
+                      scale: Optional[float] = None,
+                      delta: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the tensor-core dK/dV kernel (bf16 only): returns (dk, dv)
+    laid out like k and v, the function `flash_bwd_dkdv` computes with P
+    and dS rounded to bf16 before their products. ``delta`` is
+    `flash_bwd_delta`'s output for (out, dout), computed here (one more
+    launch) when not given. q, k, v and dout must satisfy TMA's rules
+    (`tma_refusal`); it raises on them, as on anything else it does not
+    take, and when the launch is refused: it never falls back to another
+    kernel. `_FlashAttention.backward` copies an output gradient TMA
+    cannot take before it calls this."""
+    _check(q, k, v, causal, window, q_offset)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_bwd_dkdv_tc takes bfloat16, got {q.dtype}")
+    if dout.shape != q.shape or dout.dtype != q.dtype \
+            or dout.device != q.device:
+        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not "
+                         f"match q {tuple(q.shape)} {q.dtype}")
+    _require_tma("flash_bwd_dkdv_tc",
+                 (("q", q), ("k", k), ("v", v), ("dout", dout)))
+    if delta is None:
+        delta = flash_bwd_delta(out, dout)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != q.shape[:3] or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 "
+                             f"{tuple(q.shape[:3])} tensor on {q.device}")
+    lib = _lib_tc()
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    flat = (_tma_strides(q) + _tma_strides(k) + _tma_strides(v)
+            + _tma_strides(dout) + list(dk.stride()[:3])
+            + list(dv.stride()[:3]))
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd_dkdv_tc(
+            q.shape[3], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            (ctypes.c_longlong * len(flat))(*flat),
+            *_problem(q, k, causal, window, q_offset, _scale(q, scale)),
+            _stream(q))
+    _raise_on(err, "flash_attention_bwd_dkdv_tc")
+    flash_bwd_dkdv_tc.launches += 1
+    return dk, dv
+
+
+def dkdv_for(dtype: torch.dtype):
+    """The dK/dV launch function for inputs of this dtype: bf16 runs on
+    the tensor cores (`flash_bwd_dkdv_tc`), float32 on the CUDA cores
+    (`flash_bwd_dkdv`: TF32 would change float32 results). Any other
+    dtype raises."""
+    if dtype == torch.bfloat16:
+        return flash_bwd_dkdv_tc
+    if dtype == torch.float32:
+        return flash_bwd_dkdv
+    raise ValueError(f"flash_attention takes float32 or bfloat16, got "
+                     f"{dtype}")
+
+
 def flash_bwd_dq(q, k, v, out, lse, dout, *, causal: bool,
-                 window: Optional[int], q_offset: int) -> torch.Tensor:
+                 window: Optional[int], q_offset: int,
+                 scale: Optional[float] = None) -> torch.Tensor:
     """Launch the dQ kernel: returns dq laid out like q."""
     lib = _lib()
     d = q.shape[3]
@@ -272,7 +403,8 @@ def flash_bwd_dq(q, k, v, out, lse, dout, *, causal: bool,
             _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
             _strides(q, k, v, out, dout, dq),
-            *_problem(q, k, causal, window, q_offset), _stream(q))
+            *_problem(q, k, causal, window, q_offset, _scale(q, scale)),
+            _stream(q))
     _raise_on(err, "flash_attention_bwd_dq")
     flash_bwd_dq.launches += 1
     return dq
@@ -281,20 +413,23 @@ def flash_bwd_dq(q, k, v, out, lse, dout, *, causal: bool,
 flash_fwd.launches = 0
 flash_fwd_tc.launches = 0
 flash_bwd_dkdv.launches = 0
+flash_bwd_delta.launches = 0
+flash_bwd_dkdv_tc.launches = 0
 flash_bwd_dq.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel of q's dtype (`forward_for`), and the two backward
-    kernels as its gradient. The forward saves q, k, v, the output and the
-    float32 logsumexp."""
+    """The forward kernel of q's dtype (`forward_for`), and as its gradient
+    the dK/dV kernel of that dtype (`dkdv_for`) and the dQ kernel. The
+    forward saves q, k, v, the output and the float32 logsumexp."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset):
-        out, lse = forward_for(q.dtype)(q, k, v, causal=causal,
-                                        window=window, q_offset=q_offset)
+    def forward(ctx, q, k, v, causal, window, q_offset, scale):
+        mask = dict(causal=causal, window=window, q_offset=q_offset,
+                    scale=scale)
+        out, lse = forward_for(q.dtype)(q, k, v, **mask)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
+        ctx.mask = mask
         return out
 
     @staticmethod
@@ -305,19 +440,53 @@ class _FlashAttention(torch.autograd.Function):
                              f"match the output {tuple(out.shape)}")
         if dout.dtype != q.dtype:
             dout = dout.to(q.dtype)
-        if dout.stride(-1) != 1:
-            dout = dout.contiguous()
-        dk, dv = flash_bwd_dkdv(q, k, v, out, lse, dout, **ctx.mask)
+        # autograd's gradient may have any layout: copy it where a kernel
+        # cannot read it (a non-unit last stride; for the tensor-core
+        # dK/dV kernel, a layout TMA refuses)
+        if dout.stride(-1) != 1 or (
+                q.dtype == torch.bfloat16 and tma_refusal(
+                    tuple(dout.shape), dout.stride(), dout.data_ptr(),
+                    dout.element_size()) is not None):
+            dout = dout.clone(memory_format=torch.contiguous_format)
+        dk, dv = dkdv_for(q.dtype)(q, k, v, out, lse, dout, **ctx.mask)
         dq = flash_bwd_dq(q, k, v, out, lse, dout, **ctx.mask)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
+
+
+def pad_head_dim(q, k, v):
+    """(q, k, v, d): q, k and v zero-padded on their last axis to the
+    narrowest of `HEAD_DIMS` that holds their head dimension d, or the
+    same tensors when d is one of `HEAD_DIMS`. Zero columns add exact
+    zeros to every q·k and give the output zero columns, so attention of
+    the padded tensors with the unpadded scale d^-1/2, sliced back to d,
+    is attention of the originals. Raises when k or v has another head
+    dimension than q, and for d outside 1..128."""
+    d = q.shape[-1]
+    for name, t in (("k", k), ("v", v)):
+        if t.shape[-1] != d:
+            raise ValueError(f"{name} has head_dim {t.shape[-1]}, q has {d}")
+    if d in HEAD_DIMS:
+        return q, k, v, d
+    if not 1 <= d <= HEAD_DIMS[-1]:
+        raise ValueError(
+            f"head_dim {d} is outside 1..{HEAD_DIMS[-1]}: the reference's "
+            "kernel takes any head_dim, the port's K2 at most "
+            f"{HEAD_DIMS[-1]}, and no config of this repository has a "
+            "wider attention head")
+    pad = (0, min(w for w in HEAD_DIMS if w >= d) - d)
+    return F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), d
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0) -> torch.Tensor:
     """q: (B, H, S, D); k/v: (B, Hkv, T, D) CUDA tensors with H = G·Hkv,
-    float32 or bfloat16, head_dim 64 or 128. The forward runs on the
-    tensor cores for bfloat16 and on the CUDA cores for float32.
-    Differentiable: the gradient runs the two backward kernels. Raises on
-    anything the kernels do not take, CPU tensors included."""
-    return _FlashAttention.apply(q, k, v, causal, window, q_offset)
+    float32 or bfloat16, any head_dim D up to 128 (other than 64 or 128
+    zero-padded to the next of them, `pad_head_dim`, and the output sliced
+    back). The forward and dK/dV run on the tensor cores for bfloat16 and
+    on the CUDA cores for float32, dQ on the CUDA cores. Differentiable.
+    Raises on anything the kernels do not take, CPU tensors included."""
+    qp, kp, vp, d = pad_head_dim(q, k, v)
+    out = _FlashAttention.apply(qp, kp, vp, causal, window, q_offset,
+                                float(d) ** -0.5)
+    return out if qp is q else out[..., :d]

@@ -45,10 +45,11 @@ def flash_mha(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     (B, S, H, D), differentiable.
 
     On CUDA tensors this runs K2 (``kernels.flash_attention``): the forward
-    kernel of the dtype (tensor cores for bf16, CUDA cores for float32),
-    and the two backward kernels as its gradient, each counting its
-    launches. The kernels read the model's layout through transposed views,
-    and the output and gradients come back in it, so nothing is copied. On
+    and dK/dV kernels of the dtype (tensor cores for bf16, CUDA cores for
+    float32) and the dQ kernel, each counting its launches. The kernels
+    read the model's layout through transposed views, and the output and
+    gradients come back in it, so nothing is copied where the head_dim is
+    64 or 128 (any other up to 128 is zero-padded to the next of them). On
     CPU tensors it runs ``ref.mha_reference`` under autograd."""
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if q.device.type == "cpu":
@@ -116,6 +117,8 @@ WRAPPERS = {"elastic_sgd_update": fused_elastic_update,
             "flash_attention_fwd": flash.flash_fwd,
             "flash_attention_fwd_tc": flash.flash_fwd_tc,
             "flash_attention_bwd_dkdv": flash.flash_bwd_dkdv,
+            "flash_attention_bwd_delta": flash.flash_bwd_delta,
+            "flash_attention_bwd_dkdv_tc": flash.flash_bwd_dkdv_tc,
             "flash_attention_bwd_dq": flash.flash_bwd_dq,
             "ssd_chunk": ssd_chunked}
 

@@ -10,16 +10,18 @@ NEG_INF = -1e30
 
 
 def _masked_scores(q, k, causal: bool, window: Optional[int],
-                   q_offset: int) -> torch.Tensor:
-    """(B, H, S, T) float32 scores q·k·D^-1/2 of q (B, H, S, D) against k
-    (B, Hkv, T, D), kv heads repeated for GQA, masked scores set to the
-    finite ``NEG_INF``."""
+                   q_offset: int, scale: Optional[float] = None
+                   ) -> torch.Tensor:
+    """(B, H, S, T) float32 scores q·k·scale of q (B, H, S, D) against k
+    (B, Hkv, T, D), the scale D^-1/2 unless given, kv heads repeated for
+    GQA, masked scores set to the finite ``NEG_INF``."""
     b, h, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     if h // hkv > 1:
         k = k.repeat_interleave(h // hkv, dim=1)
     scores = torch.einsum("bhsd,bhtd->bhst", q.to(torch.float32),
-                          k.to(torch.float32)) * d ** -0.5
+                          k.to(torch.float32)) * (
+                              d ** -0.5 if scale is None else scale)
     qpos = torch.arange(s, device=q.device)[:, None] + q_offset
     kpos = torch.arange(t, device=q.device)[None, :]
     mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
@@ -31,28 +33,35 @@ def _masked_scores(q, k, causal: bool, window: Optional[int],
 
 
 def mha_reference(q, k, v, *, causal: bool = True,
-                  window: Optional[int] = None, q_offset: int = 0
-                  ) -> torch.Tensor:
+                  window: Optional[int] = None, q_offset: int = 0,
+                  scale: Optional[float] = None) -> torch.Tensor:
     """Plain version of `kernels.flash_attention.flash_attention`: dense
     softmax attention in float32, kv heads repeated for GQA, masked scores
     set to the finite ``NEG_INF``. q: (B, H, S, D); k/v: (B, Hkv, T, D);
-    returns (B, H, S, D) in q's dtype. Its backward is autograd through
-    it."""
+    returns (B, H, S, D) in q's dtype. ``scale`` multiplies q·k (default
+    D^-1/2, as the reference). Its backward is autograd through it."""
     g = q.shape[1] // k.shape[1]
     if g > 1:
         v = v.repeat_interleave(g, dim=1)
-    p = torch.softmax(_masked_scores(q, k, causal, window, q_offset), dim=-1)
+    p = torch.softmax(_masked_scores(q, k, causal, window, q_offset, scale),
+                      dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", p,
                         v.to(torch.float32)).to(q.dtype)
 
 
 def mha_lse_reference(q, k, *, causal: bool = True,
-                      window: Optional[int] = None, q_offset: int = 0
-                      ) -> torch.Tensor:
+                      window: Optional[int] = None, q_offset: int = 0,
+                      scale: Optional[float] = None) -> torch.Tensor:
     """Plain version of the forward kernels' second output, the per-row
     logsumexp of the masked float32 scores: (B, H, S) float32."""
-    return torch.logsumexp(_masked_scores(q, k, causal, window, q_offset),
-                           dim=-1)
+    return torch.logsumexp(
+        _masked_scores(q, k, causal, window, q_offset, scale), dim=-1)
+
+
+def mha_delta_reference(out, dout) -> torch.Tensor:
+    """Plain version of `kernels.flash_attention.flash_bwd_delta`: D_i =
+    rowsum(dO∘O) in float32, (B, H, S), of out and dout (B, H, S, D)."""
+    return (out.to(torch.float32) * dout.to(torch.float32)).sum(-1)
 
 
 def elastic_update_reference(params, mom, grads, w_sum, running, lr, *,

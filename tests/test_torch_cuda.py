@@ -1,7 +1,8 @@
 """The port on the card: the CUDA kernels against their plain versions
 (K1 bit for bit; K2 forward and backward and K3 within stated
-tolerances; K2's tensor-core forward for bf16 beside its CUDA-core
-forward), the engine's random bits and RNG-free market on CUDA against
+tolerances; K2's tensor-core forward and dK/dV kernels for bf16 beside
+their CUDA-core counterparts; K2 at head_dims other than 64 and 128
+through its zero-padding entry point), the engine's random bits and RNG-free market on CUDA against
 the CPU, a small megabatched run through K1, small zoo runs through K2
 (float32 and bf16) and a small Mamba2 served through K3.
 
@@ -159,6 +160,15 @@ K2_SHAPES = [
 K2_TOL = {torch.float32: {"fwd": 2e-5, "bwd": 1e-4},
           torch.bfloat16: {"fwd": 1e-2, "bwd": 2e-2}}
 
+#: per row (row_err), chip_smoke.py's K2_TOL, whose comment gives the
+#: reasons: float32 sums in other orders; bf16 one ulp of each output, and
+#: for dq the cancellation of dS = P (dP - D) where D comes from the bf16
+#: output
+K2_ROW_TOL = {torch.float32: {"out": 1e-5, "dq": 5e-5, "dk": 2e-5,
+                              "dv": 2e-5},
+              torch.bfloat16: {"out": 1e-2, "dq": 0.1, "dk": 1e-2,
+                               "dv": 1e-2}}
+
 
 def k2_inputs(shape, dtype, device, seed=0):
     b, s, t, h, hkv, d = shape[:6]
@@ -179,8 +189,9 @@ def rel_err(a, b):
 def test_k2_forward_and_backward_match_plain(cuda_device, shape, dtype):
     """Through ``ops.flash_mha`` in the model layout (B, S, H, D), which
     hands the kernels strided views: output and dq/dk/dv against autograd
-    through the plain version; the dtype's forward (tensor cores for bf16,
-    CUDA cores for float32) and each backward kernel launched once."""
+    through the plain version; the dtype's forward and dK/dV kernels
+    (tensor cores for bf16, after the D_i pre-pass; CUDA cores for
+    float32) and the dQ kernel launched once each."""
     causal, window, q_offset = shape[6:]
     q, k, v, do = k2_inputs(shape, dtype, cuda_device)
     mask = dict(causal=causal, window=window, q_offset=q_offset)
@@ -197,7 +208,9 @@ def test_k2_forward_and_backward_match_plain(cuda_device, shape, dtype):
     tc = dtype == torch.bfloat16
     assert counts["flash_attention_fwd_tc"] == int(tc)
     assert counts["flash_attention_fwd"] == int(not tc)
-    assert counts["flash_attention_bwd_dkdv"] == 1
+    assert counts["flash_attention_bwd_dkdv_tc"] == int(tc)
+    assert counts["flash_attention_bwd_delta"] == int(tc)
+    assert counts["flash_attention_bwd_dkdv"] == int(not tc)
     assert counts["flash_attention_bwd_dq"] == 1
     assert out.dtype == dtype and out.shape == q.shape
     assert out.is_contiguous()
@@ -224,10 +237,11 @@ def test_k2_refuses_what_it_does_not_take(cuda_device):
     q, k, v, _ = k2_inputs((1, 64, 64, 4, 2, 64), torch.float32,
                            cuda_device)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    wide = [torch.cat([x, x, x[..., :32]], dim=-1) for x in (qt, kt, vt)]
     bad = [
         (qt.double(), kt.double(), vt.double(), {}),
         (qt.half(), kt.half(), vt.half(), {}),
-        (qt[..., :32], kt[..., :32], vt[..., :32], {}),
+        (*wide, {}),                                 # head_dim 160 > 128
         (qt, kt.bfloat16(), vt, {}),
         (qt, kt.cpu(), vt, {}),
         (qt[:, :3], kt, vt, {}),
@@ -322,6 +336,171 @@ def test_k2_tc_forward_refuses_what_tma_cannot_take(cuda_device):
     assert set(ops.launch_counts().values()) == {0}
 
 
+#: the tensor-core dK/dV kernel per row (row_err). Against the plain
+#: version: one bf16 ulp of dk and dv (2^-7 of the row's largest) plus Pᵀ
+#: and dSᵀ rounded to bf16 before their products (up to 4.9e-3 on the CPU,
+#: tests/test_torch_flash_bwd_tc.py), under 1e-2 as chip_smoke.py's
+#: K2_TOL. Against the CUDA-core dK/dV kernel: each rounds its float32
+#: result to bf16 once, so two ulps. D_i against its plain version: both
+#: sum exact float32 products of bf16 values in other orders, each within
+#: (D - 1) 2^-24 of the row's sum of |products|, so 2e-5 of that sum.
+K2_DKDV_TC_TOL = {"dkdv": 1e-2, "dkdv_vs_cuda_core": 2e-2, "delta": 2e-5}
+
+
+def k2_tc_backward_inputs(shape, device, seed=0):
+    """(q, k, v, dout) as (B, H, S, D) views of the model layout, and the
+    tensor-core forward's (out, lse) of them."""
+    causal, window, q_offset = shape[6:]
+    q, k, v, do = k2_inputs(shape, torch.bfloat16, device, seed=seed)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    out, lse = flash.flash_fwd_tc(qt, kt, vt, causal=causal, window=window,
+                                  q_offset=q_offset)
+    return qt, kt, vt, dot, out, lse
+
+
+@pytest.mark.parametrize("shape", K2_SHAPES)
+def test_k2_tc_dkdv_matches_plain(cuda_device, shape):
+    """dk and dv of the tensor-core kernel from the tensor-core forward's
+    output and lse, against autograd through the plain version; D_i
+    against its plain version; one launch each."""
+    causal, window, q_offset = shape[6:]
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    qt, kt, vt, dot, out, lse = k2_tc_backward_inputs(shape, cuda_device)
+    ops.reset_launch_counts()
+    delta = flash.flash_bwd_delta(out, dot)
+    dk, dv = flash.flash_bwd_dkdv_tc(qt, kt, vt, out, lse, dot, **mask,
+                                     delta=delta)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention_bwd_delta"] == 1
+    assert ops.launch_counts()["flash_attention_bwd_dkdv_tc"] == 1
+    assert dk.dtype == dv.dtype == torch.bfloat16
+    assert dk.stride() == kt.stride() and dv.stride() == vt.stride()
+    leaves = [x.clone().requires_grad_() for x in (qt, kt, vt)]
+    want = ref.mha_reference(*leaves, **mask)
+    _, want_k, want_v = torch.autograd.grad(want, leaves, dot)
+    assert row_err(dk, want_k) <= K2_DKDV_TC_TOL["dkdv"]
+    assert row_err(dv, want_v) <= K2_DKDV_TC_TOL["dkdv"]
+    terms = (out.float() * dot.float()).abs().sum(-1)
+    rel = (delta - ref.mha_delta_reference(out, dot)).abs() / terms
+    assert rel.max().item() <= K2_DKDV_TC_TOL["delta"]
+
+
+@pytest.mark.parametrize("shape", K2_SHAPES)
+def test_k2_tc_dkdv_matches_cuda_core_dkdv(cuda_device, shape):
+    causal, window, q_offset = shape[6:]
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    qt, kt, vt, dot, out, lse = k2_tc_backward_inputs(shape, cuda_device,
+                                                      seed=2)
+    dk, dv = flash.flash_bwd_dkdv_tc(qt, kt, vt, out, lse, dot, **mask)
+    dk0, dv0 = flash.flash_bwd_dkdv(qt, kt, vt, out, lse, dot, **mask)
+    torch.cuda.synchronize()
+    assert row_err(dk, dk0) <= K2_DKDV_TC_TOL["dkdv_vs_cuda_core"]
+    assert row_err(dv, dv0) <= K2_DKDV_TC_TOL["dkdv_vs_cuda_core"]
+
+
+def test_k2_tc_dkdv_reads_model_layout_in_place(cuda_device):
+    """The (B, S, H, D) tensors through transposed views give what
+    contiguous (B, H, S, D) copies give, bit for bit, and dk and dv keep
+    the model's layout."""
+    shape = (2, 130, 130, 14, 2, 128, True, None, 0)
+    mask = dict(causal=True, window=None, q_offset=0)
+    qt, kt, vt, dot, out, lse = k2_tc_backward_inputs(shape, cuda_device,
+                                                      seed=4)
+    dk_v, dv_v = flash.flash_bwd_dkdv_tc(qt, kt, vt, out, lse, dot, **mask)
+    dk_c, dv_c = flash.flash_bwd_dkdv_tc(
+        *(x.contiguous() for x in (qt, kt, vt, out)), lse, dot.contiguous(),
+        **mask)
+    assert dk_v.stride() == kt.stride()
+    assert dk_v.transpose(1, 2).is_contiguous()
+    assert torch.equal(dk_v, dk_c) and torch.equal(dv_v, dv_c)
+
+
+def test_k2_tc_dkdv_refuses_what_tma_cannot_take(cuda_device):
+    """An output gradient whose base is not on 16 bytes or whose stride is
+    not a multiple of 16 bytes, another dtype, CPU tensors: the kernel's
+    launch function raises and never falls back."""
+    shape = (1, 64, 64, 4, 2, 64, True, None, 0)
+    mask = dict(causal=True, window=None, q_offset=0)
+    qt, kt, vt, dot, out, lse = k2_tc_backward_inputs(shape, cuda_device)
+    b, h, s, d = qt.shape
+    flat = torch.zeros(dot.numel() + 8, dtype=torch.bfloat16,
+                       device=cuda_device)
+    shifted = flat[1:1 + dot.numel()].view(b, s, h, d).transpose(1, 2)
+    wide = torch.zeros(b, s, h, d + 4, dtype=torch.bfloat16,
+                       device=cuda_device)[..., :d].transpose(1, 2)
+    ops.reset_launch_counts()
+    for args, match in [((qt, kt, vt, out, lse, shifted), "16 bytes"),
+                        ((qt, kt, vt, out, lse, wide),
+                         "multiple of 16 bytes"),
+                        ((qt.float(), kt.float(), vt.float(), out.float(),
+                          lse, dot.float()), "bfloat16"),
+                        ((qt.cpu(), kt.cpu(), vt.cpu(), out.cpu(),
+                          lse.cpu(), dot.cpu()), "CUDA")]:
+        with pytest.raises(ValueError, match=match):
+            flash.flash_bwd_dkdv_tc(*args, **mask)
+    assert set(ops.launch_counts().values()) == {0}
+
+
+def test_k2_backward_copies_an_output_gradient_tma_refuses(cuda_device):
+    """Through ``flash_attention`` with an output gradient whose base is
+    not on 16 bytes: the backward copies it and gives what an aligned
+    gradient gives, bit for bit, on the tensor-core dK/dV kernel."""
+    q, k, v, do = k2_inputs((1, 96, 96, 4, 2, 64), torch.bfloat16,
+                            cuda_device, seed=6)
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    flat = torch.zeros(dot.numel() + 8, dtype=torch.bfloat16,
+                       device=cuda_device)
+    shifted = flat[1:1 + dot.numel()].view(dot.shape)
+    shifted.copy_(dot)
+    grads = []
+    for g_out in (dot, shifted):
+        leaves = [x.clone().requires_grad_() for x in (qt, kt, vt)]
+        ops.reset_launch_counts()
+        out = flash_attention(*leaves, causal=True)
+        grads.append(torch.autograd.grad(out, leaves, g_out))
+        assert ops.launch_counts()["flash_attention_bwd_dkdv_tc"] == 1
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 100, 100, 14, 2, 112, True, None, 0),      # Zamba2-7B's head_dim
+    (1, 77, 200, 7, 1, 80, True, 48, 123),         # not a multiple of 16
+])
+def test_k2_any_head_dim_through_flash_attention(cuda_device, shape, dtype):
+    """A head_dim the kernels do not take, zero-padded by the entry point:
+    output and dq/dk/dv in the model layout against autograd through the
+    plain version at that head_dim, within the per-row tolerances the
+    kernels are held to at 64 and 128; the dtype's kernels launched once
+    each."""
+    causal, window, q_offset = shape[6:]
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    q, k, v, do = k2_inputs(shape, dtype, cuda_device, seed=7)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = ref.mha_reference(*(x.transpose(1, 2) for x in leaves),
+                             **mask).transpose(1, 2)
+    want_g = torch.autograd.grad(want, leaves, do)
+    ops.reset_launch_counts()
+    mine = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = ops.flash_mha(*mine, **mask)
+    got_g = torch.autograd.grad(out, mine, do)
+    torch.cuda.synchronize()
+    tc = dtype == torch.bfloat16
+    counts = ops.launch_counts()
+    assert counts["flash_attention_fwd_tc"] == counts[
+        "flash_attention_bwd_dkdv_tc"] == int(tc)
+    assert counts["flash_attention_fwd"] == counts[
+        "flash_attention_bwd_dkdv"] == int(not tc)
+    assert counts["flash_attention_bwd_dq"] == 1
+    assert out.shape == q.shape and out.dtype == dtype
+    tol = K2_ROW_TOL[dtype]
+    assert row_err(out, want) <= tol["out"]
+    for name, a, b in zip(("dq", "dk", "dv"), got_g, want_g):
+        assert a.shape == b.shape and a.dtype == dtype, name
+        assert row_err(a, b) <= tol[name], name
+
+
 def test_zoo_run_on_cuda_goes_through_k2(cuda_device):
     """A small float32 zoo run with flash attention on the card: K2's
     three kernels launched once per layer, cell and tick, the RNG-free
@@ -348,6 +527,8 @@ def test_zoo_run_on_cuda_goes_through_k2(cuda_device):
     assert counts["flash_attention_fwd"] == per
     assert counts["flash_attention_bwd_dkdv"] == per
     assert counts["flash_attention_bwd_dq"] == per
+    assert counts["flash_attention_fwd_tc"] == 0
+    assert counts["flash_attention_bwd_dkdv_tc"] == 0
     for field in ("iterations", "ys", "total_time", "total_cost"):
         np.testing.assert_array_equal(getattr(gpu, field),
                                       getattr(cpu, field))
@@ -362,8 +543,9 @@ def test_zoo_run_on_cuda_goes_through_k2(cuda_device):
 
 def test_zoo_bf16_run_on_cuda_goes_through_tc_forward(cuda_device):
     """A small bf16 zoo run with flash attention on the card: the
-    tensor-core forward and both backward kernels launched once per layer,
-    cell and tick, the CUDA-core forward never; the RNG-free market
+    tensor-core forward, the D_i pre-pass, the tensor-core dK/dV kernel and
+    the dQ kernel launched once per layer, cell and tick, the CUDA-core
+    forward and dK/dV kernels never; the RNG-free market
     bit-equal to the CPU run's; finite losses, the first (on the initial
     weights, before any update) within the bf16 train_zoo pin's 2e-2 of the
     CPU run's."""
@@ -386,7 +568,9 @@ def test_zoo_bf16_run_on_cuda_goes_through_tc_forward(cuda_device):
     per = job.model.num_layers * len(seeds) * n_ticks
     assert counts["flash_attention_fwd_tc"] == per
     assert counts["flash_attention_fwd"] == 0
-    assert counts["flash_attention_bwd_dkdv"] == per
+    assert counts["flash_attention_bwd_delta"] == per
+    assert counts["flash_attention_bwd_dkdv_tc"] == per
+    assert counts["flash_attention_bwd_dkdv"] == 0
     assert counts["flash_attention_bwd_dq"] == per
     for field in ("iterations", "ys", "total_time", "total_cost"):
         np.testing.assert_array_equal(getattr(gpu, field),
