@@ -10,16 +10,16 @@ Phases, each printing one JSON line and raising on failure:
    per source, all at once) with each kernel's ``ptxas`` report (no
    tensor-core kernel may spill), and the count of ``HGMMA`` (wgmma) and
    ``UTMALDG`` (TMA load) instructions in the SASS of each tensor-core
-   kernel, the forward and the dK/dV kernel at both head dims
+   kernel, the forward, the dK/dV and the dQ kernel at both head dims
    (``cuobjdump -sass``), none of which may be 0;
 2. each kernel against its plain PyTorch version on the card: K1 bit for
    bit on edge-case rows at a ragged width; K2 forward and backward on
    edge shapes (GQA g = 7, head_dim 64 and 128, and 112 and 80 through
    the entry point's zero padding, float32 and bf16, ragged S and T,
    windows, a query offset) within stated tolerances: float32 through the
-   CUDA-core forward and dK/dV kernels, bf16 through the tensor-core ones
-   (the forward's lse and the D_i pre-pass too), dQ on the CUDA cores,
-   the backward from the forward's output and lse;
+   CUDA-core forward, dK/dV and dQ kernels, bf16 through the tensor-core
+   ones (the forward's lse and the D_i pre-pass too, launched once for
+   both backward halves), the backward from the forward's output and lse;
 3. slice 1's path through the launcher's own entry points: elastic
    megabatch training of full-width Qwen2-7B at depth 2 in float32, a
    grid of one strategy × 2 seeds (R = 2), the fused update through K1.
@@ -32,16 +32,16 @@ Phases, each printing one JSON line and raising on failure:
    2 in bf16 mixed precision with ``use_flash_attention`` (K2), the same
    strategy, market and 2 seeds, 8 workers, batch 8, sequence 1024. Checks
    finite losses, first losses near ln V and K2's launches (one
-   tensor-core forward, D_i pre-pass, tensor-core dK/dV and dQ kernel per
-   layer, cell and tick, and no CUDA-core forward or dK/dV); reports time
-   per tick, a steady step over both cells, tokens per second and peak
-   memory; one zoo step on the initial weights with K2 against the same
+   tensor-core forward, D_i pre-pass, tensor-core dK/dV and tensor-core dQ
+   kernel per layer, cell and tick, and no CUDA-core forward, dK/dV or
+   dQ); reports time per tick, a steady step over both cells, tokens per
+   second and peak memory; one zoo step on the initial weights with K2 against the same
    step through the plain attention core (the loss and each attention
    weight's gradient); then K2 at that path's shape
    (B 8, H 28, Hkv 4, S = T = 1023, D 128, bf16, causal): each kernel's
    time beside its bound, the plain version's time and
    ``scaled_dot_product_attention``'s (timed here only; the port never
-   calls it), the CUDA-core forward's and dK/dV kernel's bf16 times
+   calls it), the CUDA-core forward's, dK/dV and dQ kernels' bf16 times
    beside the tensor-core ones';
 5. slice 3's path: serving full-width Mamba2-1.3B (48 layers, float32
    parameters initialised on the card, bf16 activations) through
@@ -111,25 +111,30 @@ KERNEL_SOURCES = {"elastic_sgd_update": (
     "flash_attention_bwd_dkdv": K2_SOURCE,
     "flash_attention_bwd_delta": K2_TC_SOURCE,
     "flash_attention_bwd_dkdv_tc": K2_TC_SOURCE,
-    "flash_attention_bwd_dq": K2_SOURCE}
-#: the CUDA-core forward and dK/dV kernels take float32 (and bf16 when
+    "flash_attention_bwd_dq": K2_SOURCE,
+    "flash_attention_bwd_dq_tc": K2_TC_SOURCE}
+#: the CUDA-core forward, dK/dV and dQ kernels take float32 (and bf16 when
 #: called directly); the tensor-core ones take bf16, which is what the zoo
-#: path runs, the dK/dV kernel after the D_i pre-pass
+#: path runs, the dK/dV and dQ kernels after one D_i pre-pass
 K2_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_tc",
               "flash_attention_bwd_dkdv", "flash_attention_bwd_delta",
-              "flash_attention_bwd_dkdv_tc", "flash_attention_bwd_dq")
+              "flash_attention_bwd_dkdv_tc", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dq_tc")
 K2_ZOO_KERNELS = ("flash_attention_fwd_tc", "flash_attention_bwd_delta",
-                  "flash_attention_bwd_dkdv_tc", "flash_attention_bwd_dq")
-#: the forward and the dK/dV kernel each dtype routes to
-#: (kernels.flash_attention.forward_for, dkdv_for)
+                  "flash_attention_bwd_dkdv_tc", "flash_attention_bwd_dq_tc")
+#: the forward, dK/dV and dQ kernel each dtype routes to
+#: (kernels.flash_attention.forward_for, dkdv_for, dq_for)
 K2_FWD_OF = {"float32": "flash_attention_fwd",
              "bfloat16": "flash_attention_fwd_tc"}
 K2_DKDV_OF = {"float32": "flash_attention_bwd_dkdv",
               "bfloat16": "flash_attention_bwd_dkdv_tc"}
+K2_DQ_OF = {"float32": "flash_attention_bwd_dq",
+            "bfloat16": "flash_attention_bwd_dq_tc"}
 #: instructions the SASS of each tensor-core kernel must hold: wgmma and
 #: TMA loads
 TC_OPCODES = ("HGMMA", "UTMALDG")
-TC_FUNCTIONS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel")
+TC_FUNCTIONS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
+                "flash_bwd_dq_tc_kernel")
 KERNEL_SOURCES["ssd_chunk"] = ("src/repro_torch/csrc/ssd_scan.cu",
                                "src/repro/kernels/ssd_scan.py:72")
 
@@ -161,6 +166,12 @@ KERNEL_SOURCES["ssd_chunk"] = ("src/repro_torch/csrc/ssd_scan.cu",
 #: the worst row alone on the CPU (tests/test_torch_flash_bwd_tc.py), and
 #: on an H100 over these shapes, the padded head_dims and the path's
 #: 7.8e-3 (dk) and 7.9e-3 (dv, at the path's shape), under the same 1e-2.
+#: The bf16 dQ kernel runs on the tensor cores too and rounds dS to bf16
+#: before dS·K: 4.5e-3 in the worst row alone on the CPU
+#: (tests/test_torch_flash_dq_tc.py), beside the cancellation above; on an
+#: H100 7.3e-2 over these shapes and the padded head_dims, 9.0e-2 at the
+#: path's shape (as the CUDA-core dQ kernel's 9.0e-2 there), and 7.8e-3
+#: against the CUDA-core kernel, under the unchanged 0.1.
 K2_TOL = {"float32": {"out": 1e-5, "dq": 5e-5, "dk": 2e-5, "dv": 2e-5},
           "bfloat16": {"out": 1e-2, "dq": 0.1, "dk": 1e-2, "dv": 1e-2}}
 K2_GRADS = ("out", "dq", "dk", "dv")
@@ -338,9 +349,10 @@ def phase_card_and_build():
 
 def phase_sass(lib_path):
     """Count the wgmma (``HGMMA``) and TMA load (``UTMALDG``)
-    instructions of each tensor-core kernel (the forward and the dK/dV
-    kernel, each at both head dims) in its library's SASS: a kernel really
-    runs on the tensor cores and is fed by TMA only if neither is 0."""
+    instructions of each tensor-core kernel (the forward, the dK/dV and
+    the dQ kernel, each at both head dims) in its library's SASS: a
+    kernel really runs on the tensor cores and is fed by TMA only if
+    neither is 0."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", lib_path],
                           capture_output=True, text=True, timeout=120,
@@ -615,11 +627,11 @@ def delta_err(torch, delta, out, dout) -> float:
 
 
 def phase_k2_small(torch):
-    """Through ``ops.flash_mha`` (the forward and dK/dV kernels of the
-    dtype's route and the dQ kernel) against autograd through the plain
-    version, head_dims 64 and 128 and, through the entry point's padding,
-    112 and 80; then the tensor-core forward's lse against the plain
-    logsumexp and the D_i pre-pass against its plain version."""
+    """Through ``ops.flash_mha`` (the forward, dK/dV and dQ kernels of the
+    dtype's route; for bf16 one D_i pre-pass) against autograd through the
+    plain version, head_dims 64 and 128 and, through the entry point's
+    padding, 112 and 80; then the tensor-core forward's lse against the
+    plain logsumexp and the D_i pre-pass against its plain version."""
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import ops, ref
 
@@ -634,11 +646,15 @@ def phase_k2_small(torch):
             ops.reset_launch_counts()
             kern, plain = k2_both(torch, *inputs, mask)
             counts = ops.launch_counts()
-            for route in (K2_FWD_OF, K2_DKDV_OF):
+            for route in (K2_FWD_OF, K2_DKDV_OF, K2_DQ_OF):
                 got = {n: counts[n] for n in route.values()}
                 if got != {n: int(n == route[key]) for n in route.values()}:
                     raise AssertionError(f"K2 {key} launches {got}: "
                                          f"{route[key]} is its route")
+            if counts["flash_attention_bwd_delta"] != int(key == "bfloat16"):
+                raise AssertionError(f"K2 {key}: {counts} launches D_i's "
+                                     "pre-pass once for bf16, never for "
+                                     "float32")
             errs = {n: row_err(a, b) for n, a, b in zip(K2_GRADS, kern,
                                                          plain)}
             bad += k2_check(errs, key, shape)
@@ -653,7 +669,7 @@ def phase_k2_small(torch):
                     torch, flash.flash_bwd_delta(out, dot), out, dot))
     emit({"phase": "k2_vs_plain_small",
           "shapes": K2_EDGE_SHAPES + K2_ANY_D_SHAPES,
-          "forward_of": K2_FWD_OF, "dkdv_of": K2_DKDV_OF,
+          "forward_of": K2_FWD_OF, "dkdv_of": K2_DKDV_OF, "dq_of": K2_DQ_OF,
           "tolerance_per_row": K2_TOL, "worst_row_err": worst,
           "tc_lse_abs_err": lse_err, "lse_tolerance": K2_LSE_TOL,
           "delta_rel_err": d_err, "delta_tolerance": K2_DELTA_TOL})
@@ -818,8 +834,8 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
     """K2 at the zoo path's shape, in the model layout it receives there:
     each kernel's time beside its bound, the plain version's and
     ``scaled_dot_product_attention``'s. The path runs the tensor-core
-    forward and dK/dV kernels; the CUDA-core forward and dK/dV kernels are
-    held and timed here in bf16 beside them."""
+    forward, dK/dV and dQ kernels; the CUDA-core forward, dK/dV and dQ
+    kernels are held and timed here in bf16 beside them."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import ops, ref
@@ -835,11 +851,14 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
     cuda_core_out, _ = flash.flash_fwd(qt, kt, vt, **mask)
     cc_dk, cc_dv = (x.transpose(1, 2) for x in flash.flash_bwd_dkdv(
         qt, kt, vt, out, lse, dot, **mask))
+    cc_dq = flash.flash_bwd_dq(qt, kt, vt, out, lse, dot,
+                               **mask).transpose(1, 2)
     d_err = delta_err(torch, delta, out, dot)
     errs = {"flash_attention_fwd_tc": abs_err(kern[0], plain[0]),
             "flash_attention_fwd": abs_err(cuda_core_out.transpose(1, 2),
                                            plain[0]),
-            "flash_attention_bwd_dq": abs_err(kern[1], plain[1]),
+            "flash_attention_bwd_dq_tc": abs_err(kern[1], plain[1]),
+            "flash_attention_bwd_dq": abs_err(cc_dq, plain[1]),
             "flash_attention_bwd_dkdv_tc": max(abs_err(kern[2], plain[2]),
                                                abs_err(kern[3], plain[3])),
             "flash_attention_bwd_dkdv": max(abs_err(cc_dk, plain[2]),
@@ -851,13 +870,15 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
     off_path = {"flash_attention_fwd out": row_err(
         cuda_core_out.transpose(1, 2), plain[0]),
         "flash_attention_bwd_dkdv dk": row_err(cc_dk, plain[2]),
-        "flash_attention_bwd_dkdv dv": row_err(cc_dv, plain[3])}
+        "flash_attention_bwd_dkdv dv": row_err(cc_dv, plain[3]),
+        "flash_attention_bwd_dq dq": row_err(cc_dq, plain[1])}
     bad += [(shape, "bfloat16", n, e) for n, e in off_path.items()
             if not e <= K2_TOL["bfloat16"][n.split()[-1]]]
     if not d_err <= K2_DELTA_TOL:
         bad.append((shape, "bfloat16", "flash_attention_bwd_delta", d_err))
     tc_vs_cc = max(row_err(kern[2], cc_dk), row_err(kern[3], cc_dv))
-    del cuda_core_out, cc_dk, cc_dv
+    dq_tc_vs_cc = row_err(kern[1], cc_dq)
+    del cuda_core_out, cc_dk, cc_dv, cc_dq
     if bad:
         raise AssertionError(f"K2 at the path's shape differs from its plain "
                              f"version: {bad}")
@@ -875,6 +896,9 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
         "flash_attention_bwd_dkdv": timed(
             lambda: flash.flash_bwd_dkdv(qt, kt, vt, out, lse, dot, **mask),
             n, torch),
+        "flash_attention_bwd_dq_tc": timed(
+            lambda: flash.flash_bwd_dq_tc(qt, kt, vt, out, lse, dot, **mask,
+                                          delta=delta), 5 * n, torch),
         "flash_attention_bwd_dq": timed(
             lambda: flash.flash_bwd_dq(qt, kt, vt, out, lse, dot, **mask),
             n, torch)}
@@ -902,7 +926,8 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
         return {"flash_attention_fwd": f_ms, "flash_attention_fwd_tc": f_ms,
                 "flash_attention_bwd_dkdv": kv_ms,
                 "flash_attention_bwd_dkdv_tc": kv_ms,
-                "flash_attention_bwd_dq": q_ms}
+                "flash_attention_bwd_dq": q_ms,
+                "flash_attention_bwd_dq_tc": q_ms}
 
     plain_ms = split_times(lambda a, b_, c: ref.mha_reference(
         a, b_, c, causal=True), 3)
@@ -931,7 +956,11 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
         "flash_attention_bwd_delta": (2 * b * h * s * d,
                                       2 * q_bytes + lse_bytes),
         "flash_attention_bwd_dq": (6 * b * h * d * pairs,
-                                   4 * q_bytes + 2 * kv_bytes + lse_bytes)}
+                                   4 * q_bytes + 2 * kv_bytes + lse_bytes),
+        # q, dout, lse, D_i in; k, v in; dq out
+        "flash_attention_bwd_dq_tc": (6 * b * h * d * pairs,
+                                      3 * q_bytes + 2 * kv_bytes
+                                      + 2 * lse_bytes)}
     rows = []
     for kname in K2_KERNELS:
         flops, nbytes = work[kname]
@@ -949,7 +978,8 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
     emit({"phase": "k2_at_path_shape", "shape": shape, "dtype": "bfloat16",
           "valid_pairs": pairs, "row_err": rels,
           "off_path_row_err": off_path, "delta_rel_err": d_err,
-          "dkdv_tc_vs_cuda_core_row_err": tc_vs_cc, "peak": label,
+          "dkdv_tc_vs_cuda_core_row_err": tc_vs_cc,
+          "dq_tc_vs_cuda_core_row_err": dq_tc_vs_cc, "peak": label,
           "kernels": {r["name"]: {kk: r[kk] for kk in
                                   ("ms", "bound_ms", "plain_ms",
                                    "library_ms", "max_abs_err")}
@@ -964,11 +994,15 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
           + ms["flash_attention_bwd_delta"],
           "cuda_core_dkdv_ms": ms["flash_attention_bwd_dkdv"],
           "dkdv_speedup_over_cuda_core": ms["flash_attention_bwd_dkdv"]
-          / ms["flash_attention_bwd_dkdv_tc"], "fwd_bwd_ms": fwd_bwd_ms,
+          / ms["flash_attention_bwd_dkdv_tc"],
+          "dq_ms": ms["flash_attention_bwd_dq_tc"],
+          "cuda_core_dq_ms": ms["flash_attention_bwd_dq"],
+          "dq_speedup_over_cuda_core": ms["flash_attention_bwd_dq"]
+          / ms["flash_attention_bwd_dq_tc"], "fwd_bwd_ms": fwd_bwd_ms,
           "fwd_bwd_bound_ms": 1e3 * fb_flops / bf16,
           "plain_fwd_bwd_ms": sum(plain_ms[kk] for kk in (
               "flash_attention_fwd_tc", "flash_attention_bwd_dkdv_tc",
-              "flash_attention_bwd_dq")),
+              "flash_attention_bwd_dq_tc")),
           "library_fwd_ms": library_ms["flash_attention_fwd"],
           "share_of_zoo_cell_step": fwd_bwd_ms * n_layers / step_ms,
           "card": smi})

@@ -46,9 +46,9 @@
 // 135 MB, so it is bound by operations (0.061 ms at the bf16 tensor-core
 // peak of 989 TFLOP/s). This version runs those operations in float32 on
 // the CUDA cores (67 TFLOP/s peak), so it sits far from that bound. For
-// bf16 the forward and dK/dV run on the tensor cores instead
+// bf16 the forward, dK/dV and dQ run on the tensor cores instead
 // (flash_attention_sm90.cu); these kernels serve float32, where TF32
-// would change results, and dQ in both dtypes.
+// would change results.
 //
 // Limits: head_dim 64 or 128; dtype float32 or bfloat16; the dynamic
 // shared memory of each kernel (67-167 KB) is opted into with

@@ -1,7 +1,8 @@
 // Flash attention (K2) on Hopper's tensor cores (sm_90a) for bf16 inputs:
-// the forward and the dK/dV half of the backward, products by wgmma,
-// tiles loaded by TMA. The backward's dK/dV kernel and its D_i pre-pass
-// are described after the forward, above flash_bwd_delta_kernel.
+// the forward and both halves of the backward (dK/dV, dQ), products by
+// wgmma, tiles loaded by TMA. The backward's dK/dV kernel and its D_i
+// pre-pass are described after the forward, above flash_bwd_delta_kernel;
+// the dQ kernel after them, above flash_bwd_dq_tc_kernel.
 //
 // Replaces, for bf16 inputs, the forward of the Pallas kernel
 // src/repro/kernels/flash_attention.py::flash_attention (:88, body
@@ -483,7 +484,8 @@ __global__ void __launch_bounds__(kThreads)
 // Design: keys on wgmma's M dimension, so all four products take the
 // forward's operand layouts.
 // - flash_bwd_delta_kernel first writes D_i, a (B, H, S) float32 array,
-//   one warp per query row, so no key tile recomputes it.
+//   one warp per query row, so no key tile recomputes it; the dQ kernel
+//   below reads the same array.
 // - One block of one warpgroup per (64-key tile, kv head, batch), the
 //   lowest key tiles (under a causal mask, the ones most query tiles see)
 //   first. K and V are loaded once by TMA; the block loops over the
@@ -735,6 +737,192 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------- backward: dQ
+//
+// dQ of the forward above, for bf16 inputs: what flash_bwd_dq_kernel in
+// flash_attention.cu computes, with the same masks, NEG_INF, the forward's
+// lse and the caller's scale. Per valid (query row, key):
+//
+//     P  = exp(s * scale - lse),   dP = dO . v,   dS = P (dP - D_i)
+//     dQ = scale * sum over the row's keys of dS k
+//
+// and P = dS = 0 where the mask holds. One rounding point is new: dS is
+// rounded to bf16 before dS K, as the dK/dV kernel rounds dS^T. D_i comes
+// from flash_bwd_delta_kernel, written once per backward for both halves.
+//
+// Bound at the zoo path's shape (B 8, H 28, Hkv 4, S = T = 1023, D 128,
+// causal): three products of 2 D FLOP per valid pair and head, 6 B H D
+// S(S+1)/2 = 9.0e10 FLOP against 195 MB moved (q, dO and dq; k and v; lse
+// and D_i), so operations bound it: 0.091 ms at the bf16 tensor-core peak
+// of 989 TFLOP/s.
+//
+// Design: the forward's, with one more product and the queries on wgmma's
+// M dimension. One block of one warpgroup per (64 query rows, head,
+// batch), the q-tiles with the most key tiles first. Q and dO are loaded
+// once by TMA on one barrier, K and V go through the forward's two-stage
+// ring over the key tiles key_tiles() gives. Each thread keeps lse and D_i
+// of its two rows in registers, read once.
+// - S = Q K^T and dP = dO V^T: wgmma m64n64k16, both operands K-major,
+//   one commit for both.
+// - P and dS in registers with the forward's accumulator indexing; dS
+//   rounded to bf16 straight into the A fragment, as the forward's P.
+// - dQ += dS K: wgmma m64nDk16, K read MN-major through the transpose bit
+//   (the forward's P V descriptor with K in V's place), so one K stage
+//   serves as K-major B for S and as MN-major B for dQ.
+// - dQ stays float32 in registers (D / 2 a thread); the epilogue scales
+//   it, rounds it to bf16 and stores it through dq's strides, rows past S
+//   left alone. No atomics: the result does not depend on scheduling.
+// Later work: fusing dQ into the dK/dV kernel with float32 atomics
+// (FlashAttention-3's scheme) saves recomputing S and dP but makes dQ
+// depend on the run order.
+//
+// Shared memory: Q, dO, two stages of K and two of V, each D x 128 bytes:
+// 96 KB at D = 128 (bwd_smem_bytes), two blocks per SM.
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dq, Strides sdq,
+                           Problem p) {
+  constexpr int kTile = tile_bytes<D>();
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + kStages];
+
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base;
+  const uint32_t sdo = base + kTile;
+  const uint32_t sk = base + 2 * kTile;               // + stage * kTile
+  const uint32_t sv = base + (2 + kStages) * kTile;   // + stage * kTile
+  const uint32_t bar_qd = smem_u32(&bars[0]);
+  const uint32_t bar_kv = smem_u32(&bars[1]);         // + stage * 8
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.H / p.Hkv);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  int kt0, kt1;
+  key_tiles(p, q0, &kt0, &kt1);
+  const int n = kt1 - kt0;
+
+  if (tid == 0) {
+    mbar_init(bar_qd, 1);
+    for (int st = 0; st < kStages; ++st) mbar_init(bar_kv + 8 * st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_qd, 2 * kTile);
+    load_tile<D>(sq, &tq, bar_qd, q0, h, b);
+    load_tile<D>(sdo, &tdo, bar_qd, q0, h, b);
+    for (int j = 0; j < kStages - 1 && j < n; ++j)
+      load_stage<D>(sk, sv, &tk, &tv, bar_kv, j, (kt0 + j) * kBK, hk, b);
+  }
+  __syncwarp();
+
+  // lse and D_i of rows row0 and row0 + 8; 0 past S, where every pair is
+  // masked
+  float lse_r[2], d_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const long long at = (static_cast<long long>(b) * p.H + h) * p.S + row;
+    lse_r[r] = row < p.S ? lse[at] : 0.0f;
+    d_r[r] = row < p.S ? delta[at] : 0.0f;
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+
+  mbar_wait(bar_qd, 0);
+  for (int it = 0; it < n; ++it) {
+    // the stage of tile it + kStages - 1 was freed by the last iteration's
+    // __syncthreads()
+    if (tid == 0 && it + kStages - 1 < n)
+      load_stage<D>(sk, sv, &tk, &tv, bar_kv, it + kStages - 1,
+                    (kt0 + it + kStages - 1) * kBK, hk, b);
+    __syncwarp();
+    const int st = it % kStages;
+    mbar_wait(bar_kv + 8 * st, (it / kStages) & 1);
+    const int k0 = (kt0 + it) * kBK;
+    const uint32_t sk_st = sk + st * kTile, sv_st = sv + st * kTile;
+
+    // S = Q K^T and dP = dO V^T over D / 16 k-steps each
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      wgmma_ss_n64(s, sw128_desc(sq + off, 16, 1024),
+                   sw128_desc(sk_st + off, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      wgmma_ss_n64(dp, sw128_desc(sdo + off, 16, 1024),
+                   sw128_desc(sv_st + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // s[4i + j]: row row0 + 8 (j / 2), key k0 + 8 i + 2 t4 + j % 2; dS
+    // into dp
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = j / 2, col = k0 + 8 * i + 2 * t4 + j % 2;
+        const float pr = is_valid(p, row0 + 8 * r, col)
+                             ? expf(s[4 * i + j] * p.scale - lse_r[r])
+                             : 0.0f;
+        dp[4 * i + j] = pr * (dp[4 * i + j] - d_r[r]);
+      }
+
+    // dS as the A fragment, one 16-key slice per k-step (the forward's P
+    // layout)
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        a[kk][j] = pack_bf16(dp[8 * kk + 2 * j], dp[8 * kk + 2 * j + 1]);
+
+    // dQ += dS K; a k-step is 16 keys = 2048 bytes of K
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(acc, a[kk],
+                  sw128_desc(sk_st + kk * 2048, kBoxBytes, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  __nv_bfloat16* dqb = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= p.S) continue;
+    __nv_bfloat16* qrow = dqb + static_cast<long long>(row) * sdq.s + 2 * t4;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(qrow + 8 * i) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * r] * p.scale,
+                                acc[4 * i + 2 * r + 1] * p.scale);
+  }
+}
+
 // ------------------------------------------------------------------ host
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -814,6 +1002,39 @@ int launch_dkdv(const CUtensorMap& tq, const CUtensorMap& tk,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_dq(const CUtensorMap& tq, const CUtensorMap& tk,
+              const CUtensorMap& tv, const CUtensorMap& tdo,
+              const float* lse, const float* delta, void* dq, Strides sdq,
+              Problem p, cudaStream_t stream) {
+  const int bytes = bwd_smem_bytes<D>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.S + kBQ - 1) / kBQ, p.H, p.B);
+  flash_bwd_dq_tc_kernel<D><<<grid, kThreads, bytes, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dq), sdq, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor maps of q, k, v and dout for a backward kernel, from their
+// (batch, head, position) element strides in that order.
+CUresult encode_backward(EncodeTiled fn, CUtensorMap (&maps)[4],
+                         const void* q, const void* k, const void* v,
+                         const void* dout, int head_dim,
+                         const long long* strides, int B, int H, int Hkv,
+                         int S, int T) {
+  CUresult r = encode(fn, &maps[0], q, head_dim, S, H, B, strides);
+  if (r == CUDA_SUCCESS) r = encode(fn, &maps[1], k, head_dim, T, Hkv, B,
+                                    strides + 3);
+  if (r == CUDA_SUCCESS) r = encode(fn, &maps[2], v, head_dim, T, Hkv, B,
+                                    strides + 6);
+  if (r == CUDA_SUCCESS) r = encode(fn, &maps[3], dout, head_dim, S, H, B,
+                                    strides + 9);
+  return r;
+}
+
 }  // namespace
 
 // bf16 only. head_dim: 64 or 128. strides: three (batch, head, position)
@@ -891,14 +1112,9 @@ extern "C" int flash_attention_bwd_dkdv_tc(
     return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  CUtensorMap tq, tk, tv, tdo;
-  CUresult r = encode(fn, &tq, q, head_dim, S, H, B, strides);
-  if (r == CUDA_SUCCESS) r = encode(fn, &tk, k, head_dim, T, Hkv, B,
-                                    strides + 3);
-  if (r == CUDA_SUCCESS) r = encode(fn, &tv, v, head_dim, T, Hkv, B,
-                                    strides + 6);
-  if (r == CUDA_SUCCESS) r = encode(fn, &tdo, dout, head_dim, S, H, B,
-                                    strides + 9);
+  CUtensorMap m[4];
+  const CUresult r = encode_backward(fn, m, q, k, v, dout, head_dim, strides,
+                                     B, H, Hkv, S, T);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   const Strides sdk = {strides[12], strides[13], strides[14]};
   const Strides sdv = {strides[15], strides[16], strides[17]};
@@ -906,8 +1122,35 @@ extern "C" int flash_attention_bwd_dkdv_tc(
                      causal, has_window, window, q_offset, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (head_dim == 64)
-    return launch_dkdv<64>(tq, tk, tv, tdo, lse, delta, dk, dv, sdk, sdv, p,
-                           st);
-  return launch_dkdv<128>(tq, tk, tv, tdo, lse, delta, dk, dv, sdk, sdv, p,
-                          st);
+    return launch_dkdv<64>(m[0], m[1], m[2], m[3], lse, delta, dk, dv, sdk,
+                           sdv, p, st);
+  return launch_dkdv<128>(m[0], m[1], m[2], m[3], lse, delta, dk, dv, sdk,
+                          sdv, p, st);
+}
+
+// bf16 only. head_dim: 64 or 128. strides: three (batch, head, position)
+// element strides for q, k, v, dout and dq in that order; lse and delta as
+// for flash_attention_bwd_dkdv_tc. The caller checks shapes and TMA's
+// rules for q, k, v and dout. Returns what flash_attention_fwd_tc returns.
+extern "C" int flash_attention_bwd_dq_tc(
+    int head_dim, const void* q, const void* k, const void* v,
+    const void* dout, const float* lse, const float* delta, void* dq,
+    const long long* strides, int B, int H, int Hkv, int S, int T,
+    int causal, int has_window, int window, int q_offset, float scale,
+    void* stream) {
+  if (head_dim != 64 && head_dim != 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap m[4];
+  const CUresult r = encode_backward(fn, m, q, k, v, dout, head_dim, strides,
+                                     B, H, Hkv, S, T);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  const Strides sdq = {strides[12], strides[13], strides[14]};
+  const Problem p = {B,      H,          Hkv,    S,        T,
+                     causal, has_window, window, q_offset, scale};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64)
+    return launch_dq<64>(m[0], m[1], m[2], m[3], lse, delta, dq, sdq, p, st);
+  return launch_dq<128>(m[0], m[1], m[2], m[3], lse, delta, dq, sdq, p, st);
 }

@@ -18,11 +18,11 @@ on the tensor cores (wgmma, tiles loaded by TMA), and
 ``csrc/flash_attention.cu`` runs float32 inputs on the CUDA cores (TF32
 would change float32 results); `forward_for` picks one by dtype alone.
 The backward recomputes the probabilities from that logsumexp, in two
-halves: dK/dV per (key tile, kv head), on the tensor cores for bf16
-(``flash_attention_sm90.cu``, after a pre-pass that writes D_i =
-rowsum(dO∘O)) and on the CUDA cores for float32 (``flash_attention.cu``),
-picked by `dkdv_for`; and dQ per (query tile, head) on the CUDA cores for
-both. `flash_attention` joins them in a ``torch.autograd.Function``. Each
+halves, dK/dV per (key tile, kv head) and dQ per (query tile, head): on
+the tensor cores for bf16 (``flash_attention_sm90.cu``, both after one
+pre-pass that writes D_i = rowsum(dO∘O)) and on the CUDA cores for
+float32 (``flash_attention.cu``), picked by `dkdv_for` and `dq_for`.
+`flash_attention` joins them in a ``torch.autograd.Function``. Each
 launch function keeps a count of its launches. The plain version of
 both directions is ``kernels.ref.mha_reference`` under autograd;
 ``kernels.ops.flash_mha`` picks between the two by the device of the
@@ -62,6 +62,9 @@ _ARGTYPES_TC = {
     + _COMMON,
     # head_dim, q, k, v, dout, lse, delta, dk, dv, strides, problem
     "flash_attention_bwd_dkdv_tc": [ctypes.c_int] + [ctypes.c_void_p] * 9
+    + _COMMON,
+    # head_dim, q, k, v, dout, lse, delta, dq, strides, problem
+    "flash_attention_bwd_dq_tc": [ctypes.c_int] + [ctypes.c_void_p] * 8
     + _COMMON,
     # head_dim, o, dout, delta, strides, B, H, S, stream
     "flash_attention_bwd_delta": [ctypes.c_int] + [ctypes.c_void_p] * 4
@@ -296,9 +299,9 @@ def flash_bwd_dkdv(q, k, v, out, lse, dout, *, causal: bool,
 def flash_bwd_delta(out, dout) -> torch.Tensor:
     """Launch the backward's pre-pass (bf16 only): D_i = rowsum(dO∘O) in
     float32 for every query row, a contiguous (B, H, S) array, which
-    `flash_bwd_dkdv_tc` reads. Raises on arguments it does not take: CUDA
-    bf16 tensors of one (B, H, S, D) shape with D 64 or 128, a unit stride
-    on D and every row on 4 bytes."""
+    `flash_bwd_dkdv_tc` and `flash_bwd_dq_tc` read. Raises on arguments it
+    does not take: CUDA bf16 tensors of one (B, H, S, D) shape with D 64
+    or 128, a unit stride on D and every row on 4 bytes."""
     for name, t in (("out", out), ("dout", dout)):
         if t.device.type != "cuda":
             raise ValueError(f"flash_bwd_delta runs on CUDA tensors, {name} "
@@ -330,6 +333,29 @@ def flash_bwd_delta(out, dout) -> torch.Tensor:
     return delta
 
 
+def _backward_tc_inputs(what: str, q, k, v, out, lse, dout, causal,
+                        window, q_offset, delta):
+    """Check a tensor-core backward kernel's inputs (bf16, TMA's rules for
+    q, k, v and dout, lse and delta contiguous float32 (B, H, S)) and
+    return delta, `flash_bwd_delta`'s (one more launch) when None."""
+    _check(q, k, v, causal, window, q_offset)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"{what} takes bfloat16, got {q.dtype}")
+    if dout.shape != q.shape or dout.dtype != q.dtype \
+            or dout.device != q.device:
+        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not "
+                         f"match q {tuple(q.shape)} {q.dtype}")
+    _require_tma(what, (("q", q), ("k", k), ("v", v), ("dout", dout)))
+    if delta is None:
+        delta = flash_bwd_delta(out, dout)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != q.shape[:3] or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 "
+                             f"{tuple(q.shape[:3])} tensor on {q.device}")
+    return delta
+
+
 def flash_bwd_dkdv_tc(q, k, v, out, lse, dout, *, causal: bool,
                       window: Optional[int], q_offset: int,
                       scale: Optional[float] = None,
@@ -344,22 +370,8 @@ def flash_bwd_dkdv_tc(q, k, v, out, lse, dout, *, causal: bool,
     take, and when the launch is refused: it never falls back to another
     kernel. `_FlashAttention.backward` copies an output gradient TMA
     cannot take before it calls this."""
-    _check(q, k, v, causal, window, q_offset)
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"flash_bwd_dkdv_tc takes bfloat16, got {q.dtype}")
-    if dout.shape != q.shape or dout.dtype != q.dtype \
-            or dout.device != q.device:
-        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not "
-                         f"match q {tuple(q.shape)} {q.dtype}")
-    _require_tma("flash_bwd_dkdv_tc",
-                 (("q", q), ("k", k), ("v", v), ("dout", dout)))
-    if delta is None:
-        delta = flash_bwd_delta(out, dout)
-    for name, t in (("lse", lse), ("delta", delta)):
-        if (t.shape != q.shape[:3] or t.dtype != torch.float32
-                or t.device != q.device or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous float32 "
-                             f"{tuple(q.shape[:3])} tensor on {q.device}")
+    delta = _backward_tc_inputs("flash_bwd_dkdv_tc", q, k, v, out, lse,
+                                dout, causal, window, q_offset, delta)
     lib = _lib_tc()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     flat = (_tma_strides(q) + _tma_strides(k) + _tma_strides(v)
@@ -410,18 +422,59 @@ def flash_bwd_dq(q, k, v, out, lse, dout, *, causal: bool,
     return dq
 
 
+def flash_bwd_dq_tc(q, k, v, out, lse, dout, *, causal: bool,
+                    window: Optional[int], q_offset: int,
+                    scale: Optional[float] = None,
+                    delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the tensor-core dQ kernel (bf16 only): returns dq laid out
+    like q, the function `flash_bwd_dq` computes with dS rounded to bf16
+    before dS·K. ``delta`` and what it raises on are as for
+    `flash_bwd_dkdv_tc`; it never falls back to another kernel."""
+    delta = _backward_tc_inputs("flash_bwd_dq_tc", q, k, v, out, lse, dout,
+                                causal, window, q_offset, delta)
+    lib = _lib_tc()
+    dq = torch.empty_like(q)
+    flat = (_tma_strides(q) + _tma_strides(k) + _tma_strides(v)
+            + _tma_strides(dout) + list(dq.stride()[:3]))
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd_dq_tc(
+            q.shape[3], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), (ctypes.c_longlong * len(flat))(*flat),
+            *_problem(q, k, causal, window, q_offset, _scale(q, scale)),
+            _stream(q))
+    _raise_on(err, "flash_attention_bwd_dq_tc")
+    flash_bwd_dq_tc.launches += 1
+    return dq
+
+
+def dq_for(dtype: torch.dtype):
+    """The dQ launch function for inputs of this dtype: bf16 runs on the
+    tensor cores (`flash_bwd_dq_tc`), float32 on the CUDA cores
+    (`flash_bwd_dq`: TF32 would change float32 results). Any other dtype
+    raises."""
+    if dtype == torch.bfloat16:
+        return flash_bwd_dq_tc
+    if dtype == torch.float32:
+        return flash_bwd_dq
+    raise ValueError(f"flash_attention takes float32 or bfloat16, got "
+                     f"{dtype}")
+
+
 flash_fwd.launches = 0
 flash_fwd_tc.launches = 0
 flash_bwd_dkdv.launches = 0
 flash_bwd_delta.launches = 0
 flash_bwd_dkdv_tc.launches = 0
 flash_bwd_dq.launches = 0
+flash_bwd_dq_tc.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
     """The forward kernel of q's dtype (`forward_for`), and as its gradient
-    the dK/dV kernel of that dtype (`dkdv_for`) and the dQ kernel. The
-    forward saves q, k, v, the output and the float32 logsumexp."""
+    the dK/dV and dQ kernels of that dtype (`dkdv_for`, `dq_for`); for
+    bf16 both read one D_i pre-pass. The forward saves q, k, v, the output
+    and the float32 logsumexp."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, scale):
@@ -442,14 +495,17 @@ class _FlashAttention(torch.autograd.Function):
             dout = dout.to(q.dtype)
         # autograd's gradient may have any layout: copy it where a kernel
         # cannot read it (a non-unit last stride; for the tensor-core
-        # dK/dV kernel, a layout TMA refuses)
-        if dout.stride(-1) != 1 or (
-                q.dtype == torch.bfloat16 and tma_refusal(
-                    tuple(dout.shape), dout.stride(), dout.data_ptr(),
-                    dout.element_size()) is not None):
+        # kernels, a layout TMA refuses)
+        tc = q.dtype == torch.bfloat16
+        if dout.stride(-1) != 1 or (tc and tma_refusal(
+                tuple(dout.shape), dout.stride(), dout.data_ptr(),
+                dout.element_size()) is not None):
             dout = dout.clone(memory_format=torch.contiguous_format)
-        dk, dv = dkdv_for(q.dtype)(q, k, v, out, lse, dout, **ctx.mask)
-        dq = flash_bwd_dq(q, k, v, out, lse, dout, **ctx.mask)
+        mask = dict(ctx.mask)
+        if tc:
+            mask["delta"] = flash_bwd_delta(out, dout)
+        dk, dv = dkdv_for(q.dtype)(q, k, v, out, lse, dout, **mask)
+        dq = dq_for(q.dtype)(q, k, v, out, lse, dout, **mask)
         return dq, dk, dv, None, None, None, None
 
 
@@ -483,8 +539,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, H, S, D); k/v: (B, Hkv, T, D) CUDA tensors with H = G·Hkv,
     float32 or bfloat16, any head_dim D up to 128 (other than 64 or 128
     zero-padded to the next of them, `pad_head_dim`, and the output sliced
-    back). The forward and dK/dV run on the tensor cores for bfloat16 and
-    on the CUDA cores for float32, dQ on the CUDA cores. Differentiable.
+    back). The forward, dK/dV and dQ run on the tensor cores for bfloat16
+    and on the CUDA cores for float32. Differentiable.
     Raises on anything the kernels do not take, CPU tensors included."""
     qp, kp, vp, d = pad_head_dim(q, k, v)
     out = _FlashAttention.apply(qp, kp, vp, causal, window, q_offset,

@@ -44,9 +44,9 @@ def flash_mha(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     """Model-layout attention: q (B, S, H, D), k/v (B, T, Hkv, D) ->
     (B, S, H, D), differentiable.
 
-    On CUDA tensors this runs K2 (``kernels.flash_attention``): the forward
-    and dK/dV kernels of the dtype (tensor cores for bf16, CUDA cores for
-    float32) and the dQ kernel, each counting its launches. The kernels
+    On CUDA tensors this runs K2 (``kernels.flash_attention``): the
+    forward, dK/dV and dQ kernels of the dtype (tensor cores for bf16,
+    CUDA cores for float32), each counting its launches. The kernels
     read the model's layout through transposed views, and the output and
     gradients come back in it, so nothing is copied where the head_dim is
     64 or 128 (any other up to 128 is zero-padded to the next of them). On
@@ -120,6 +120,7 @@ WRAPPERS = {"elastic_sgd_update": fused_elastic_update,
             "flash_attention_bwd_delta": flash.flash_bwd_delta,
             "flash_attention_bwd_dkdv_tc": flash.flash_bwd_dkdv_tc,
             "flash_attention_bwd_dq": flash.flash_bwd_dq,
+            "flash_attention_bwd_dq_tc": flash.flash_bwd_dq_tc,
             "ssd_chunk": ssd_chunked}
 
 

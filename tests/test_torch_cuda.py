@@ -1,7 +1,7 @@
 """The port on the card: the CUDA kernels against their plain versions
 (K1 bit for bit; K2 forward and backward and K3 within stated
-tolerances; K2's tensor-core forward and dK/dV kernels for bf16 beside
-their CUDA-core counterparts; K2 at head_dims other than 64 and 128
+tolerances; K2's tensor-core forward, dK/dV and dQ kernels for bf16
+beside their CUDA-core counterparts; K2 at head_dims other than 64 and 128
 through its zero-padding entry point), the engine's random bits and RNG-free market on CUDA against
 the CPU, a small megabatched run through K1, small zoo runs through K2
 (float32 and bf16) and a small Mamba2 served through K3.
@@ -189,9 +189,9 @@ def rel_err(a, b):
 def test_k2_forward_and_backward_match_plain(cuda_device, shape, dtype):
     """Through ``ops.flash_mha`` in the model layout (B, S, H, D), which
     hands the kernels strided views: output and dq/dk/dv against autograd
-    through the plain version; the dtype's forward and dK/dV kernels
-    (tensor cores for bf16, after the D_i pre-pass; CUDA cores for
-    float32) and the dQ kernel launched once each."""
+    through the plain version; the dtype's forward, dK/dV and dQ kernels
+    (tensor cores for bf16, both backward halves after one D_i pre-pass;
+    CUDA cores for float32) launched once each."""
     causal, window, q_offset = shape[6:]
     q, k, v, do = k2_inputs(shape, dtype, cuda_device)
     mask = dict(causal=causal, window=window, q_offset=q_offset)
@@ -211,7 +211,8 @@ def test_k2_forward_and_backward_match_plain(cuda_device, shape, dtype):
     assert counts["flash_attention_bwd_dkdv_tc"] == int(tc)
     assert counts["flash_attention_bwd_delta"] == int(tc)
     assert counts["flash_attention_bwd_dkdv"] == int(not tc)
-    assert counts["flash_attention_bwd_dq"] == 1
+    assert counts["flash_attention_bwd_dq_tc"] == int(tc)
+    assert counts["flash_attention_bwd_dq"] == int(not tc)
     assert out.dtype == dtype and out.shape == q.shape
     assert out.is_contiguous()
     tol = K2_TOL[dtype]
@@ -441,10 +442,99 @@ def test_k2_tc_dkdv_refuses_what_tma_cannot_take(cuda_device):
     assert set(ops.launch_counts().values()) == {0}
 
 
+#: the tensor-core dQ kernel per row (row_err). Against the plain version:
+#: chip_smoke.py's K2_TOL for dq, 0.1, whose comment gives the reason (D_i
+#: from the bf16 output, where dS = P (dP - D) nearly cancels); dS rounded
+#: to bf16 before dS K adds up to 4.5e-3 (tests/test_torch_flash_dq_tc.py).
+#: Against the CUDA-core dQ kernel, which forms D_i from the same bf16
+#: output: the rounding of dS plus one bf16 rounding of each result, two
+#: ulps (7.8e-3 in the worst row of the CPU emulation of both).
+K2_DQ_TC_TOL = {"dq": 0.1, "dq_vs_cuda_core": 2e-2}
+
+
+@pytest.mark.parametrize("shape", K2_SHAPES)
+def test_k2_tc_dq_matches_plain(cuda_device, shape):
+    """dq of the tensor-core kernel from the tensor-core forward's output
+    and lse and the D_i pre-pass, against autograd through the plain
+    version; one launch each, none of the CUDA-core dQ kernel."""
+    causal, window, q_offset = shape[6:]
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    qt, kt, vt, dot, out, lse = k2_tc_backward_inputs(shape, cuda_device)
+    ops.reset_launch_counts()
+    delta = flash.flash_bwd_delta(out, dot)
+    dq = flash.flash_bwd_dq_tc(qt, kt, vt, out, lse, dot, **mask,
+                               delta=delta)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["flash_attention_bwd_dq_tc"] == 1
+    assert counts["flash_attention_bwd_dq"] == 0
+    assert dq.dtype == torch.bfloat16 and dq.stride() == qt.stride()
+    leaves = [x.clone().requires_grad_() for x in (qt, kt, vt)]
+    want = ref.mha_reference(*leaves, **mask)
+    want_q, = torch.autograd.grad(want, leaves[:1], dot)
+    assert row_err(dq, want_q) <= K2_DQ_TC_TOL["dq"]
+
+
+@pytest.mark.parametrize("shape", K2_SHAPES)
+def test_k2_tc_dq_matches_cuda_core_dq(cuda_device, shape):
+    causal, window, q_offset = shape[6:]
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    qt, kt, vt, dot, out, lse = k2_tc_backward_inputs(shape, cuda_device,
+                                                      seed=2)
+    dq = flash.flash_bwd_dq_tc(qt, kt, vt, out, lse, dot, **mask)
+    dq0 = flash.flash_bwd_dq(qt, kt, vt, out, lse, dot, **mask)
+    torch.cuda.synchronize()
+    assert row_err(dq, dq0) <= K2_DQ_TC_TOL["dq_vs_cuda_core"]
+
+
+def test_k2_tc_dq_reads_model_layout_in_place(cuda_device):
+    """The (B, S, H, D) tensors through transposed views give what
+    contiguous (B, H, S, D) copies give, bit for bit, and dq keeps the
+    model's layout."""
+    shape = (2, 130, 130, 14, 2, 128, True, None, 0)
+    mask = dict(causal=True, window=None, q_offset=0)
+    qt, kt, vt, dot, out, lse = k2_tc_backward_inputs(shape, cuda_device,
+                                                      seed=4)
+    dq_v = flash.flash_bwd_dq_tc(qt, kt, vt, out, lse, dot, **mask)
+    dq_c = flash.flash_bwd_dq_tc(
+        *(x.contiguous() for x in (qt, kt, vt, out)), lse, dot.contiguous(),
+        **mask)
+    assert dq_v.stride() == qt.stride()
+    assert dq_v.transpose(1, 2).is_contiguous()
+    assert torch.equal(dq_v, dq_c)
+
+
+def test_k2_tc_dq_refuses_what_tma_cannot_take(cuda_device):
+    """An output gradient whose base is not on 16 bytes or whose stride is
+    not a multiple of 16 bytes, another dtype, CPU tensors: the kernel's
+    launch function raises and never falls back."""
+    shape = (1, 64, 64, 4, 2, 64, True, None, 0)
+    mask = dict(causal=True, window=None, q_offset=0)
+    qt, kt, vt, dot, out, lse = k2_tc_backward_inputs(shape, cuda_device)
+    b, h, s, d = qt.shape
+    flat = torch.zeros(dot.numel() + 8, dtype=torch.bfloat16,
+                       device=cuda_device)
+    shifted = flat[1:1 + dot.numel()].view(b, s, h, d).transpose(1, 2)
+    wide = torch.zeros(b, s, h, d + 4, dtype=torch.bfloat16,
+                       device=cuda_device)[..., :d].transpose(1, 2)
+    ops.reset_launch_counts()
+    for args, match in [((qt, kt, vt, out, lse, shifted), "16 bytes"),
+                        ((qt, kt, vt, out, lse, wide),
+                         "multiple of 16 bytes"),
+                        ((qt.float(), kt.float(), vt.float(), out.float(),
+                          lse, dot.float()), "bfloat16"),
+                        ((qt.cpu(), kt.cpu(), vt.cpu(), out.cpu(),
+                          lse.cpu(), dot.cpu()), "CUDA")]:
+        with pytest.raises(ValueError, match=match):
+            flash.flash_bwd_dq_tc(*args, **mask)
+    assert set(ops.launch_counts().values()) == {0}
+
+
 def test_k2_backward_copies_an_output_gradient_tma_refuses(cuda_device):
     """Through ``flash_attention`` with an output gradient whose base is
     not on 16 bytes: the backward copies it and gives what an aligned
-    gradient gives, bit for bit, on the tensor-core dK/dV kernel."""
+    gradient gives, bit for bit, on the tensor-core kernels, each launched
+    once, after one D_i pre-pass for both halves."""
     q, k, v, do = k2_inputs((1, 96, 96, 4, 2, 64), torch.bfloat16,
                             cuda_device, seed=6)
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
@@ -458,7 +548,12 @@ def test_k2_backward_copies_an_output_gradient_tma_refuses(cuda_device):
         ops.reset_launch_counts()
         out = flash_attention(*leaves, causal=True)
         grads.append(torch.autograd.grad(out, leaves, g_out))
-        assert ops.launch_counts()["flash_attention_bwd_dkdv_tc"] == 1
+        assert ops.launch_counts() == {
+            n: int(n in ("flash_attention_fwd_tc",
+                         "flash_attention_bwd_delta",
+                         "flash_attention_bwd_dkdv_tc",
+                         "flash_attention_bwd_dq_tc"))
+            for n in ops.WRAPPERS}
     for a, b in zip(*grads):
         assert torch.equal(a, b)
 
@@ -491,8 +586,9 @@ def test_k2_any_head_dim_through_flash_attention(cuda_device, shape, dtype):
     assert counts["flash_attention_fwd_tc"] == counts[
         "flash_attention_bwd_dkdv_tc"] == int(tc)
     assert counts["flash_attention_fwd"] == counts[
-        "flash_attention_bwd_dkdv"] == int(not tc)
-    assert counts["flash_attention_bwd_dq"] == 1
+        "flash_attention_bwd_dkdv"] == counts["flash_attention_bwd_dq"] \
+        == int(not tc)
+    assert counts["flash_attention_bwd_dq_tc"] == int(tc)
     assert out.shape == q.shape and out.dtype == dtype
     tol = K2_ROW_TOL[dtype]
     assert row_err(out, want) <= tol["out"]
@@ -529,6 +625,7 @@ def test_zoo_run_on_cuda_goes_through_k2(cuda_device):
     assert counts["flash_attention_bwd_dq"] == per
     assert counts["flash_attention_fwd_tc"] == 0
     assert counts["flash_attention_bwd_dkdv_tc"] == 0
+    assert counts["flash_attention_bwd_dq_tc"] == 0
     for field in ("iterations", "ys", "total_time", "total_cost"):
         np.testing.assert_array_equal(getattr(gpu, field),
                                       getattr(cpu, field))
@@ -543,9 +640,9 @@ def test_zoo_run_on_cuda_goes_through_k2(cuda_device):
 
 def test_zoo_bf16_run_on_cuda_goes_through_tc_forward(cuda_device):
     """A small bf16 zoo run with flash attention on the card: the
-    tensor-core forward, the D_i pre-pass, the tensor-core dK/dV kernel and
-    the dQ kernel launched once per layer, cell and tick, the CUDA-core
-    forward and dK/dV kernels never; the RNG-free market
+    tensor-core forward, the D_i pre-pass and the tensor-core dK/dV and dQ
+    kernels launched once per layer, cell and tick, the CUDA-core
+    forward, dK/dV and dQ kernels never; the RNG-free market
     bit-equal to the CPU run's; finite losses, the first (on the initial
     weights, before any update) within the bf16 train_zoo pin's 2e-2 of the
     CPU run's."""
@@ -571,7 +668,8 @@ def test_zoo_bf16_run_on_cuda_goes_through_tc_forward(cuda_device):
     assert counts["flash_attention_bwd_delta"] == per
     assert counts["flash_attention_bwd_dkdv_tc"] == per
     assert counts["flash_attention_bwd_dkdv"] == 0
-    assert counts["flash_attention_bwd_dq"] == per
+    assert counts["flash_attention_bwd_dq_tc"] == per
+    assert counts["flash_attention_bwd_dq"] == 0
     for field in ("iterations", "ys", "total_time", "total_cost"):
         np.testing.assert_array_equal(getattr(gpu, field),
                                       getattr(cpu, field))
