@@ -8,10 +8,11 @@ Phases, each printing one JSON line and raising on failure:
 1. the card's name and power limit (``nvidia-smi``), then the build of
    every kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a, one process
    per source, all at once) with each kernel's ``ptxas`` report (no
-   tensor-core kernel may spill), and the count of ``HGMMA`` (wgmma) and
-   ``UTMALDG`` (TMA load) instructions in the SASS of each tensor-core
-   kernel, the forward, the dK/dV and the dQ kernel at both head dims
-   (``cuobjdump -sass``), none of which may be 0;
+   tensor-core kernel may spill), and the count of tensor-core
+   instructions in the SASS of each tensor-core kernel (``cuobjdump
+   -sass``), none of which may be 0: ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
+   load) in K2's forward, dK/dV and dQ kernels at both head dims, ``HMMA``
+   (mma.sync) in each instantiation of K3's kernel;
 2. each kernel against its plain PyTorch version on the card: K1 bit for
    bit on edge-case rows at a ragged width; K2 forward and backward on
    edge shapes (GQA g = 7, head_dim 64 and 128, and 112 and 80 through
@@ -55,10 +56,12 @@ Phases, each printing one JSON line and raising on failure:
    place: one full-width ``ssm_block`` prefill with K3 against the same
    block with the plain version, and prefill-then-decode against one
    longer prefill (2048 + 32 against 2304 positions); then K3 at the
-   path's shape: its time beside its bound, the plain version's, the
-   glue's and its share of the prefill. K3 against its plain version on edge shapes (Q 16 to 256, one
-   and two groups, P 32 to 128, N 32 and 128, float32 and bf16) runs with
-   the other small comparisons in phase 2.
+   path's shape: the tensor-core kernel's time beside its bound (3xTF32
+   over the least work, the scores once per group), the CUDA-core
+   kernel's time beside it, the plain version's, the glue's and K3's share
+   of the prefill. K3 against its plain version on edge shapes (Q 16 to
+   256, one, two and three heads a group, P 32 to 128, N 32 and 128,
+   float32 and bf16) runs with the other small comparisons in phase 2.
 
 Then the ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout,
@@ -93,11 +96,11 @@ ZOO_ARGV = ["--config", "qwen2_7b", "--reduce-depth", "2",
             "--device", "cuda"]
 
 #: peak rates by card (NVIDIA data sheets; dense, no sparsity): HBM bytes/s,
-#: float32 FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s
-PEAKS = [("H200", 4.8e12, 67e12, 989e12, "H200 SXM"),
-         ("NVL", 3.9e12, 60e12, 835e12, "H100 NVL"),
-         ("PCIe", 2.0e12, 51e12, 756e12, "H100 PCIe"),
-         ("H100", 3.35e12, 67e12, 989e12, "H100 SXM")]
+#: float32 FLOP/s outside the tensor cores, bf16 and TF32 tensor-core FLOP/s
+PEAKS = [("H200", 4.8e12, 67e12, 989e12, 495e12, "H200 SXM"),
+         ("NVL", 3.9e12, 60e12, 835e12, 418e12, "H100 NVL"),
+         ("PCIe", 2.0e12, 51e12, 756e12, 378e12, "H100 PCIe"),
+         ("H100", 3.35e12, 67e12, 989e12, 495e12, "H100 SXM")]
 
 K2_SOURCE = ("src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:88")
@@ -135,8 +138,18 @@ K2_DQ_OF = {"float32": "flash_attention_bwd_dq",
 TC_OPCODES = ("HGMMA", "UTMALDG")
 TC_FUNCTIONS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
                 "flash_bwd_dq_tc_kernel")
-KERNEL_SOURCES["ssd_chunk"] = ("src/repro_torch/csrc/ssd_scan.cu",
+#: K3: the path's kernel on the tensor cores (mma.sync, so HMMA in its
+#: SASS), and the CUDA-core kernel kept beside it off the path
+KERNEL_SOURCES["ssd_chunk"] = ("src/repro_torch/csrc/ssd_scan_sm90.cu",
                                "src/repro/kernels/ssd_scan.py:72")
+KERNEL_SOURCES["ssd_chunk_cuda_core"] = ("src/repro_torch/csrc/ssd_scan.cu",
+                                         "src/repro/kernels/ssd_scan.py:72")
+K3_TC_OPCODES = ("HMMA",)
+K3_TC_FUNCTION = "ssd_chunk_tc_kernel"
+#: its instantiations: x's type, P padded to 64 or 128, the cp.async route
+K3_TC_KERNELS = {f"{K3_TC_FUNCTION}<{t},{pw},{a}>"
+                 for t in ("float", "__nv_bfloat16") for pw in (64, 128)
+                 for a in (0, 1)}
 
 #: K2 against its plain version, per row (the head dimension): the largest
 #: |kernel - plain| in a row over the larger of that row's largest |plain|
@@ -223,7 +236,8 @@ SERVE = {"arch": "mamba2-1.3b", "batch": 8, "prompt": 2048, "gen": 32,
 
 #: K3 on edge shapes: (B, S, H, P, G, N, chunk) — Q = 16, 64, 100 (a
 #: ragged 64-row tile), 256 and S < chunk (Q = S = 48); one and two
-#: groups; P 32, 64, 128; N 32, 64, 128; two or more chunks where Q < S
+#: groups, and three heads a group (H 6, G 2); P 32, 64, 128 (with Q 100
+#: too); N 32, 64, 128; two or more chunks where Q < S
 K3_EDGE_SHAPES = [
     (2, 32, 4, 32, 1, 32, 16),
     (1, 128, 4, 64, 2, 128, 64),
@@ -231,6 +245,8 @@ K3_EDGE_SHAPES = [
     (1, 512, 2, 64, 1, 128, 256),
     (2, 768, 4, 32, 2, 32, 256),
     (1, 48, 2, 128, 1, 128, 256),
+    (1, 512, 6, 64, 2, 128, 256),
+    (1, 300, 2, 128, 1, 64, 100),
 ]
 #: the shape the serving path gives K3 (per layer of the prefill)
 K3_PATH_SHAPE = (8, 2048, 64, 64, 1, 128, 256)
@@ -272,11 +288,12 @@ def emit(obj) -> None:
 
 
 def card_peaks(name: str):
-    """(HBM bytes/s, float32 FLOP/s, bf16 FLOP/s, label) of the card."""
-    for key, hbm, f32, bf16, label in PEAKS:
+    """(HBM bytes/s, float32 FLOP/s, bf16 FLOP/s, TF32 FLOP/s, label) of the
+    card."""
+    for key, *rates, label in PEAKS:
         if key in name:
-            return hbm, f32, bf16, label
-    return PEAKS[-1][1:4] + ("H100 SXM (card not recognised)",)
+            return (*rates, label)
+    return PEAKS[-1][1:5] + ("H100 SXM (card not recognised)",)
 
 
 def timed(fn, n: int, torch):
@@ -295,9 +312,9 @@ def timed(fn, n: int, torch):
 
 
 def kernel_name(mangled: str) -> str:
-    """``name<D>`` (or ``name``) of a mangled kernel: the last of the
-    nested name's length-prefixed parts, and its integer template
-    argument."""
+    """``name<args>`` (or ``name``) of a mangled kernel: the last of the
+    nested name's length-prefixed parts, and its template arguments (a
+    type by name, ``f`` as float; an integer or bool literal by value)."""
     i, name = (3 if mangled.startswith("_ZN") else 2), mangled
     while i < len(mangled) and mangled[i].isdigit():
         j = i
@@ -305,9 +322,25 @@ def kernel_name(mangled: str) -> str:
             j += 1
         n = int(mangled[i:j])
         name, i = mangled[j:j + n], j + n
-    if mangled.startswith("ILi", i):
-        name += "<" + mangled[i + 3:mangled.index("E", i)] + ">"
-    return name
+    if not mangled.startswith("I", i):
+        return name
+    args, i = [], i + 1
+    while i < len(mangled) and mangled[i] != "E":
+        if mangled[i] == "L":                  # L <type> <value> E
+            j = mangled.index("E", i)
+            args.append(mangled[i + 2:j])
+            i = j + 1
+        elif mangled[i].isdigit():
+            j = i
+            while mangled[j].isdigit():
+                j += 1
+            n = int(mangled[i:j])
+            args.append(mangled[j:j + n])
+            i = j + n
+        else:
+            args.append({"f": "float"}.get(mangled[i], mangled[i]))
+            i += 1
+    return f"{name}<{','.join(args)}>"
 
 
 def ptxas_report(text: str) -> dict:
@@ -338,21 +371,19 @@ def phase_card_and_build():
           "kernels": {n: {"path": os.path.relpath(r.path, ROOT),
                           "nvcc_s": r.seconds, "ptxas": reports[n]}
                       for n, r in records.items()}})
-    spilled = {k: v for k, v in reports["flash_attention_sm90"].items()
+    spilled = {k: v for lib in ("flash_attention_sm90", "ssd_scan_sm90")
+               for k, v in reports[lib].items()
                if any(int(n) for ln in v
                       for n in re.findall(r"(\d+) bytes spill", ln))}
     if spilled:
         raise AssertionError(f"a tensor-core kernel spills: {spilled}")
-    phase_sass(records["flash_attention_sm90"].path)
+    phase_sass(records)
     return smi
 
 
-def phase_sass(lib_path):
-    """Count the wgmma (``HGMMA``) and TMA load (``UTMALDG``)
-    instructions of each tensor-core kernel (the forward, the dK/dV and
-    the dQ kernel, each at both head dims) in its library's SASS: a
-    kernel really runs on the tensor cores and is fed by TMA only if
-    neither is 0."""
+def sass_counts(lib_path, functions, opcodes):
+    """(instructions in the library, {kernel_name: {opcode: count}} of each
+    kernel whose mangled name holds one of ``functions``), from its SASS."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", lib_path],
                           capture_output=True, text=True, timeout=120,
@@ -366,19 +397,38 @@ def phase_sass(lib_path):
         elif fn and len(words) > 2 and words[0].startswith("/*") \
                 and words[0].endswith("*/"):
             ops[fn].append(words[2 if words[1].startswith("@") else 1])
-    counts = {kernel_name(f): {op: sum(o.split(".")[0] == op for o in seen)
-                               for op in TC_OPCODES}
-              for f, seen in ops.items()
-              if any(k in f for k in TC_FUNCTIONS)}
-    emit({"phase": "sass", "library": os.path.relpath(lib_path, ROOT),
-          "instructions": sum(map(len, ops.values())), "counts": counts})
-    want = {f"{k}<{w}>" for k in TC_FUNCTIONS for w in ("64", "128")}
-    lacking = {k: [op for op, n in c.items() if not n]
-               for k, c in counts.items() if not all(c.values())}
-    if set(counts) != want or lacking:
-        raise AssertionError(f"the tensor-core kernels' SASS: found "
-                             f"{sorted(counts)} of {sorted(want)}, lacking "
-                             f"{lacking}")
+    return sum(map(len, ops.values())), {
+        kernel_name(f): {op: sum(o.split(".")[0] == op for o in seen)
+                         for op in opcodes}
+        for f, seen in ops.items() if any(k in f for k in functions)}
+
+
+def phase_sass(records):
+    """Count the tensor-core instructions of each tensor-core kernel in its
+    library's SASS: wgmma (``HGMMA``) and TMA loads (``UTMALDG``) in K2's
+    forward, dK/dV and dQ kernels at both head dims; mma.sync (``HMMA``)
+    in each instantiation of K3's kernel. A kernel really runs on the
+    tensor cores (and K2's is fed by TMA) only if none is 0."""
+    libs = {"flash_attention_sm90": (TC_FUNCTIONS, TC_OPCODES),
+            "ssd_scan_sm90": ((K3_TC_FUNCTION,), K3_TC_OPCODES)}
+    found, total = {}, {}
+    for lib, (functions, opcodes) in libs.items():
+        total[lib], found[lib] = sass_counts(records[lib].path, functions,
+                                             opcodes)
+    emit({"phase": "sass", "libraries": {
+        lib: os.path.relpath(records[lib].path, ROOT) for lib in libs},
+        "instructions": total, "counts": found})
+    want = {"flash_attention_sm90": {f"{k}<{w}>" for k in TC_FUNCTIONS
+                                     for w in ("64", "128")},
+            "ssd_scan_sm90": K3_TC_KERNELS}
+    for lib, counts in found.items():
+        lacking = {k: [op for op, n in c.items() if not n]
+                   for k, c in counts.items() if not all(c.values())}
+        if set(counts) != want[lib] or lacking:
+            raise AssertionError(
+                f"the tensor-core kernels' SASS in {lib}: found "
+                f"{sorted(counts)} of {sorted(want[lib])}, lacking "
+                f"{lacking}")
 
 
 def edge_inputs(torch, r, p, seed=0):
@@ -547,7 +597,7 @@ def phase_kernel_at_main_shape(torch, res, smi, launches):
     del dst, g
 
     name = torch.cuda.get_device_name(0)
-    hbm, f32, _, label = card_peaks(name)
+    hbm, f32, _, _, label = card_peaks(name)
     nbytes = 20 * r * n          # read p, v, g; write p, v (float32)
     flops = 5 * r * n            # μ·v, g·inv, +, lr·v', −
     bound_ms = 1e3 * max(nbytes / hbm, flops / f32)
@@ -939,7 +989,7 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
     library_ms["flash_attention_bwd_delta"] = None
 
     name = torch.cuda.get_device_name(0)
-    hbm, _, bf16, label = card_peaks(name)
+    hbm, _, bf16, _, label = card_peaks(name)
     pairs = valid_pairs(s, t, **mask)
     el = 2                                     # bytes per bf16 element
     q_bytes, kv_bytes = b * s * h * d * el, b * t * hkv * d * el
@@ -1321,54 +1371,104 @@ def phase_k3_in_place(torch, cfg, params, prompt, tokens, caches):
             f"prefill vs longer prefill {pre_err}, finite {finite}")
 
 
+def k3_work(shape, slab):
+    """(least FLOP, FLOP of the tensor-core kernel's products) of K3 at
+    ``shape``: the least work forms the scores once per (batch, chunk,
+    group) over the causal pairs, y over them per head, and each state;
+    the kernel forms the scores once per slab of ``slab`` heads and query
+    tile over whole 64 x 64 key tiles at or below the diagonal (N in
+    32-column stages), y over whole tiles below it and, on a diagonal
+    tile, over the 2560 pairs its four warps' 8-column steps reach, the
+    states over 64-row blocks of N; P padded to 64 or 128. Useful
+    products only: 3xTF32 issues three tensor-core products for each
+    float32 one (two for bf16)."""
+    b, s, h, p, g, n, q = shape
+    nc, rep, t = s // q, h // g, -(-q // 64)
+    pairs = q * (q + 1) // 2
+    least = b * nc * (g * 2 * pairs * n + h * (2 * pairs * p + 2 * q * n * p))
+    slabs = g * -(-rep // min(slab, rep))
+    tiles = t * (t + 1) // 2
+    pw, n_kc, n_state = (64 if p <= 64 else 128), -(-n // 32), -(-n // 64)
+    done = b * nc * (slabs * tiles * 64 * 64 * 2 * 32 * n_kc
+                     + h * 2 * pw * ((tiles - t) * 64 * 64 + t * 2560
+                                     + n_state * 64 * 64 * t))
+    return least, done
+
+
 def phase_k3_at_path_shape(torch, smi, launches, prefill_ms):
-    """K3 at the serving path's shape: its time beside its bound, the plain
-    version's, the glue's (``ops.ssd_chunked`` less K3) and K3's share of
-    the path's prefill."""
+    """K3 at the serving path's shape: the tensor-core kernel's time beside
+    its bound, 3xTF32 over the least work (the scores once per group) or
+    the bytes, whichever is the larger; the CUDA-core kernel's time on the
+    same inputs; the plain version's, the glue's (``ops.ssd_chunked`` less
+    K3) and K3's share of the path's prefill."""
     from repro_torch.kernels import ops, ref, ssd_scan
 
     shape = K3_PATH_SHAPE
     b, s, h, p, g, n, q = shape
     args = k3_inputs(torch, shape, torch.float32, seed=5)
     errs, err = k3_errs(torch, args, q)
-    bad = [(o, e) for o, e in errs.items() if not e <= K3_TOL["float32"][o]]
+    cc_got = ssd_scan.ssd_chunk_cuda_core(*args, chunk=q)
+    want = ref.ssd_chunk_reference(*args, chunk=q)
+    tc_got = ssd_scan.ssd_chunk(*args, chunk=q)
+    torch.cuda.synchronize()
+    cc_errs = {o: row_err(a, c) for o, a, c in zip(K3_OUTS, cc_got, want)}
+    cc_err = max(abs_err(a, c) for a, c in zip(cc_got, want))
+    tc_vs_cc = {o: row_err(a, c) for o, a, c in zip(K3_OUTS, tc_got, cc_got)}
+    del cc_got, want, tc_got
+    bad = [(k, o, e) for k, es in (("ssd_chunk", errs),
+                                   ("ssd_chunk_cuda_core", cc_errs))
+           for o, e in es.items() if not e <= K3_TOL["float32"][o]]
     if bad:
         raise AssertionError(f"K3 at the path's shape differs from its plain "
                              f"version: {bad}")
-    n_rep = 10
+    n_rep = 20
     ms = timed(lambda: ssd_scan.ssd_chunk(*args, chunk=q), n_rep, torch)
+    cc_ms = timed(lambda: ssd_scan.ssd_chunk_cuda_core(*args, chunk=q), 10,
+                  torch)
+    ms_again = timed(lambda: ssd_scan.ssd_chunk(*args, chunk=q), n_rep,
+                     torch)
     plain_ms = timed(lambda: ref.ssd_chunk_reference(*args, chunk=q), 3,
                      torch)
     chunked_ms = timed(lambda: ops.ssd_chunked(*args, chunk=q), n_rep, torch)
 
     name = torch.cuda.get_device_name(0)
-    hbm, f32, _, label = card_peaks(name)
-    nc = s // q
-    pairs = q * (q + 1) // 2
-    flops = b * h * nc * (2 * pairs * n + 2 * pairs * p + 2 * q * n * p)
-    el = 4
+    hbm, _, _, tf32, label = card_peaks(name)
+    least, done = k3_work(shape, ssd_scan.SLAB_HEADS)
+    nc, el = s // q, 4
     nbytes = (2 * b * s * h * p * el + b * s * h * 4 + h * 4
               + 2 * b * s * g * n * el + b * nc * h * (n * p + q + 1) * 4)
-    t_ops, t_bytes = flops / f32, nbytes / hbm
+    t_ops, t_bytes = 3 * least / tf32, nbytes / hbm
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
     per_prefill = launches["ssd_chunk"]
     emit({"phase": "k3_at_path_shape", "shape": shape, "dtype": "float32",
-          "row_err": errs, "max_abs_err": err, "ms": ms,
-          "achieved_TFLOPs": flops / ms / 1e9, "flops": flops,
-          "bytes": nbytes, "bound_ms": 1e3 * max(t_ops, t_bytes),
-          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-          "peak": label, "plain_ms": plain_ms,
-          "ssd_chunked_ms": chunked_ms, "glue_ms": chunked_ms - ms,
+          "row_err": errs, "max_abs_err": err,
+          "cuda_core_row_err": cc_errs, "tc_vs_cuda_core_row_err": tc_vs_cc,
+          "ms": ms, "ms_again": ms_again, "cuda_core_ms": cc_ms,
+          "speedup_over_cuda_core": cc_ms / ms,
+          "slab_heads": ssd_scan.SLAB_HEADS, "flops_least": least,
+          "flops_kernel": done, "tensor_core_flops_issued": 3 * done,
+          "achieved_TFLOPs": least / ms / 1e9,
+          "cuda_core_achieved_TFLOPs": least / cc_ms / 1e9,
+          "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+          "bound_share": bound_ms / ms, "peak": label + " (TF32 dense)",
+          "plain_ms": plain_ms, "ssd_chunked_ms": chunked_ms,
+          "glue_ms": chunked_ms - ms,
           "launches_per_prefill": per_prefill,
+          "cuda_core_launches_per_prefill": launches["ssd_chunk_cuda_core"],
           "k3_share_of_prefill": per_prefill * ms / prefill_ms,
           "glue_share_of_prefill": per_prefill * (chunked_ms - ms)
           / prefill_ms, "card": smi})
-    src, replaces = KERNEL_SOURCES["ssd_chunk"]
-    return {"name": "ssd_chunk", "route": "cuda", "source": src,
-            "replaces": replaces, "launches": per_prefill,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None}
+    rows = []
+    for kname, kms, kerr in (("ssd_chunk", ms, err),
+                             ("ssd_chunk_cuda_core", cc_ms, cc_err)):
+        src, replaces = KERNEL_SOURCES[kname]
+        rows.append({"name": kname, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": launches[kname],
+                     "max_abs_err": kerr, "ms": kms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None})
+    return rows
 
 
 def free(torch) -> None:
@@ -1417,7 +1517,7 @@ def main() -> int:
     free(torch)
     k3 = phase_k3_at_path_shape(torch, smi, run["launches_prefill"],
                                 run["prefill_ms"])
-    emit({"kernels": [k1] + k2 + [k3]})
+    emit({"kernels": [k1] + k2 + k3})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

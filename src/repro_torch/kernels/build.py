@@ -29,7 +29,8 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = {"elastic_update": "elastic_update.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_sm90": "flash_attention_sm90.cu",
-           "ssd_scan": "ssd_scan.cu"}
+           "ssd_scan": "ssd_scan.cu",
+           "ssd_scan_sm90": "ssd_scan_sm90.cu"}
 
 #: -fmad=false keeps every multiply and add separately rounded, as in the
 #: plain PyTorch versions, so the card checks K1 bit for bit. The inner

@@ -70,8 +70,9 @@ def ssd_chunked(xh, dt, a_h, bm, cm, *, chunk: int,
     state; zeros when None). Returns (y (B, S, H, P) in xh's dtype, final
     state (B, H, P, N) float32), as ``models.ssm.ssd_chunked``.
 
-    The intra-chunk terms come from K3 (``kernels.ssd_scan.ssd_chunk``) on
-    CUDA tensors, counted in ``ssd_chunked.launches``, and from
+    The intra-chunk terms come from K3 on the tensor cores
+    (``kernels.ssd_scan.ssd_chunk``) on CUDA tensors of either dtype,
+    counted in ``ssd_chunked.launches``, and from
     ``ref.ssd_chunk_reference`` on CPU tensors. The inter-chunk recurrence
     h_c = decay_c·h_{c−1} + state_c and y_inter = exp(cs)·(C·h_{c−1}) run
     here in plain torch, y_inter rounded to xh's dtype before it joins
@@ -121,7 +122,8 @@ WRAPPERS = {"elastic_sgd_update": fused_elastic_update,
             "flash_attention_bwd_dkdv_tc": flash.flash_bwd_dkdv_tc,
             "flash_attention_bwd_dq": flash.flash_bwd_dq,
             "flash_attention_bwd_dq_tc": flash.flash_bwd_dq_tc,
-            "ssd_chunk": ssd_chunked}
+            "ssd_chunk": ssd_chunked,
+            "ssd_chunk_cuda_core": ssd_scan.ssd_chunk_cuda_core}
 
 
 def launch_counts() -> Dict[str, int]:

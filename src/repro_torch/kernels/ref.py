@@ -6,6 +6,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.ssd_scan import SLAB_HEADS, head_slabs
+
 NEG_INF = -1e30
 
 
@@ -158,5 +160,100 @@ def ssd_chunk_reference(xh, dt, a_h, bm, cm, *, chunk: int):
     last = cs[..., -1:]
     wstate = torch.exp(last - cs) * dtc
     states = (bc * wstate[..., None]).transpose(-1, -2) @ x  # (B,nc,H,N,P)
+    y_intra = y.permute(0, 1, 3, 2, 4).reshape(b, s, h, p).to(xh.dtype)
+    return y_intra, states, cs, torch.exp(last[..., 0])
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    the nearest value with 10 mantissa bits, ties away from zero, the low
+    13 bits of the float32 pattern cleared. bf16 values are unchanged."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo), both TF32: hi = tf32(x), lo = tf32(x − hi); hi + lo is x
+    to within 2^-22 |x|."""
+    hi = round_tf32(x)
+    return hi, round_tf32(x - hi)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the tensor-core K3 forms it: each float32 operand split
+    into TF32 hi + lo, and lo_a·hi_b + hi_a·lo_b + hi_a·hi_b summed in
+    float32, the small terms first."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def warp_cumsum(v: torch.Tensor) -> torch.Tensor:
+    """cumsum over the last axis (at most 256 long) in the order of K3's
+    one-warp scan: 32 lanes of ceil(Q / 32) consecutive terms, each lane's
+    sum, an inclusive shuffle scan over the lanes, then each lane's running
+    sum from the lanes before it, all in float32."""
+    q = v.shape[-1]
+    per = -(-q // 32)
+    pad = v.new_zeros(v.shape[:-1] + (32 * per - q,))
+    lanes = torch.cat([v, pad], -1).reshape(*v.shape[:-1], 32, per)
+    run = lanes[..., 0]
+    for k in range(1, per):
+        run = run + lanes[..., k]
+    incl, lane = run, torch.arange(32)
+    for off in (1, 2, 4, 8, 16):
+        up = torch.cat([incl[..., :off], incl[..., :-off]], -1)
+        incl = torch.where(lane >= off, incl + up, incl)
+    acc, out = incl - run, []
+    for k in range(per):
+        acc = acc + lanes[..., k]
+        out.append(acc)
+    return torch.stack(out, -1).reshape(*v.shape[:-1], 32 * per)[..., :q]
+
+
+def ssd_chunk_tc_emulation(xh, dt, a_h, bm, cm, *, chunk: int,
+                           slab: int = SLAB_HEADS, tile: int = 64):
+    """The arithmetic of K3 on the tensor cores (``csrc/ssd_scan_sm90.cu``)
+    in plain PyTorch, for the CPU tests: the inputs and outputs of
+    `ssd_chunk_reference`. cs in the kernel's warp-scan order; per slab of
+    ``slab`` heads of one group and 64-row query tile, the scores C_i·B_jᵀ
+    of its key tiles j ≤ i formed once by `mm_3xtf32` and shared by the
+    slab's heads; per head W = (S·exp(cs_i − cs_j))·dt_j below the diagonal
+    and 0 above it, y_i = `mm_3xtf32` (W, x_j); the state
+    `mm_3xtf32` ((B·w)ᵀ, x) with w = exp(cs_last − cs)·dt. The kernel's
+    skipped products above the diagonal add exact zeros, so they are not
+    modelled; bf16 x, B and C split into a zero lo part."""
+    b, s, h, p = xh.shape
+    g, n = bm.shape[2], bm.shape[3]
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"sequence length {s} is not a multiple of the SSD "
+                         f"chunk {q}")
+    nc, rep = s // q, h // g
+    f32 = torch.float32
+
+    def heads_first(t, k):                   # (B, S, k, D) -> (B, nc, k, Q, D)
+        return t.to(f32).reshape(b, nc, q, k, -1).permute(0, 1, 3, 2, 4)
+
+    x, bc, cc = heads_first(xh, h), heads_first(bm, g), heads_first(cm, g)
+    dtc = dt.to(f32).reshape(b, nc, q, h).permute(0, 1, 3, 2)  # (B,nc,H,Q)
+    cs = warp_cumsum(dtc * a_h.to(f32)[:, None])
+    y = torch.empty((b, nc, h, q, p), dtype=f32)
+    for lo, hi in head_slabs(h, g, slab):
+        grp = lo // rep
+        for i0 in range(0, q, tile):
+            i1, idx = min(i0 + tile, q), torch.arange(q)
+            scores = mm_3xtf32(cc[:, :, grp, i0:i1],
+                               bc[:, :, grp, :i1].transpose(-1, -2))
+            below = idx[None, :i1] <= idx[i0:i1, None]       # j ≤ i
+            seg = cs[:, :, lo:hi, i0:i1, None] - cs[:, :, lo:hi, None, :i1]
+            w = torch.where(below, (scores[:, :, None] * torch.exp(
+                torch.where(below, seg, 0.0))) * dtc[:, :, lo:hi, None, :i1],
+                0.0)
+            y[:, :, lo:hi, i0:i1] = mm_3xtf32(w, x[:, :, lo:hi, :i1])
+    last = cs[..., -1:]
+    wstate = torch.exp(last - cs) * dtc
+    bh = bc.repeat_interleave(rep, dim=2)
+    states = mm_3xtf32((bh * wstate[..., None]).transpose(-1, -2), x)
     y_intra = y.permute(0, 1, 3, 2, 4).reshape(b, s, h, p).to(xh.dtype)
     return y_intra, states, cs, torch.exp(last[..., 0])

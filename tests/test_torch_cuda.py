@@ -682,8 +682,10 @@ def test_zoo_bf16_run_on_cuda_goes_through_tc_forward(cuda_device):
 # ------------------------------------------------------------------ K3
 
 #: (B, S, H, P, G, N, chunk): Q = 16, 64, 100 (a ragged 64-row tile), 256
-#: and S < chunk (Q = S = 48); one and two B/C groups; P 32, 64 and 128;
-#: N 32, 64 and 128; two or more chunks wherever Q < S
+#: and S < chunk (Q = S = 48); one and two B/C groups, and three heads a
+#: group (H 6, G 2: a slab of the tensor-core kernel straddles no group);
+#: P 32, 64 and 128 (with Q 100 too); N 32, 64 and 128; two or more chunks
+#: wherever Q < S
 K3_SHAPES = [
     (2, 32, 4, 32, 1, 32, 16),
     (1, 128, 4, 64, 2, 128, 64),
@@ -691,7 +693,11 @@ K3_SHAPES = [
     (1, 512, 2, 64, 1, 128, 256),
     (2, 768, 4, 32, 2, 32, 256),
     (1, 48, 2, 128, 1, 128, 256),
+    (1, 512, 6, 64, 2, 128, 256),
+    (1, 300, 2, 128, 1, 64, 100),
 ]
+#: the shape the serving path gives K3 (Mamba2-1.3B, batch 8, 2048 tokens)
+K3_PATH_SHAPE = (8, 2048, 64, 64, 1, 128, 256)
 
 #: K3 against its plain version per row (the last axis): the worst row's
 #: max |kernel - plain| over the larger of that row's max |plain| and the
@@ -746,6 +752,37 @@ def test_k3_matches_plain(cuda_device, shape, dtype):
         assert row_err(a, b) <= K3_TOL[dtype][name], name
 
 
+def test_k3_matches_plain_at_path_shape(cuda_device):
+    """The tensor-core kernel at the serving path's shape, float32: a
+    million rows, where the cumsum's order shows most."""
+    args = ssd_inputs(K3_PATH_SHAPE, torch.float32, cuda_device)
+    got = ssd_scan.ssd_chunk(*args, chunk=K3_PATH_SHAPE[6])
+    want = ref.ssd_chunk_reference(*args, chunk=K3_PATH_SHAPE[6])
+    torch.cuda.synchronize()
+    for name, a, b in zip(K3_OUTS, got, want):
+        assert row_err(a, b) <= K3_TOL[torch.float32][name], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K3_SHAPES[2:4] + K3_SHAPES[6:])
+def test_k3_cuda_core_kernel_matches_plain_and_the_tc_kernel(
+        cuda_device, shape, dtype):
+    """The CUDA-core kernel, off the path, still holds against the plain
+    version, and counts its own launches; its cumsum and decay are the
+    tensor-core kernel's bit for bit (the same scan in the same order)."""
+    args = ssd_inputs(shape, dtype, cuda_device)
+    chunk = shape[6]
+    ssd_scan.ssd_chunk_cuda_core.launches = 0
+    got = ssd_scan.ssd_chunk_cuda_core(*args, chunk=chunk)
+    assert ssd_scan.ssd_chunk_cuda_core.launches == 1
+    want = ref.ssd_chunk_reference(*args, chunk=chunk)
+    tc = ssd_scan.ssd_chunk(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    for name, a, b in zip(K3_OUTS, got, want):
+        assert row_err(a, b) <= K3_TOL[dtype][name], name
+    assert torch.equal(got[2], tc[2]) and torch.equal(got[3], tc[3])
+
+
 @pytest.mark.parametrize("shape", K3_SHAPES[1:4])
 def test_k3_glue_from_a_state_matches_naive_recurrence(cuda_device, shape):
     """ops.ssd_chunked with a nonzero initial state against the per-token
@@ -779,6 +816,33 @@ def test_k3_reads_strided_inputs_in_place(cuda_device):
                                  bc[..., 64:], chunk=64)
     plain = ssd_scan.ssd_chunk(xh, dt, a_h, bm, cm, chunk=64)
     for a, b in zip(strided, plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_synchronous_route_gives_the_async_routes_bits(cuda_device,
+                                                          dtype):
+    """Views that 16-byte copies cannot read (rows that start two elements
+    past 16 bytes, so `async_refusal` sends them to the synchronous route)
+    give what aligned contiguous copies give through cp.async, bit for
+    bit."""
+    shape = (2, 256, 6, 64, 2, 64, 128)
+    xh, dt, a_h, bm, cm = ssd_inputs(shape, dtype, cuda_device)
+    xw = torch.cat([xh, xh], dim=-1)[..., 2:66]
+    bw = torch.cat([bm, cm, bm], dim=-1)[..., 2:130]
+    for t in (xw, bw[..., :64], bw[..., 64:]):
+        assert ssd_scan.async_refusal(tuple(t.shape), t.stride(),
+                                      t.data_ptr(), t.element_size())
+    xw.copy_(xh)
+    bw[..., :64].copy_(bm)
+    bw[..., 64:].copy_(cm)
+    for t in (xh, bm, cm):
+        assert ssd_scan.async_refusal(tuple(t.shape), t.stride(),
+                                      t.data_ptr(), t.element_size()) is None
+    sync = ssd_scan.ssd_chunk(xw, dt, a_h, bw[..., :64], bw[..., 64:],
+                              chunk=128)
+    copies = ssd_scan.ssd_chunk(xh, dt, a_h, bm, cm, chunk=128)
+    for a, b in zip(sync, copies):
         assert torch.equal(a, b)
 
 
@@ -838,3 +902,4 @@ def test_serving_on_cuda_goes_through_k3(cuda_device):
     for k in ("h", "conv"):
         torch.testing.assert_close(gpu[1][k], cpu[1][k], rtol=1e-4,
                                    atol=1e-4)
+    assert ops.launch_counts()["ssd_chunk_cuda_core"] == 0
