@@ -61,7 +61,23 @@ Phases, each printing one JSON line and raising on failure:
    kernel's time beside it, the plain version's, the glue's and K3's share
    of the prefill. K3 against its plain version on edge shapes (Q 16 to
    256, one, two and three heads a group, P 32 to 128, N 32 and 128,
-   float32 and bf16) runs with the other small comparisons in phase 2.
+   float32 and bf16) runs with the other small comparisons in phase 2;
+6. slice 8's paths, which run no kernel of the reference (the device work
+   is the engine's tick loop; each path's launch counts are set to 0
+   before it and must stay 0): the paper's figures through
+   ``sim.evaluate.evaluate_batch`` at the reference benchmark's set-up
+   (fig3 under two i.i.d. markets, fig4 on the 30-day trace, fig5a and
+   fig5b; 8 seeds, the engine's default tick budget; a 16-tick warm-up
+   call on the same grid, then a timed one), checking that every
+   completed cell is finite; one RNG-free grid on the card and the CPU
+   (equal accounting, errors within rtol 1e-5) and a stochastic one (64
+   seeds, within 4 standard errors);
+   ``examples/scenario_sweep.py``'s 200 × 4 grid, timed and with a window
+   of ticks under ``torch.profiler`` (the device's busy time and idle
+   share); the fig3-uniform grid as two halves through ``snapshot_every``,
+   ``snapshot_state`` and ``tick0``, bit for bit the straight run; and
+   ``python -m repro_torch.launch.bidserve`` at its defaults, twice, the
+   second report bit for bit the first.
 
 Then the ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout,
@@ -81,6 +97,8 @@ import shutil
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -1471,12 +1489,465 @@ def phase_k3_at_path_shape(torch, smi, launches, prefill_ms):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Slice 8: the paper's figures and the bidding service (no kernel of the
+# reference lies on these paths; the device work is the engine's tick loop)
+# ---------------------------------------------------------------------------
+
+#: the reference benchmark's seeds per figure point (benchmarks/run.py)
+FIG_SEEDS = 8
+#: ticks of the warm-up call before a timed one: the same grid, enough to
+#: pay every first use (cuBLAS, the allocator's pool) without the loop
+WARMUP_TICKS = 16
+#: figures_card_vs_cpu's grids: seeds of the stochastic one, iterations
+#: per job of both
+CARD_VS_CPU_SEEDS, CARD_VS_CPU_J = 64, 100
+#: examples/scenario_sweep.py's grid, and the profiled window of its ticks
+SWEEP = {"n1": 4, "n": 8, "J": 150, "seeds": 4, "ticks": 900,
+         "profile_ticks": 100}
+
+
+def fig_strategies(prob, eps, theta, n, dist, rt):
+    """benchmarks/run.py's ``_strategies``, on the port's core."""
+    from repro_torch.core import strategies as strat
+
+    out = {
+        "no-interruptions": strat.no_interruptions(prob, eps, n, dist, rt),
+        "optimal-one-bid": strat.optimal_one_bid(prob, eps, theta, n, dist,
+                                                 rt),
+        "optimal-two-bids": strat.optimal_two_bids(prob, eps, theta, n, dist,
+                                                   rt, n1=n // 2),
+        "dynamic-bids": strat.DynamicBids(
+            prob, eps, theta, dist, rt, stage1=(n // 4, n // 2),
+            stage2=(n // 2, n), switch_at=2),
+    }
+    dyn = out["dynamic-bids"]
+    dyn.switch_at = max(2, int(0.4 * dyn.total_iterations))
+    return out
+
+
+def fig_calibration(dist):
+    """benchmarks/run.py's ``_calibration``: (quad, w0, prob, rt,
+    strategies, eps_emp, n) for fig3/fig4."""
+    from repro_torch.core import convergence as conv
+    from repro_torch.core.cost_model import RuntimeModel
+    from repro_torch.sim.evaluate import calibrated_quadratic
+
+    quad, w0, prob, _batch = calibrated_quadratic()
+    rt = RuntimeModel(kind="exp", lam=2.0, delta=0.05)
+    n = 8
+    eps = 5.0 * prob.B / (1 - prob.beta) / n
+    j_min = conv.phi_inverse(prob, eps, 1.0 / n)
+    theta = 3.0 * j_min * rt.expected(n)
+    return (quad, w0, prob, rt, fig_strategies(prob, eps, theta, n, dist,
+                                               rt), eps / 4, n)
+
+
+def figure_setups():
+    """The reference benchmark's fig3 (two i.i.d. markets), fig4 (the
+    30-day synthetic trace, time-indexed), fig5a (Theorem 4's worker count
+    against half and double it, q 0.5) and fig5b (static n 1 against
+    dynamic η 1.002) as ``evaluate_batch`` calls (benchmarks/run.py
+    :199-333): (tag, strategies, scenarios, keyword arguments, empirical
+    error level or None)."""
+    from repro_torch.core import convergence as conv
+    from repro_torch.core import provisioning as prov
+    from repro_torch.core import strategies as strat
+    from repro_torch.core.cost_model import (RuntimeModel,
+                                             TruncGaussianPrice,
+                                             UniformPrice)
+    from repro_torch.sim import engine
+    from repro_torch.sim.evaluate import calibrated_quadratic
+    from repro_torch.sim.spot_market import TracePrices, synthetic_history
+
+    out = []
+    for tag, dist in [("fig3_uniform", UniformPrice(0.2, 1.0)),
+                      ("fig3_gaussian",
+                       TruncGaussianPrice(0.6, 0.175, 0.2, 1.0))]:
+        quad, w0, prob, rt, strategies, eps_emp, n = fig_calibration(dist)
+        scenarios = [engine.scenario_from_strategy(
+            s, alpha=prob.alpha, rt=rt, dist=dist, n_max=n,
+            name=f"{name}@{tag}") for name, s in strategies.items()]
+        out.append((tag, strategies, scenarios,
+                    dict(quad=quad, w0=w0, alpha=prob.alpha, rt=rt,
+                         batch=16), eps_emp))
+    trace = synthetic_history(hours=24 * 30, seed=0)
+    dist = TracePrices(trace, step=0.05).empirical_dist()
+    quad, w0, prob, rt, strategies, eps_emp, n = fig_calibration(dist)
+    spec = engine.PriceSpec.from_trace(trace, step=0.05)
+    out.append(("fig4_trace", strategies, [engine.scenario_from_strategy(
+        s, alpha=prob.alpha, rt=rt, n_max=n, price_spec=spec,
+        name=f"{name}@fig4_trace") for name, s in strategies.items()],
+        dict(quad=quad, w0=w0, alpha=prob.alpha, rt=rt, batch=16),
+        eps_emp))
+    quad, w0, prob, _ = calibrated_quadratic(label_noise=1.0)
+    rt = RuntimeModel(kind="det", r_const=1.0)
+    q5 = dict(quad=quad, w0=w0, alpha=prob.alpha, rt=rt, q=0.5,
+              on_demand_price=0.5, batch=1, idle_step=0.1)
+    plan = prov.optimal_n_and_j(prob, 0.5, 2000, d=1.0 / (1 - 0.5))
+    choices = {
+        "theorem4": strat.StaticWorkers(plan),
+        "half-n": strat.StaticWorkers(prov.ProvisionPlan(
+            n=max(1, plan.n // 2), J=plan.J, expected_error=0,
+            cost_proxy=0)),
+        "double-n": strat.StaticWorkers(prov.ProvisionPlan(
+            n=plan.n * 2, J=plan.J, expected_error=0, cost_proxy=0))}
+    out.append(("fig5a", choices, {"q": None}, q5, 0.02))
+    J_static, eta = 3000, 1.002
+    runs = {"static_n1": strat.DynamicWorkers(n0=1, eta=1.0, J=J_static),
+            "dynamic_eta": strat.DynamicWorkers(
+                n0=1, eta=eta, J=conv.dynamic_iterations(J_static, eta,
+                                                          chi=1.0))}
+    out.append(("fig5b", runs, {"q": None}, q5, None))
+    return out
+
+
+def check_completed_finite(tag, r):
+    """Every completed cell's trajectories, cost and clock are finite."""
+    for s in range(r.errors.shape[0]):
+        J = int(r.J[s])
+        for k in np.flatnonzero(r.completed[s]):
+            vals = [r.errors[s, k, :J], r.costs[s, k, :J], r.times[s, k, :J],
+                    r.total_cost[s, k], r.total_time[s, k]]
+            if not all(np.isfinite(v).all() for v in vals):
+                raise AssertionError(f"{tag}: non-finite values in the "
+                                     f"completed cell ({s}, {k})")
+
+
+def phase_figures(torch):
+    """Each figure through ``evaluate_batch`` on the card at the reference
+    benchmark's set-up and the engine's default tick budget: a warm-up
+    call on the same grid (``WARMUP_TICKS`` ticks), then a timed one."""
+    from repro_torch.kernels import ops
+    from repro_torch.sim.evaluate import evaluate_batch
+
+    t_phase = time.perf_counter()
+    out = {}
+    for tag, strategies, scenarios, kw, eps_emp in figure_setups():
+        def call(n_ticks=None):
+            return evaluate_batch(strategies, scenarios, FIG_SEEDS,
+                                  device="cuda", n_ticks=n_ticks, **kw)
+
+        call(WARMUP_TICKS)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        bres = call()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        r = bres.result
+        ticks = 4 * r.errors.shape[2] + 64
+        check_completed_finite(tag, r)
+        rows = {}
+        for label in bres.names:
+            run = bres.run(label)
+            row = {"J": int(r.J[bres.index(label)]),
+                   "completed": run.summary["completed"],
+                   "cost": [run.summary["cost_mean"], run.summary["cost_ci"]],
+                   "final_err": [run.summary["final_err_mean"],
+                                 run.summary["final_err_ci"]]}
+            if eps_emp is not None:
+                c, ci, _ = bres.cost_to_error(label, eps_emp)
+                row["cost_to_err"] = [c, ci]
+            rows[label.split("@")[0]] = row
+        out[tag] = {"cells": int(r.iterations.size), "ticks": ticks,
+                    "wall_s": wall, "ticks_per_s": ticks / wall,
+                    "cell_ticks_per_s": ticks * r.iterations.size / wall,
+                    "completed_share": float(r.completed.mean()),
+                    "eps_emp": eps_emp, "launches": launches,
+                    "strategies": rows}
+        if set(launches.values()) - {0}:
+            raise AssertionError(f"{tag}: kernel launches {launches} on a "
+                                 "path that runs none")
+        if tag == "fig3_uniform":
+            fig3 = (strategies, scenarios, kw, bres)
+    emit({"phase": "figures", "phase_s": time.perf_counter() - t_phase,
+          "seeds": FIG_SEEDS, **out})
+    return fig3
+
+
+def phase_figures_card_vs_cpu(torch):
+    """An RNG-free grid (a one-bid, a two-bid and a preemptible plan with
+    q 0 over a tick-indexed U(0.2, 1) trace, a deterministic runtime, the
+    exact gradient) on the card and on the CPU: iterations, active counts,
+    cost and time equal, errors within rtol 1e-5. Then a stochastic grid
+    (the two bid plans under uniform prices, exp runtimes, minibatch
+    gradients) on both: mean final error and mean cost within 4 standard
+    errors."""
+    from repro_torch.sim import engine
+    from repro_torch.sim.evaluate import calibrated_quadratic, evaluate_batch
+
+    t_phase = time.perf_counter()
+    quad, w0, prob, _ = calibrated_quadratic()
+    J = CARD_VS_CPU_J
+    trace = np.random.default_rng(7).uniform(0.2, 1.0, 4096).astype(
+        np.float32)
+    bids = [("one-bid", [0.6] * 8), ("two-bids", [0.9] * 4 + [0.45] * 4)]
+    free = [engine.Scenario(price=engine.PriceSpec.from_trace_ticks(trace),
+                            alpha=prob.alpha, bid_schedule=np.tile(b_, (J, 1)),
+                            rt_kind="det", rt_const=1.0, idle_step=0.5,
+                            name=name) for name, b_ in bids]
+    free.append(engine.Scenario(
+        price=engine.PriceSpec.uniform(0.0, 1.0), alpha=prob.alpha,
+        worker_schedule=np.full(J, 6), preempt_q=0.0, on_demand_price=0.5,
+        rt_kind="det", rt_const=1.0, name="preemptible"))
+    kw = dict(quad=quad, w0=w0, alpha=prob.alpha, grad="full")
+    t0 = time.perf_counter()
+    card = evaluate_batch({}, free, FIG_SEEDS, device="cuda", **kw)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = evaluate_batch({}, free, FIG_SEEDS, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    a, b = card.result, cpu.result
+    equal = {f: bool(np.array_equal(getattr(a, f), getattr(b, f),
+                                    equal_nan=True))
+             for f in ("iterations", "ys", "costs", "times", "total_cost",
+                       "total_time", "total_idle")}
+    both = np.isfinite(a.errors) & np.isfinite(b.errors)
+    nan_same = bool(np.array_equal(np.isnan(a.errors), np.isnan(b.errors)))
+    rel = float(np.max(np.abs(a.errors[both] - b.errors[both])
+                       / np.maximum(np.abs(b.errors[both]), 1e-30)))
+
+    scs = [engine.Scenario(price=engine.PriceSpec.uniform(0.2, 1.0),
+                           alpha=prob.alpha, bid_schedule=np.tile(b_, (J, 1)),
+                           rt_kind="exp", rt_lam=2.0, rt_delta=0.05,
+                           idle_step=0.5, name=name) for name, b_ in bids]
+    stoch = {}
+    for dev in ("cuda", "cpu"):
+        res = evaluate_batch({}, scs, CARD_VS_CPU_SEEDS, quad=quad, w0=w0,
+                             alpha=prob.alpha, batch=16, device=dev).result
+        stoch[dev] = (res.errors[:, :, J - 1], res.total_cost,
+                      res.completed)
+    stats = {}
+    ok_stat = True
+    for name, k in (("final_err", 0), ("cost", 1)):
+        x, y = stoch["cuda"][k], stoch["cpu"][k]
+        se = np.sqrt(x.var(1, ddof=1) / x.shape[1]
+                     + y.var(1, ddof=1) / y.shape[1])
+        gap = np.abs(x.mean(1) - y.mean(1))
+        ok_stat &= bool((gap <= 4 * se).all())
+        stats[name] = {"card_mean": x.mean(1).tolist(),
+                       "cpu_mean": y.mean(1).tolist(),
+                       "gap_over_se": (gap / np.maximum(se, 1e-30)).tolist()}
+    completed = bool(stoch["cuda"][2].all() and stoch["cpu"][2].all())
+    emit({"phase": "figures_card_vs_cpu",
+          "phase_s": time.perf_counter() - t_phase,
+          "rng_free": {"cells": int(a.iterations.size),
+                       "ticks": 4 * a.errors.shape[2] + 64,
+                       "card_s": card_s, "cpu_s": cpu_s, "equal": equal,
+                       "nan_at_same_places": nan_same,
+                       "errors_max_rel": rel,
+                       "completed_share": float(a.completed.mean())},
+          "stochastic": {"seeds": CARD_VS_CPU_SEEDS, "J": J,
+                         "completed": completed, **stats}})
+    if not (all(equal.values()) and nan_same and rel <= 1e-5):
+        raise AssertionError(f"figures_card_vs_cpu: RNG-free grid differs "
+                             f"(equal {equal}, errors rel {rel})")
+    if not (ok_stat and completed):
+        raise AssertionError(f"figures_card_vs_cpu: stochastic grid "
+                             f"outside 4 SE or incomplete: {stats}")
+
+
+def sweep_grid():
+    """examples/scenario_sweep.py's 200 two-bid scenarios (20 high bids ×
+    10 low/high ratios, 4 workers on each), on the port."""
+    from repro_torch.core.cost_model import RuntimeModel, UniformPrice
+    from repro_torch.data.synthetic import QuadraticProblem
+    from repro_torch.sim import engine
+
+    quad = QuadraticProblem(dim=10, n_samples=256, cond=8.0, noise=0.3,
+                            label_noise=1.0, seed=0)
+    w0 = quad.w_star + 2.0 * np.ones(quad.dim) / np.sqrt(quad.dim)
+    dist = UniformPrice(0.2, 1.0)
+    n, n1, J = SWEEP["n"], SWEEP["n1"], SWEEP["J"]
+    idle = RuntimeModel(kind="exp", lam=2.0, delta=0.05).expected(n)
+    scenarios = []
+    for b1 in np.linspace(0.35, 1.0, 20):
+        for r in np.linspace(0.0, 1.0, 10):
+            b2 = dist.lo + r * (b1 - dist.lo)
+            bids = np.concatenate([np.full(n - n1, b1), np.full(n1, b2)])
+            scenarios.append(engine.Scenario(
+                price=engine.PriceSpec.uniform(dist.lo, dist.hi),
+                alpha=0.5 / quad.L, bid_schedule=np.tile(bids, (J, 1)),
+                rt_kind="exp", rt_lam=2.0, rt_delta=0.05, idle_step=idle,
+                name=f"b1={b1:.2f},b2={b2:.2f}"))
+    return quad, w0, scenarios
+
+
+def device_profile(torch, fn):
+    """(device busy ms, device operations, the five that take the most
+    time) of ``fn()`` under ``torch.profiler``; "not measured" when the
+    profiler records no device rows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    rows = [r for r in rows if r[2] > 0]
+    if not rows:
+        return "not measured", 0, []
+    top = sorted(rows, key=lambda r: -r[2])[:5]
+    return (sum(r[2] for r in rows) / 1e3, sum(r[1] for r in rows),
+            [(k[:60], c, t / 1e3) for k, c, t in top])
+
+
+def phase_sweep(torch):
+    """examples/scenario_sweep.py's grid on the card (200 scenarios × 4
+    seeds, J 150, 900 ticks, batch 1): a warm-up call, a timed one, then a
+    window of ticks under ``torch.profiler`` beside the same window
+    unprofiled: how much of the tick loop's wall time the device is busy.
+    The warm-up call runs ``WARMUP_TICKS`` ticks of the same grid."""
+    from repro_torch.kernels import ops
+    from repro_torch.sim import engine
+
+    t_phase = time.perf_counter()
+    quad, w0, scenarios = sweep_grid()
+    cfg = engine.SimConfig(n_ticks=SWEEP["ticks"], batch=1)
+
+    def call(c):
+        return engine.simulate(scenarios, quad, w0, SWEEP["seeds"], c,
+                               device="cuda")
+
+    call(engine.SimConfig(n_ticks=WARMUP_TICKS, batch=1))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = call(cfg)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check_completed_finite("sweep", res)
+    window = engine.SimConfig(n_ticks=SWEEP["profile_ticks"], batch=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call(window)
+    torch.cuda.synchronize()
+    window_ms = 1e3 * (time.perf_counter() - t0)
+    busy, n_ops, top = device_profile(torch, lambda: call(window))
+    ticks = SWEEP["profile_ticks"]
+    emit({"phase": "sweep", "phase_s": time.perf_counter() - t_phase,
+          "scenarios": len(scenarios),
+          "seeds": SWEEP["seeds"], "J": SWEEP["J"], "ticks": SWEEP["ticks"],
+          "cells": int(res.iterations.size), "wall_s": wall,
+          "ticks_per_s": SWEEP["ticks"] / wall,
+          "ms_per_tick": 1e3 * wall / SWEEP["ticks"],
+          "completed_share": float(res.completed.mean()),
+          "launches": launches,
+          "profile": {"ticks": ticks, "wall_ms_unprofiled": window_ms,
+                      "device_busy_ms": busy,
+                      "device_idle_share": (1 - busy / window_ms
+                                            if n_ops else "not measured"),
+                      "device_ops": n_ops,
+                      "device_ops_per_tick": n_ops / ticks,
+                      "top5_ms": top}})
+    if set(launches.values()) - {0}:
+        raise AssertionError(f"sweep: kernel launches {launches}")
+
+
+def phase_resume(torch, fig3):
+    """The fig3-uniform grid run straight through (the figures phase's
+    timed call) against the same grid as two halves: the first half with
+    one snapshot at its end, ``snapshot_state``, then the rest from its
+    tick. Bit for bit on the card."""
+    from repro_torch.sim import engine
+
+    strategies, scenarios, kw, straight = fig3
+    r = straight.result
+    n_ticks = 4 * r.errors.shape[2] + 64
+    half = n_ticks // 2
+    batch = engine.stack_scenarios(scenarios, device="cuda")
+    quad = engine.torch_quadratic(kw["quad"], "cuda")
+    program = engine.quadratic_program("minibatch", kw["batch"])
+    w0 = torch.as_tensor(np.asarray(kw["w0"], np.float32), device="cuda")
+    t0 = time.perf_counter()
+    first = engine.simulate_program(
+        batch, program, w0, quad, FIG_SEEDS,
+        engine.SimConfig(n_ticks=half, batch=kw["batch"],
+                         snapshot_every=half), device="cuda")
+    state, tick = engine.snapshot_state(first, -1)
+    second = engine.simulate_program(
+        batch, program, None, quad, FIG_SEEDS,
+        engine.SimConfig(n_ticks=n_ticks, batch=kw["batch"]),
+        init_state=state, tick0=tick, device="cuda")
+    wall = time.perf_counter() - t0
+    equal = {f: bool(np.array_equal(getattr(second, f), getattr(r, f),
+                                    equal_nan=True))
+             for f in ("errors", "costs", "times", "ys", "iterations",
+                       "total_time", "total_cost", "total_idle")}
+    equal["final_model"] = bool(torch.equal(second.final_model,
+                                            r.final_model))
+    unfinished = int((first.iterations < first.J[:, None]).sum())
+    emit({"phase": "resume", "grid": "fig3_uniform",
+          "cells": int(r.iterations.size), "ticks": n_ticks,
+          "split_at_tick": tick, "cells_unfinished_at_split": unfinished,
+          "wall_s_two_halves": wall, "bit_equal": equal})
+    if not all(equal.values()) or unfinished == 0:
+        raise AssertionError(f"resume: two halves differ from the straight "
+                             f"run {equal} (unfinished cells at the split: "
+                             f"{unfinished})")
+
+
+def phase_bidserve(torch):
+    """``python -m repro_torch.launch.bidserve`` at its defaults (2 jobs, 2
+    markets, 416 ticks, horizon 32, warm-up 32, 2 scoring seeds) on the
+    card, twice: the report must repeat bit for bit (latencies aside)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import bidserve
+
+    reports, walls = [], []
+    for _ in range(2):
+        args = bidserve.build_parser().parse_args([])
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        reports.append(bidserve.run(args))
+        walls.append(time.perf_counter() - t0)
+        launches = ops.launch_counts()
+        if set(launches.values()) - {0}:
+            raise AssertionError(f"bidserve: kernel launches {launches}")
+
+    def strip(rep):
+        rep = {"decisions": [dict(d) for d in rep["decisions"]],
+               "summary": dict(rep["summary"]), "static": rep["static"]}
+        for d in rep["decisions"]:
+            d.pop("replan_latency_s")
+        for k in ("replan_p50_ms", "replan_p95_ms", "decisions_per_sec"):
+            rep["summary"].pop(k)
+        return json.dumps(rep, sort_keys=True)
+
+    same = strip(reports[0]) == strip(reports[1])
+    s = reports[1]["summary"]
+    jobs = {name: {k: j[k] for k in ("completed", "deadline_met",
+                                     "iterations", "target_J", "cost",
+                                     "final_error", "regret_vs_hindsight",
+                                     "regret_vs_static_paper")}
+            for name, j in s["jobs"].items()}
+    emit({"phase": "bidserve", "phase_s": sum(walls),
+          "command": "python -m "
+          "repro_torch.launch.bidserve", "wall_s": walls,
+          "replans": s["horizons"], "decisions": s["decisions"],
+          "replan_p50_ms": s["replan_p50_ms"],
+          "replan_p95_ms": s["replan_p95_ms"],
+          "decisions_per_sec": s["decisions_per_sec"], "jobs": jobs,
+          "bit_reproducible": same})
+    if not same:
+        raise AssertionError("bidserve: a second run with the same seed "
+                             "gave another report")
+    if not all(j["completed"] and j["final_error"] is not None
+               for j in jobs.values()):
+        raise AssertionError(f"bidserve: a job did not finish: {jobs}")
+
+
 def free(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1517,6 +1988,13 @@ def main() -> int:
     free(torch)
     k3 = phase_k3_at_path_shape(torch, smi, run["launches_prefill"],
                                 run["prefill_ms"])
+    free(torch)
+    fig3 = phase_figures(torch)
+    phase_figures_card_vs_cpu(torch)
+    phase_sweep(torch)
+    phase_resume(torch, fig3)
+    phase_bidserve(torch)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_main})
     emit({"kernels": [k1] + k2 + k3})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -24,17 +24,24 @@ the reference's threefry: against ``repro.sim.engine`` the market is held
 exactly only where it draws nothing (tick-indexed trace prices with a
 deterministic runtime), and statistically elsewhere.
 
-Ported so far: the blocked (megabatch) layout, ``ModelProgram(blocked=
-True)``, that ``train_batched(megabatch=True)`` runs, and the per-cell
-layout of the reference's ``_sim_one``, ``ModelProgram(blocked=False)``,
-that ``train_zoo`` runs (the reference vmaps it over the grid; here each
-cell's step is a call of its own, every tick, running or not).
-``quadratic_program``, snapshots and ``simulate_sharded`` raise
-``NotImplementedError`` naming the slice they come with.
+Layouts: the blocked layout, ``ModelProgram(blocked=True)``, whose step
+trains the whole (S, R) grid in one call per tick (the megabatch trainer
+of ``train_batched(megabatch=True)`` and the quadratic oracle of
+``quadratic_program``/``simulate``), and the per-cell layout of the
+reference's ``_sim_one``, ``ModelProgram(blocked=False)``, that
+``train_zoo`` runs (the reference vmaps it over the grid; here each cell's
+step is a call of its own, every tick, running or not). The reference
+steps the quadratic per cell; here it is blocked, with the same
+arithmetic per cell. ``SimConfig.snapshot_every`` stacks the whole carry
+every k ticks (``snapshot_state``), and ``simulate_program(init_state=,
+tick0=)`` resumes from it bit for bit: every draw is keyed by the absolute
+tick. ``simulate_sharded`` raises ``NotImplementedError`` naming the mesh
+slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -56,8 +63,9 @@ _LATER = {
     "vmapped": "the vmapped/legacy slice (ElasticTrainer.run, "
                "train_batched(megabatch=False) and make_train_program)",
     "snapshots": "the snapshots/tick0-resume/checkpointing slice",
-    "quadratic": "the quadratic_program/evaluate_batch slice",
     "mesh": "the mesh slice",
+    "launch": "the launch and chaos slice (chaos/, launch/{workload,"
+              "supervisor,jitcache}.py)",
 }
 
 
@@ -414,18 +422,88 @@ def stack_scenarios(scenarios: Sequence[Scenario], *,
 
 
 # --------------------------------------------------------------------------
+# The Theorem-1 quadratic oracle
+# --------------------------------------------------------------------------
+
+
+class TorchQuadratic(NamedTuple):
+    """Device-side view of data.synthetic.QuadraticProblem (the reference's
+    ``JaxQuadratic``). The quadratic is exact, so error = G(w) − G* =
+    ½ (w−w*)ᵀ H (w−w*). Every method takes iterates with any leading
+    axes, ``w`` (..., d)."""
+
+    A: torch.Tensor          # (n_samples, d, d) f32
+    b: torch.Tensor          # (n_samples, d)
+    H: torch.Tensor          # (d, d) average Hessian
+    w_star: torch.Tensor     # (d,)
+
+    @property
+    def n_samples(self) -> int:
+        return self.A.shape[0]
+
+    def to(self, device) -> "TorchQuadratic":
+        return TorchQuadratic(*(x.to(device) for x in self))
+
+    def error(self, w: torch.Tensor) -> torch.Tensor:
+        d = w - self.w_star
+        return 0.5 * (d * (d @ self.H.T)).sum(-1)
+
+    def full_grad(self, w: torch.Tensor) -> torch.Tensor:
+        return (w - self.w_star) @ self.H.T
+
+    def minibatch_grads_at(self, idx: torch.Tensor,
+                           w: torch.Tensor) -> torch.Tensor:
+        """Per-worker minibatch gradients on explicit sample indices
+        ``idx`` (..., n_workers, batch) -> (..., n_workers, d)."""
+        a = self.A[idx]                                  # (..., n, b, d, d)
+        r = (a @ w[..., None, None, :, None])[..., 0] - self.b[idx]
+        return (a.transpose(-1, -2) @ r[..., None])[..., 0].sum(-2) \
+            / idx.shape[-1]
+
+    def minibatch_grads(self, key: torch.Tensor, w: torch.Tensor,
+                        n_workers: int, batch: int) -> torch.Tensor:
+        """Per-worker minibatch gradients, (..., n_workers, d), on the
+        indices `minibatch_indices` draws from ``key`` (...)."""
+        return self.minibatch_grads_at(
+            minibatch_indices(key, n_workers, batch, self.n_samples), w)
+
+
+def torch_quadratic(quad, device=None) -> TorchQuadratic:
+    """Lift a numpy QuadraticProblem onto ``device`` (default ``cuda``)."""
+    device = resolve_device(device)
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    return TorchQuadratic(A=dev(quad.A), b=dev(quad.b), H=dev(quad.H),
+                          w_star=dev(quad.w_star))
+
+
+def minibatch_indices(key: torch.Tensor, n_workers: int, batch: int,
+                      n_samples: int) -> torch.Tensor:
+    """(..., n_workers, batch) sample indices in [0, n_samples), hashed
+    from each cell's tick word ``key`` (...), the worker lane and the
+    sample: the same bits on every device."""
+    dev = key.device
+    lane = torch.arange(n_workers, device=dev)[:, None]
+    sample = torch.arange(batch, device=dev)[None, :]
+    return _hash(key[..., None, None], lane, sample) % n_samples
+
+
+# --------------------------------------------------------------------------
 # The engine
 # --------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
-    """Engine configuration. The quadratic program's ``batch``/``grad``
-    fields come with the quadratic_program slice."""
+    """Engine configuration."""
 
     n_ticks: int                 # market ticks to run (≥ J + idle budget)
-    snapshot_every: int = 0      # emit the full carry every k ticks (0=off;
-    #                              raises until snapshots are ported)
+    batch: int = 16              # per-worker minibatch size (quad program)
+    grad: str = "minibatch"      # "minibatch" | "full" (deterministic)
+    snapshot_every: int = 0      # stack the full carry every k ticks
+    #                              (0 = off) — the resumable checkpoints
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -483,16 +561,17 @@ def initial_state(scenarios: "ScenarioBatch | Sequence[Scenario]", model0,
                   n_seeds: int, *, device=None) -> SimState:
     """The (S, R) initial carry on ``device`` (default ``cuda``): every
     (scenario, seed) replica starts from ``model0`` (a nested dict/tuple of
-    tensors, each leaf copied into a contiguous (S, R, ...) buffer) at t=0
-    with empty trajectories."""
+    tensors or arrays, each leaf copied into a contiguous (S, R, ...)
+    buffer) at t=0 with empty trajectories."""
     device = resolve_device(device)
     if not isinstance(scenarios, ScenarioBatch):
         scenarios = stack_scenarios(scenarios, device=device)
     grid = (scenarios.n_scenarios, int(n_seeds))
     j_max = scenarios.j_max
     model = tree_map(
-        lambda x: x.to(device).expand(grid + tuple(x.shape)).clone(
-            memory_format=torch.contiguous_format), model0)
+        lambda x: torch.as_tensor(x, device=device).expand(
+            grid + tuple(x.shape)).clone(
+                memory_format=torch.contiguous_format), model0)
 
     def nan_traj():
         return torch.full(grid + (j_max,), float("nan"), dtype=torch.float32,
@@ -524,6 +603,12 @@ class EngineResult:
     total_idle: np.ndarray       # (S, R)
     J: np.ndarray                # (S,) per-scenario targets
     final_model: Any = None      # device tensors, leaves stacked (S, R, ...)
+    snapshots: Any = None        # SimState on the device, leaves
+    #                              (S, R, n_snap, ...): the full carry every
+    #                              cfg.snapshot_every ticks (None when off)
+    snapshot_ticks: Optional[np.ndarray] = None  # (n_snap,): snapshot i is
+    #                              the carry after tick snapshot_ticks[i]
+    #                              (resume passes it as tick0)
 
     @property
     def losses(self) -> np.ndarray:
@@ -726,21 +811,21 @@ def _advance(state: SimState, m: TickMarket, metric: torch.Tensor,
         model=model)
 
 
-def _sim_blocked(batch: ScenarioBatch, state: SimState, data, seeds,
-                 program: ModelProgram, n_ticks: int) -> SimState:
-    """The megabatched tick loop: per tick the market logic runs over the
+def _blocked_tick(batch: ScenarioBatch, data, seeds, program: ModelProgram,
+                  grid) -> Callable[[SimState, int], SimState]:
+    """One tick of the megabatched layout: the market logic runs over the
     whole (S, R) grid and the blocked ``step_fn`` trains every replica in
-    one call over (S, R)-leading leaves. Nothing is read back to the host
-    inside the loop."""
-    s_dim, r_dim = state.t.shape
-    alpha2 = _col(batch.alpha).expand(s_dim, r_dim)
-    for k in range(n_ticks):
+    one call over (S, R)-leading leaves."""
+    alpha2 = _col(batch.alpha).expand(grid)
+
+    def tick(state: SimState, k: int) -> SimState:
         m = _market_tick(batch, seeds, state.t, state.j, state.bucket, k)
         model, metric = program.step_fn(
             state.model, data, m.k_grad, m.mask.to(torch.float32), state.j,
             alpha2, m.running)
-        state = _advance(state, m, metric, model, batch.j_max)
-    return state
+        return _advance(state, m, metric, model, batch.j_max)
+
+    return tick
 
 
 def _gate_model(running: torch.Tensor, stepped, old) -> None:
@@ -754,18 +839,19 @@ def _gate_model(running: torch.Tensor, stepped, old) -> None:
              stepped, old)
 
 
-def _sim_cells(batch: ScenarioBatch, state: SimState, data, seeds,
-               program: ModelProgram, n_ticks: int) -> SimState:
-    """The per-cell tick loop (the reference's vmapped ``_sim_one``): per
-    tick the market logic runs over the whole (S, R) grid, then the step
-    runs for every cell on views of its carry and `_gate_model` lands it.
-    Nothing is read back to the host inside the loop."""
-    s_dim, r_dim = state.t.shape
-    dev = state.t.device
-    for k in range(n_ticks):
+def _cells_tick(batch: ScenarioBatch, data, seeds, program: ModelProgram,
+                grid) -> Callable[[SimState, int], SimState]:
+    """One tick of the per-cell layout (the reference's vmapped
+    ``_sim_one``): the market logic runs over the whole (S, R) grid, then
+    the step runs for every cell on views of its carry and `_gate_model`
+    lands it."""
+    s_dim, r_dim = grid
+
+    def tick(state: SimState, k: int) -> SimState:
         m = _market_tick(batch, seeds, state.t, state.j, state.bucket, k)
         mask = m.mask.to(torch.float32)
-        metric = torch.empty((s_dim, r_dim), dtype=torch.float32, device=dev)
+        metric = torch.empty(grid, dtype=torch.float32,
+                             device=state.t.device)
         for s in range(s_dim):
             for r in range(r_dim):
                 cell = tree_index(state.model, (s, r))
@@ -775,24 +861,76 @@ def _sim_cells(batch: ScenarioBatch, state: SimState, data, seeds,
                 _gate_model(m.running[s, r], stepped, cell)
                 del stepped
                 metric[s, r] = met
-        state = _advance(state, m, metric, state.model, batch.j_max)
-    return state
+        return _advance(state, m, metric, state.model, batch.j_max)
+
+    return tick
+
+
+def _map_state(fn, state: SimState, *rest: SimState) -> SimState:
+    """``fn`` over every tensor of a carry (and the matching tensors of
+    ``rest``), the model's leaves included."""
+    return SimState(*(tree_map(fn, f, *(r[i] for r in rest))
+                      for i, f in enumerate(state)))
+
+
+def _run_ticks(tick, state: SimState, tick0: int, n_run: int,
+               k_snap: int):
+    """Ticks ``tick0 … tick0+n_run-1`` from carry ``state``; every draw is
+    keyed by the absolute tick, so a run resumed at ``tick0`` from a carry
+    repeats the uninterrupted run bit for bit. With ``k_snap > 0`` the
+    carry after every k_snap-th tick is copied and the copies are stacked
+    on axis 2, as the reference's snapshots are (S, R, n_snap, ...); the
+    remainder ticks run unsnapshotted. Nothing is read back to the host."""
+    snaps = []
+    for i in range(n_run):
+        state = tick(state, tick0 + i)
+        if k_snap and (i + 1) % k_snap == 0:
+            snaps.append(_map_state(torch.clone, state))
+    if not snaps:
+        return state, None
+    return state, _map_state(lambda *xs: torch.stack(xs, dim=2), *snaps)
+
+
+def _check_run_window(cfg: SimConfig, tick0: int) -> int:
+    """Validate the (tick0, n_ticks, snapshot_every) window; returns the
+    number of ticks left to run."""
+    if not 0 <= tick0 <= cfg.n_ticks:
+        raise ValueError(f"tick0={tick0} outside [0, n_ticks={cfg.n_ticks}]")
+    n_run = cfg.n_ticks - tick0
+    if cfg.snapshot_every < 0:
+        raise ValueError(f"snapshot_every={cfg.snapshot_every} must be ≥ 0")
+    if cfg.snapshot_every and cfg.snapshot_every > n_run:
+        # silently returning snapshots=None here would defeat the caller's
+        # checkpointing intent — fail loudly instead
+        raise ValueError(
+            f"snapshot_every={cfg.snapshot_every} exceeds the remaining "
+            f"tick budget ({n_run} ticks from tick0={tick0}): no snapshot "
+            "would ever be emitted")
+    return n_run
 
 
 def simulate_program(scenarios, program: ModelProgram, model0, data, seeds,
                      cfg: SimConfig, *, init_state: Optional[SimState] = None,
-                     device=None) -> EngineResult:
+                     tick0: int = 0, device=None) -> EngineResult:
     """Run S scenarios × R seeds of a ModelProgram (blocked or per cell)
-    on ``device`` (default ``cuda``).
+    on ``device`` (default ``cuda``), ticks ``tick0 … cfg.n_ticks-1``.
 
     model0: initial model (nested dict/tuple of tensors), shared by every
     (scenario, seed) replica (``initial_state`` fans it out; ignored when
-    ``init_state``, a fresh carry already on the device, is given); data:
-    passed to every step (stacked batches); seeds: int count or explicit
-    sequence. Returns stacked (S, R, J_max) trajectories plus the
-    per-replica final model (tensors (S, R, ...) on the device)."""
-    if cfg.snapshot_every:
-        raise not_ported("snapshot_every", "snapshots")
+    ``init_state`` is given: a carry on the device, such as
+    ``snapshot_state`` returns, which the run updates in place); data:
+    passed to every step (stacked batches, a `TorchQuadratic`); seeds: int
+    count or explicit sequence.
+
+    Checkpointing: ``cfg.snapshot_every = k`` stacks the full carry every
+    k ticks into ``EngineResult.snapshots`` (+ ``snapshot_ticks``), left on
+    the device; ``init_state``/``tick0`` resume a run from such a snapshot
+    (same scenarios, seeds and cfg), bit for bit.
+
+    Returns stacked (S, R, J_max) trajectories plus the per-replica final
+    model (tensors (S, R, ...) on the device)."""
+    tick0 = int(tick0)
+    n_run = _check_run_window(cfg, tick0)
     device = resolve_device(device)
     if isinstance(scenarios, ScenarioBatch):
         scenarios = scenarios.to(device)
@@ -804,31 +942,74 @@ def simulate_program(scenarios, program: ModelProgram, model0, data, seeds,
     if init_state is None:
         init_state = initial_state(scenarios, model0, len(seeds),
                                    device=device)
-    loop = _sim_blocked if program.blocked else _sim_cells
-    final = loop(scenarios, init_state, data, seeds, program, cfg.n_ticks)
-    return _engine_result(final, scenarios)
+    grid = tuple(init_state.t.shape)
+    layout = _blocked_tick if program.blocked else _cells_tick
+    final, snaps = _run_ticks(layout(scenarios, data, seeds, program, grid),
+                              init_state, tick0, n_run, cfg.snapshot_every)
+    return _engine_result(final, snaps, scenarios, cfg, tick0, n_run)
 
 
-def _engine_result(final: SimState, scenarios: ScenarioBatch
-                   ) -> EngineResult:
+def _engine_result(final: SimState, snaps: Optional[SimState],
+                   scenarios: ScenarioBatch, cfg: SimConfig, tick0: int,
+                   n_run: int) -> EngineResult:
     def host(x):
         return x.cpu().numpy()
 
+    snap_ticks = None
+    if snaps is not None:
+        n_snap = n_run // cfg.snapshot_every
+        snap_ticks = tick0 + cfg.snapshot_every * np.arange(1, n_snap + 1)
     return EngineResult(
         errors=host(final.err_traj), costs=host(final.cost_traj),
         times=host(final.time_traj), ys=host(final.y_traj),
         iterations=host(final.j).astype(np.int32),
         total_time=host(final.t), total_cost=host(final.total_cost),
         total_idle=host(final.total_idle),
-        J=host(scenarios.J), final_model=final.model)
+        J=host(scenarios.J), final_model=final.model, snapshots=snaps,
+        snapshot_ticks=snap_ticks)
 
 
+@functools.lru_cache(maxsize=None)
 def quadratic_program(grad: str, batch: int) -> ModelProgram:
-    raise not_ported("quadratic_program", "quadratic")
+    """The Theorem-1 quadratic oracle as a blocked ModelProgram: model =
+    the (S, R, d) SGD iterates, data = a `TorchQuadratic`, metric = the
+    error after the update. Per cell it is the reference's step: the
+    exact gradient (``grad="full"``), or the mask-weighted mean of the
+    n_max workers' minibatch gradients over max(y, 1); then w − α g,
+    landed only where the iteration runs."""
+
+    def step_fn(w, quad: TorchQuadratic, key, mask, j, alpha, running):
+        del j
+        if grad == "full":
+            g = quad.full_grad(w)
+        else:
+            y = mask.sum(-1)
+            gw = quad.minibatch_grads(key, w, mask.shape[-1], batch)
+            g = (gw * mask[..., None]).sum(-2) \
+                / torch.clamp(y, min=1.0)[..., None]
+        w_new = w - alpha[..., None] * g
+        return torch.where(running[..., None], w_new, w), quad.error(w_new)
+
+    return ModelProgram(step_fn=step_fn, name=f"quadratic-{grad}-{batch}",
+                        blocked=True)
 
 
-def simulate(scenarios, quad, w0, seeds, cfg: SimConfig) -> EngineResult:
-    raise not_ported("simulate (the quadratic oracle engine)", "quadratic")
+def simulate(scenarios, quad, w0, seeds, cfg: SimConfig, *,
+             device=None) -> EngineResult:
+    """Run S scenarios × R seeds on the quadratic oracle on ``device``
+    (default ``cuda``): the original engine entry point; `simulate_program`
+    is the general form.
+
+    scenarios: ScenarioBatch or list[Scenario]; quad: QuadraticProblem or
+    TorchQuadratic; seeds: int count or explicit sequence. Returns stacked
+    (S, R, J_max) trajectories."""
+    device = resolve_device(device)
+    quad = (quad.to(device) if isinstance(quad, TorchQuadratic)
+            else torch_quadratic(quad, device))
+    w0 = torch.as_tensor(np.asarray(w0, np.float32), device=device)
+    return simulate_program(
+        scenarios, quadratic_program(cfg.grad, cfg.batch), w0, quad, seeds,
+        cfg, device=device)
 
 
 def simulate_sharded(*args, **kwargs) -> EngineResult:
@@ -836,7 +1017,17 @@ def simulate_sharded(*args, **kwargs) -> EngineResult:
 
 
 def snapshot_state(result: EngineResult, index: int = -1):
-    raise not_ported("snapshot_state", "snapshots")
+    """One snapshot of a snapshotting run as a ``SimState`` on the device
+    (leaves (S, R, ...), copied out of the stack, so a run resumed from it
+    leaves ``result`` as it was) plus its absolute tick count: the pair
+    ``simulate_program(init_state=..., tick0=...)`` resumes from."""
+    if result.snapshots is None:
+        raise ValueError("run had no snapshots: set SimConfig.snapshot_every")
+    tick = int(result.snapshot_ticks[index])
+    state = _map_state(
+        lambda x: x[:, :, index].clone(memory_format=torch.contiguous_format),
+        result.snapshots)
+    return state, tick
 
 
 # --------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 tolerances; K2's tensor-core forward, dK/dV and dQ kernels for bf16
 beside their CUDA-core counterparts; K2 at head_dims other than 64 and 128
 through its zero-padding entry point), the engine's random bits and RNG-free market on CUDA against
-the CPU, a small megabatched run through K1, small zoo runs through K2
+the CPU, the quadratic oracle on the card against the CPU and its snapshot
+resume, a small megabatched run through K1, small zoo runs through K2
 (float32 and bf16) and a small Mamba2 served through K3.
 
 Every test here needs an NVIDIA GPU and skips itself elsewhere. The file
@@ -903,3 +904,89 @@ def test_serving_on_cuda_goes_through_k3(cuda_device):
         torch.testing.assert_close(gpu[1][k], cpu[1][k], rtol=1e-4,
                                    atol=1e-4)
     assert ops.launch_counts()["ssd_chunk_cuda_core"] == 0
+
+
+def _quad_grid():
+    """An RNG-free grid for the quadratic oracle (tick-indexed trace
+    prices, a deterministic runtime) and a stochastic one (uniform and
+    Gaussian prices, exp runtimes, preemptions)."""
+    from repro_torch.data.synthetic import QuadraticProblem
+
+    quad = QuadraticProblem(dim=10, n_samples=256, cond=8.0, noise=0.3,
+                            label_noise=1.0, seed=0)
+    alpha = 0.5 / quad.L
+    trace = np.random.default_rng(7).uniform(0.2, 1.0, 313).astype(
+        np.float32)
+    free = [engine.Scenario(price=engine.PriceSpec.from_trace_ticks(trace),
+                            alpha=alpha, bid_schedule=np.tile(b, (60, 1)),
+                            rt_kind="det", rt_const=1.0, idle_step=0.5,
+                            name=f"free{i}")
+            for i, b in enumerate([[0.6] * 4, [0.9, 0.9, 0.4, 0.4]])]
+    drawn = [engine.Scenario(price=engine.PriceSpec.uniform(0.2, 1.0),
+                             alpha=alpha, bid_schedule=np.tile([0.7] * 8,
+                                                               (60, 1)),
+                             rt_kind="exp", rt_lam=2.0, idle_step=0.5),
+             engine.Scenario(price=engine.PriceSpec.trunc_gaussian(
+                 0.6, 0.175, 0.2, 1.0), alpha=alpha,
+                 bid_schedule=np.tile([0.9] * 4 + [0.5] * 4, (60, 1)),
+                 rt_kind="exp", rt_lam=2.0, idle_step=0.5),
+             engine.Scenario(price=engine.PriceSpec.uniform(0.0, 1.0),
+                             alpha=alpha, worker_schedule=np.full(60, 6),
+                             preempt_q=0.3, rt_kind="exp", rt_lam=2.0)]
+    return quad, quad.w_star + 1.0, free, drawn
+
+
+def test_evaluate_batch_on_cuda_equals_the_cpu_on_rng_free_grid(
+        cuda_device):
+    from repro_torch.sim import evaluate
+
+    quad, w0, free, _ = _quad_grid()
+    kw = dict(quad=quad, w0=w0, alpha=free[0].alpha, grad="full",
+              n_ticks=200)
+    card = evaluate.evaluate_batch({}, free, 4, device="cuda", **kw)
+    cpu = evaluate.evaluate_batch({}, free, 4, device="cpu", **kw)
+    assert card.result.completed.all()
+    for f in ("iterations", "ys", "costs", "times", "total_cost",
+              "total_time", "total_idle"):
+        np.testing.assert_array_equal(getattr(card.result, f),
+                                      getattr(cpu.result, f), err_msg=f)
+    np.testing.assert_allclose(card.result.errors, cpu.result.errors,
+                               rtol=1e-5)
+    assert card.result.final_model.device.type == "cuda"
+
+
+def test_minibatch_indices_on_cuda_equal_the_cpu(cuda_device):
+    key = torch.arange(4096, dtype=torch.int64) * 2654435761 % (1 << 32)
+    card = engine.minibatch_indices(key.cuda(), 8, 16, 256)
+    np.testing.assert_array_equal(
+        card.cpu().numpy(), engine.minibatch_indices(key, 8, 16, 256).numpy())
+
+
+@pytest.mark.parametrize("every,index", [(7, 2), (25, 0)])
+def test_snapshot_resume_on_cuda_is_bitexact(cuda_device, every, index):
+    """Minibatch gradients, random prices, exp runtimes and preemptions on
+    the card: a run resumed from a snapshot at its tick repeats the
+    uninterrupted run bit for bit."""
+    quad, w0, free, drawn = _quad_grid()
+    scenarios = engine.stack_scenarios(free + drawn, device="cuda")
+    data = engine.torch_quadratic(quad, "cuda")
+    program = engine.quadratic_program("minibatch", 16)
+    model0 = torch.as_tensor(w0, dtype=torch.float32, device="cuda")
+    seeds = [0, 1, 2, 9]
+
+    def run(cfg, **kw):
+        return engine.simulate_program(scenarios, program, model0, data,
+                                       seeds, cfg, device="cuda", **kw)
+
+    straight = run(engine.SimConfig(n_ticks=120))
+    snap = run(engine.SimConfig(n_ticks=120, snapshot_every=every))
+    state, tick = engine.snapshot_state(snap, index)
+    assert state.t.device.type == "cuda" and tick == every * (index + 1)
+    resumed = run(engine.SimConfig(n_ticks=120), init_state=state,
+                  tick0=tick)
+    for res in (snap, resumed):
+        for f in ("errors", "costs", "times", "ys", "iterations",
+                  "total_time", "total_cost", "total_idle"):
+            np.testing.assert_array_equal(getattr(res, f),
+                                          getattr(straight, f), err_msg=f)
+        assert torch.equal(res.final_model, straight.final_model)

@@ -192,9 +192,9 @@ def test_hash_is_murmur_finalizer_in_exact_integer_arithmetic():
 
 
 def test_unported_layouts_raise():
-    """The per-cell layout runs now (each cell's step, gated on its tick
-    running); the quadratic oracle, the mesh and snapshots still raise
-    naming their slices."""
+    """The per-cell layout runs (each cell's step, gated on its tick
+    running), and so do the quadratic oracle and snapshots; the mesh still
+    raises naming its slice."""
     sc = _stat_scenarios(engine, np.ones(4, np.float32))
 
     def count(model, data, key, mask, j, alpha):
@@ -206,12 +206,16 @@ def test_unported_layouts_raise():
     assert res.final_model["w"].shape == (len(sc), 2, 1)
     np.testing.assert_array_equal(res.final_model["w"][..., 0].numpy(),
                                   res.iterations)
-    with pytest.raises(NotImplementedError, match="quadratic"):
-        engine.quadratic_program("full", 4)
+    quad = engine.quadratic_program("full", 4)
+    assert quad.blocked and quad is engine.quadratic_program("full", 4)
     with pytest.raises(NotImplementedError, match="mesh"):
         engine.simulate_sharded()
-    with pytest.raises(NotImplementedError, match="snapshot"):
-        engine.simulate_program(sc, PROGRAM, {"w": torch.zeros(1)}, None, 2,
-                                engine.SimConfig(n_ticks=4,
-                                                 snapshot_every=2),
-                                device="cpu")
+    snap = engine.simulate_program(sc, PROGRAM, {"w": torch.zeros(1)}, None,
+                                   2, engine.SimConfig(n_ticks=4,
+                                                       snapshot_every=2),
+                                   device="cpu")
+    np.testing.assert_array_equal(snap.snapshot_ticks, [2, 4])
+    assert snap.snapshots.t.shape == (len(sc), 2, 2)
+    state, tick = engine.snapshot_state(snap, -1)
+    assert tick == 4
+    np.testing.assert_array_equal(state.j.numpy(), snap.iterations)
