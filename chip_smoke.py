@@ -77,7 +77,27 @@ Phases, each printing one JSON line and raising on failure:
    share); the fig3-uniform grid as two halves through ``snapshot_every``,
    ``snapshot_state`` and ``tick0``, bit for bit the straight run; and
    ``python -m repro_torch.launch.bidserve`` at its defaults, twice, the
-   second report bit for bit the first.
+   second report bit for bit the first;
+7. slice 9's path, durable training (the free disk space of the run
+   directory checked first; the directory removed at the end): InternVL2-1B
+   as published (24 layers, bf16 with float32 masters and momentum, K2 at
+   B 8, S = T = 1023, H 14, Hkv 2, D 64), one scenario × one seed, 24
+   ticks, built from one ``WorkerSpec`` by ``launch.workload``:
+   ``train_zoo`` without a checkpoint (K2's tensor-core kernels 24 × 24
+   times each, finite losses, the first near ln V, the final carry copied
+   to the host); K2 at that path's shape, each backward kernel held against
+   its plain version on its own inputs (the forward's bf16 output and lse);
+   ``train_zoo(checkpoint_path=, save_every=8, keep_last=2)`` (its final
+   carry and its newest step through ``restore_newest`` bit for bit the
+   first run's; save and restore rates, durability's overhead);
+   ``python -m repro_torch.launch.supervisor`` over the same spec with a
+   kill at tick 8, a torn step 16, a NaN carry and two failing writes at
+   16 (two restarts, a rollback, the torn step quarantined, ticks lost
+   within ``save_every`` a dying fault, the worker on the card through
+   K2, the newest step bit for bit the first run's final carry; wall
+   seconds, MTTR, bytes written); and the reduced Qwen2-7B megabatch grid
+   through K1 snapshotted mid-way, saved, restored and resumed, bit for
+   bit the straight run.
 
 Then the ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout,
@@ -898,23 +918,58 @@ def valid_pairs(s, t, causal, window, q_offset) -> int:
     return n
 
 
-def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
-    """K2 at the zoo path's shape, in the model layout it receives there:
-    each kernel's time beside its bound, the plain version's and
-    ``scaled_dot_product_attention``'s. The path runs the tensor-core
-    forward, dK/dV and dQ kernels; the CUDA-core forward, dK/dV and dQ
-    kernels are held and timed here in bf16 beside them."""
+def k2_plain_grads(torch, qt, kt, vt, out, lse, dout, mask):
+    """Plain versions of K2's backward kernels on their own inputs: dq, dk
+    and dv in float32 from q, k, v, the forward's bf16 output and lse, and
+    dO, with D_i = rowsum(dO∘O) formed from that bf16 output, as the
+    kernels form it (autograd through the plain forward forms it from the
+    float32 output). Layout (B, H, S, D) and (B, Hkv, T, D)."""
+    from repro_torch.kernels import ref
+
+    b, h, s, d = qt.shape
+    hkv = kt.shape[1]
+    g = h // hkv
+    scale = d ** -0.5
+    p = torch.exp(ref._masked_scores(qt, kt, **mask) - lse[..., None])
+    k32 = kt.float().repeat_interleave(g, dim=1)
+    v32 = vt.float().repeat_interleave(g, dim=1)
+    do32 = dout.float()
+    ds = p * (torch.einsum("bhsd,bhtd->bhst", do32, v32)
+              - ref.mha_delta_reference(out, dout)[..., None])
+    dq = torch.einsum("bhst,bhtd->bhsd", ds, k32) * scale
+    dk = torch.einsum("bhst,bhsd->bhtd", ds, qt.float()) * scale
+    dv = torch.einsum("bhst,bhsd->bhtd", p, do32)
+    return (dq, dk.view(b, hkv, g, -1, d).sum(2),
+            dv.view(b, hkv, g, -1, d).sum(2))
+
+
+def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers,
+                           shape=K2_PATH_SHAPE, phase="k2_at_path_shape",
+                           per_kernel_plain=False):
+    """K2 at a path's shape (by default the zoo path's), in the model
+    layout it receives there: each kernel's time beside its bound, the
+    plain version's and ``scaled_dot_product_attention``'s. The path runs
+    the tensor-core forward, dK/dV and dQ kernels; the CUDA-core forward,
+    dK/dV and dQ kernels are held and timed here in bf16 beside them.
+
+    The gradients are held against autograd through the plain forward, or
+    with ``per_kernel_plain`` against `k2_plain_grads`: the plain version
+    of each backward kernel on that kernel's own inputs (the bf16 output
+    and lse), whose D_i is rounded as the kernels' is."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import ops, ref
 
-    shape = K2_PATH_SHAPE
     b, s, t, h, hkv, d = shape[:6]
     mask = dict(causal=True, window=None, q_offset=0)
     q, k, v, do = k2_inputs(torch, shape, torch.bfloat16, seed=5)
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     kern, plain = k2_both(torch, q, k, v, do, mask)
     out, lse = flash.flash_fwd_tc(qt, kt, vt, **mask)
+    if per_kernel_plain:
+        plain = (plain[0],) + tuple(x.transpose(1, 2) for x in
+                                    k2_plain_grads(torch, qt, kt, vt, out,
+                                                   lse, dot, mask))
     delta = flash.flash_bwd_delta(out, dot)
     cuda_core_out, _ = flash.flash_fwd(qt, kt, vt, **mask)
     cc_dk, cc_dv = (x.transpose(1, 2) for x in flash.flash_bwd_dkdv(
@@ -1043,7 +1098,7 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers):
                      else "bytes",
                      "library_ms": library_ms[kname]})
     fb_flops = sum(work[kk][0] for kk in K2_ZOO_KERNELS)
-    emit({"phase": "k2_at_path_shape", "shape": shape, "dtype": "bfloat16",
+    emit({"phase": phase, "shape": shape, "dtype": "bfloat16",
           "valid_pairs": pairs, "row_err": rels,
           "off_path_row_err": off_path, "delta_rel_err": d_err,
           "dkdv_tc_vs_cuda_core_row_err": tc_vs_cc,
@@ -1941,6 +1996,384 @@ def phase_bidserve(torch):
         raise AssertionError(f"bidserve: a job did not finish: {jobs}")
 
 
+# ------------------------------------------------------------- slice 9
+
+#: slice 9: InternVL2-1B as published (configs/internvl2_1b.py, arXiv:
+#: 2404.16821; 24 layers, d_model 896, 14 q / 2 kv heads of 64, d_ff 4864,
+#: vocab 151655, the 256-patch vision prefix), bf16 mixed precision with K2,
+#: one scenario (four workers bidding 0.9, four 0.5) × one seed, 24 ticks
+#: in chunks of 8, the two newest steps kept
+DURABLE_SPEC = dict(
+    arch="internvl2-1b", reduce_depth=24, param_dtype="bfloat16", zoo=True,
+    overrides={"use_flash_attention": 1}, n_workers=8, global_batch=8,
+    seq_len=1024, bids=((0.9, 0.9, 0.9, 0.9, 0.5, 0.5, 0.5, 0.5),),
+    iterations=8, seeds=1, n_ticks=24, save_every=8, keep_last=2)
+#: the supervised run's faults, at the chunk boundaries 8 and 16: a kill
+#: before the first save; a torn step 16 (then a kill); a NaN carry and two
+#: failing writes in the attempt that resumes from step 8
+DURABLE_FAULTS = [dict(kind="kill", at_tick=8),
+                  dict(kind="corrupt", at_tick=16, mode="truncate_shard"),
+                  dict(kind="nan", at_tick=16),
+                  dict(kind="io_error", at_tick=16, count=2)]
+#: the durable phases' run directory, inside the checkout and removed at
+#: the end; it holds the clean run's steps, then the supervised run's
+DURABLE_DIR = os.path.join(ROOT, "_durable_run")
+#: one carry per parameter: bf16 params, float32 master and momentum
+DURABLE_BYTES_PER_PARAM = 10
+
+
+def durable_workload():
+    from repro_torch.launch.workload import WorkerSpec, build_workload
+
+    spec = WorkerSpec(**DURABLE_SPEC)
+    return (spec,) + tuple(build_workload(spec))
+
+
+def carry_bits_equal(a: dict, b: dict) -> dict:
+    """Leaf by leaf (keyed as the checkpoint keys them), whether two host
+    copies of a carry hold the same bits; NaN and -0.0 compare as bits."""
+    if set(a) != set(b):
+        return {"keys": False}
+
+    def bits(x):
+        return np.ascontiguousarray(x).reshape(-1).view(np.uint8)
+
+    return {k: a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+            and np.array_equal(bits(a[k]), bits(b[k])) for k in a}
+
+
+def zoo_losses(res):
+    ran = res.iterations
+    return [res.errors[s, k, :ran[s, k]] for s in range(ran.shape[0])
+            for k in range(ran.shape[1])]
+
+
+def phase_durable_disk(job):
+    """The run directory's free space against the durable phases' peak:
+    ``keep_last`` steps of the carry plus one being written."""
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import map_specs
+    from repro_torch.tree import tree_leaves
+
+    n_params = sum(tree_leaves(map_specs(
+        lambda _, spec: math.prod(spec.shape),
+        model_zoo.param_defs(job.model))))
+    need = (DURABLE_SPEC["keep_last"] + 1) * DURABLE_BYTES_PER_PARAM \
+        * n_params + (1 << 30)
+    os.makedirs(DURABLE_DIR, exist_ok=True)
+    free_b = shutil.disk_usage(DURABLE_DIR).free
+    emit({"phase": "durable_disk",
+          "dir": os.path.relpath(DURABLE_DIR, ROOT), "params": n_params,
+          "free_bytes": free_b, "need_bytes": need})
+    if free_b < need:
+        raise AssertionError(
+            f"durable phases: {free_b / 1e9:.1f} GB free under "
+            f"{DURABLE_DIR}, {need / 1e9:.1f} GB needed ({n_params} "
+            "parameters, the kept steps and one being written)")
+    return n_params
+
+
+def phase_durable_reference(torch):
+    """``train_zoo`` of the durable workload in process, no checkpoint:
+    K2's launches, the losses, time per tick and peak memory; returns the
+    final carry copied to the host, keyed as a checkpoint keys it."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import train_zoo
+
+    spec, job, scenarios, seeds = durable_workload()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_zoo(job, scenarios, seeds, n_ticks=spec.n_ticks,
+                    device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    cells = int(res.iterations.size)
+    per_kernel = job.model.num_layers * cells * spec.n_ticks
+    want = {n: per_kernel if n in K2_ZOO_KERNELS else 0 for n in launches}
+    if launches != want:
+        raise AssertionError(f"durable_reference: kernel launches "
+                             f"{launches}, designed {want}")
+    losses = zoo_losses(res)
+    flat = [float(x) for row in losses for x in row]
+    vocab = job.model.vocab_size
+    if not flat or not all(math.isfinite(x) for x in flat) or \
+            not abs(flat[0] - math.log(vocab)) < 3.0:
+        raise AssertionError(f"durable_reference: losses {losses} (ln V = "
+                             f"{math.log(vocab):.3f})")
+    t0 = time.perf_counter()
+    host = ckpt.host_snapshot(res.final_state).flat
+    host_s = time.perf_counter() - t0
+    carry_bytes = sum(a.nbytes for a in host.values())
+    emit({"phase": "durable_reference", "entry": "trainer.train_zoo",
+          "spec": DURABLE_SPEC, "cells": cells, "n_ticks": spec.n_ticks,
+          "iterations": res.iterations.tolist(),
+          "losses": [list(map(float, x)) for x in losses],
+          "ln_V": math.log(vocab), "launches": launches, "run_s": run_s,
+          "ms_per_tick": 1e3 * run_s / spec.n_ticks,
+          "peak_mem_bytes": peak, "carry_bytes": carry_bytes,
+          "carry_to_host_s": host_s})
+    return host, run_s, launches
+
+
+class _SaveClock:
+    """Chunk hooks timing each save: ``before_save`` to ``after_save``."""
+
+    def __init__(self):
+        self.saves = []
+
+    def before_save(self, tick):
+        self._t = time.perf_counter()
+
+    def after_save(self, tick, path):
+        self.saves.append(time.perf_counter() - self._t)
+
+
+def phase_durable_clean(torch, reference, ref_run_s):
+    """The same workload through ``train_zoo(checkpoint_path=,
+    save_every=8, keep_last=2)``, no faults: the final carry bit for bit
+    the reference's, the newest step restored by ``restore_newest`` too;
+    save and restore rates and durability's overhead."""
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import batched_init_state, train_zoo
+    from repro_torch.train.zoo_program import init_zoo_state
+
+    spec, job, scenarios, seeds = durable_workload()
+    root = os.path.join(DURABLE_DIR, "clean", "ckpt")
+    clock = _SaveClock()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train_zoo(job, scenarios, seeds, n_ticks=spec.n_ticks,
+                    checkpoint_path=root, save_every=spec.save_every,
+                    keep_last=spec.keep_last, hooks=clock, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    run_equal = carry_bits_equal(ckpt.host_snapshot(res.final_state).flat,
+                                 reference)
+    del res
+    free(torch)
+    steps = ckpt.list_steps(root)
+    path = ckpt.step_path(root, steps[-1])
+    nbytes = os.path.getsize(path)
+    like = batched_init_state(
+        job, scenarios, seeds, device="cuda",
+        model0=lambda: init_zoo_state(job.model, job, job.seed,
+                                      device="cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, tick, _ = ckpt.restore_newest(root, like)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del like
+    restored_equal = carry_bits_equal(ckpt.host_snapshot(state).flat,
+                                      reference)
+    del state
+    free(torch)
+    save_s = float(np.mean(clock.saves))
+    emit({"phase": "durable_clean", "entry": "trainer.train_zoo("
+          "checkpoint_path=, save_every=8, keep_last=2)",
+          "run_s": run_s, "reference_run_s": ref_run_s,
+          "durability_overhead_pct": 100 * (run_s - ref_run_s) / ref_run_s,
+          "saves": len(clock.saves), "save_s": clock.saves,
+          "ckpt_bytes": nbytes, "save_GBps": nbytes / save_s / 1e9,
+          "restore_s": restore_s, "restore_GBps": nbytes / restore_s / 1e9,
+          "steps_kept": steps, "restored_tick": tick,
+          "final_carry_bit_equal": all(run_equal.values()),
+          "restored_bit_equal": all(restored_equal.values())})
+    bad = [k for k, ok in {**run_equal, **{f"restored {k}": v for k, v in
+                                           restored_equal.items()}}.items()
+           if not ok]
+    if bad or tick != spec.n_ticks or len(steps) != spec.keep_last:
+        raise AssertionError(f"durable_clean: leaves differ from the "
+                             f"reference run: {bad[:8]} (restored tick "
+                             f"{tick}, steps {steps})")
+    shutil.rmtree(os.path.join(DURABLE_DIR, "clean"))
+    return {"save_s": save_s, "restore_s": restore_s, "bytes": nbytes}
+
+
+def phase_supervised(torch, reference):
+    """``python -m repro_torch.launch.supervisor`` over the durable
+    workload with `DURABLE_FAULTS`: two restarts, a rollback, the torn step
+    quarantined, ticks lost within ``save_every`` a fault, and the newest
+    step bit for bit the reference's final carry; the worker ran on the
+    card and launched K2."""
+    from repro_torch.chaos import Fault, FaultPlan
+    from repro_torch.launch import supervisor as sup
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import batched_init_state
+    from repro_torch.train.zoo_program import init_zoo_state
+
+    spec, job, scenarios, seeds = durable_workload()
+    d = os.path.join(DURABLE_DIR, "supervised")
+    os.makedirs(d)
+    spec.save(os.path.join(d, sup.SPEC_NAME))
+    FaultPlan(tuple(Fault(**f) for f in DURABLE_FAULTS), seed=20).save(
+        os.path.join(d, sup.PLAN_NAME))
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "repro_torch.launch.supervisor",
+           "--run-dir", d, "--max-restarts", "4", "--hang-timeout", "300",
+           "--device", "cuda"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    logs = {}
+    for name in sorted(os.listdir(d)):
+        if name.startswith("attempt_"):
+            with open(os.path.join(d, name)) as f:
+                logs[name] = f.read()
+    if out.returncode != 0:
+        raise AssertionError(f"supervised: exit {out.returncode}\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}\n"
+                             + "\n".join(f"{k}: {v[-3000:]}"
+                                         for k, v in logs.items()))
+    with open(os.path.join(d, sup.RECOVERY_NAME)) as f:
+        recovery = json.load(f)
+    with open(os.path.join(d, sup.RESULT_NAME)) as f:
+        result = json.load(f)
+    summary = recovery["summary"]
+    fired = [w["fault"] for w in recovery["worker_events"]]
+    saves = [json.loads(line) for log in logs.values()
+             for line in log.splitlines() if line.startswith('{"saved"')]
+    root = os.path.join(d, sup.CKPT_DIRNAME)
+    qdir = os.path.join(root, ckpt.QUARANTINE_DIRNAME)
+    quarantined = sorted(os.listdir(qdir)) if os.path.isdir(qdir) else []
+    like = batched_init_state(
+        job, scenarios, seeds, device="cuda",
+        model0=lambda: init_zoo_state(job.model, job, job.seed,
+                                      device="cuda"))
+    state, tick, _ = ckpt.restore_newest(root, like)
+    del like
+    equal = carry_bits_equal(ckpt.host_snapshot(state).flat, reference)
+    del state
+    free(torch)
+    per_kernel = job.model.num_layers * spec.n_ticks
+    worker_k2 = {n: result["launches"].get(n) for n in K2_ZOO_KERNELS}
+    emit({"phase": "supervised", "command": " ".join(cmd[1:]),
+          "faults": DURABLE_FAULTS, "wall_s": wall, "summary": summary,
+          "mttr_s": summary["mttr_s"], "ticks_lost": summary["ticks_lost"],
+          "restarts": summary["restarts"], "worker_events": fired,
+          "quarantined": quarantined, "saves": saves,
+          "ckpt_bytes_written": sum(x["bytes"] for x in saves),
+          "restored_tick": tick, "worker_device": result["device"],
+          "worker_launches": result["launches"],
+          "final_carry_bit_equal": all(equal.values())})
+    problems = []
+    if not (summary["ok"] and summary["restarts"] == 2
+            and summary["final_tick"] == spec.n_ticks):
+        problems.append(f"summary {summary}")
+    if "rollback" not in fired or \
+            summary["ticks_lost"] > 2 * spec.save_every:
+        problems.append(f"events {fired}, ticks lost "
+                        f"{summary['ticks_lost']}")
+    if not quarantined:
+        problems.append("no quarantined step")
+    if result["device"] not in ("cuda", "cuda:0"):
+        problems.append(f"worker device {result['device']}")
+    if any(v != per_kernel for v in worker_k2.values()):
+        problems.append(f"worker K2 launches {worker_k2}, designed "
+                        f"{per_kernel} each")
+    bad = [k for k, ok in equal.items() if not ok]
+    if bad or tick != spec.n_ticks:
+        problems.append(f"leaves differ from the reference run: {bad[:8]} "
+                        f"(restored tick {tick})")
+    if problems:
+        raise AssertionError("supervised: " + "; ".join(problems))
+    return summary
+
+
+def phase_megabatch_resume(torch):
+    """``train_batched(megabatch=True, use_fused_update=True)`` at the
+    reduced Qwen2-7B config, snapshotted mid-way through its iterations
+    (every cell unfinished), saved with
+    ``save_batched``, restored with ``restore_batched(megabatch=True)``
+    and resumed at its tick: bit for bit the uninterrupted run, with K1
+    launched once a tick in both."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.train.trainer import (default_n_ticks, restore_batched,
+                                           save_batched, train_batched)
+
+    args = launch.parse_args(["--config", "qwen2_7b", "--batched",
+                              "--megabatch", "--fused-update", "--seeds",
+                              "2", "--iterations", "6", "--device", "cuda"])
+    tr = launch.build_trainer(args)
+    scenarios = [tr._scenario(tr.strategy, args.iterations, "s")]
+    n_ticks = default_n_ticks(args.iterations)
+    half = args.iterations // 2          # mid-way through the iterations
+    kw = dict(megabatch=True, use_fused_update=True, device="cuda",
+              batch_seed=tr.seed)
+    path = os.path.join(DURABLE_DIR, "megabatch.npz")
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    straight = train_batched(tr.job, scenarios, args.seeds,
+                             n_ticks=n_ticks, snapshot_every=half, **kw)
+    straight_k1 = ops.launch_counts()["elastic_sgd_update"]
+    tick = save_batched(path, straight, index=0)
+    state, tick_back = restore_batched(path, tr.job, scenarios, args.seeds,
+                                       megabatch=True, device="cuda")
+    ops.reset_launch_counts()
+    resumed = train_batched(tr.job, scenarios, args.seeds, n_ticks=n_ticks,
+                            init_state=state, tick0=tick_back, **kw)
+    resumed_k1 = ops.launch_counts()["elastic_sgd_update"]
+    wall = time.perf_counter() - t0
+    equal = {f: bool(np.array_equal(getattr(resumed, f),
+                                    getattr(straight, f), equal_nan=True))
+             for f in ("errors", "costs", "times", "ys", "iterations",
+                       "total_time", "total_cost", "total_idle")}
+    equal.update({k: bool(torch.equal(resumed.final_model[k],
+                                      straight.final_model[k]))
+                  for k in ("p", "v")})
+    unfinished = int((straight.snapshots.j[:, :, 0].cpu().numpy()
+                      < straight.J[:, None]).sum())
+    emit({"phase": "megabatch_resume", "config": "qwen2-7b reduced",
+          "n_ticks": n_ticks, "split_at_tick": tick,
+          "cells_unfinished_at_split": unfinished,
+          "k1_launches": {"straight": straight_k1, "resumed": resumed_k1},
+          "ckpt_bytes": os.path.getsize(path), "wall_s": wall,
+          "bit_equal": equal})
+    if not all(equal.values()) or tick != tick_back or unfinished == 0 \
+            or straight_k1 != n_ticks or resumed_k1 != n_ticks - tick:
+        raise AssertionError(f"megabatch_resume: {equal}, ticks {tick}/"
+                             f"{tick_back}, unfinished {unfinished}, K1 "
+                             f"{straight_k1}/{resumed_k1} of {n_ticks}/"
+                             f"{n_ticks - tick}")
+
+
+def phase_durable(torch, smi):
+    """Slice 9's phases; returns the K2 rows at the durable path's shape.
+    The run directory goes at the end, whatever happened."""
+    spec, job, _, _ = durable_workload()
+    try:
+        phase_durable_disk(job)
+        reference, ref_run_s, launches = phase_durable_reference(torch)
+        free(torch)
+        # the 256-patch prefix and the text's tokens after the shift
+        s_total = spec.seq_len - 1
+        shape = (spec.global_batch, s_total, s_total, job.model.num_heads,
+                 job.model.num_kv_heads, job.model.resolved_head_dim, True,
+                 None, 0)
+        k2_rows = phase_k2_at_path_shape(
+            torch, smi, launches, 1e3 * ref_run_s / spec.n_ticks,
+            job.model.num_layers, shape=shape, phase="k2_at_durable_shape",
+            per_kernel_plain=True)
+        free(torch)
+        phase_durable_clean(torch, reference, ref_run_s)
+        free(torch)
+        phase_supervised(torch, reference)
+        del reference
+        phase_megabatch_resume(torch)
+        free(torch)
+        return k2_rows
+    finally:
+        shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+
+
 def free(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -1994,6 +2427,8 @@ def main() -> int:
     phase_sweep(torch)
     phase_resume(torch, fig3)
     phase_bidserve(torch)
+    free(torch)
+    phase_durable(torch, smi)
     emit({"phase": "total", "seconds": time.perf_counter() - t_main})
     emit({"kernels": [k1] + k2 + k3})
     print(smi, flush=True)

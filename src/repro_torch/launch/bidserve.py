@@ -77,7 +77,7 @@ def run(args) -> dict:
     if args.mesh or args.devices:
         raise not_ported("bidserve --mesh/--devices", "mesh")
     if args.jit_cache is not None:
-        raise not_ported("bidserve --jit-cache", "launch")
+        raise not_ported("bidserve --jit-cache", "jitcache")
     from repro_torch.core.cost_model import RuntimeModel
     from repro_torch.device import exact_float32
     from repro_torch.service import (BidServer, JobSpec, ServeConfig,

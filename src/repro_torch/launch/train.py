@@ -1,13 +1,21 @@
 """Training launcher: the paper's experiment on the card.
 
-``--batched --megabatch [--fused-update]`` trains a strategy × ``--seeds``
-grid of replicas of a real model under the simulated spot market (the
-full pipeline: strategy → bids → preemptions → masked SGD → cost
-accounting) through ``trainer.train_batched(megabatch=True)``, and prints
-the per-scenario JSON summary. The other modes of the reference launcher
-(the legacy loop, the dry run, meshes, the supervisor, and with it the
-bf16 zoo path behind ``--param-dtype``) come with later slices of the
-port; the zoo path itself is ``trainer.train_zoo``.
+Modes:
+* ``--batched [--megabatch [--fused-update]]`` trains a strategy ×
+  ``--seeds`` grid of replicas of a real model under the simulated spot
+  market (the full pipeline: strategy → bids → preemptions → masked SGD →
+  cost accounting) through ``trainer.train_batched`` — per cell, or
+  replica-blocked with ``--megabatch`` — and prints the per-scenario JSON
+  summary.
+* ``--local`` runs the legacy per-iteration loop (``ElasticTrainer.run``).
+* ``--supervise --run-dir D`` pins the workload as a ``WorkerSpec`` and
+  runs durable training under the self-healing supervisor
+  (``launch/supervisor.py``): a worker subprocess, a heartbeat watchdog,
+  restarts from the newest valid checkpoint. ``--param-dtype bfloat16``
+  selects the zoo's mixed-precision program there.
+
+The reference's dry run, ``--mesh`` and ``--jit-cache`` raise naming the
+slice they come with.
 
 Example (one H100, full-width Qwen2-7B at two layers):
   PYTHONPATH=src python -m repro_torch.launch.train --config qwen2_7b \\
@@ -18,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -27,6 +36,7 @@ from repro_torch.core import convergence as conv
 from repro_torch.core import strategies as strat
 from repro_torch.core.cost_model import (RuntimeModel, TruncGaussianPrice,
                                          UniformPrice)
+from repro_torch.sim import engine
 from repro_torch.sim.cluster import VolatileCluster
 from repro_torch.sim.spot_market import (IIDPrices, SpotMarket, TracePrices,
                                          synthetic_history)
@@ -63,9 +73,20 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run the FULL arch config (real widths/vocab) at "
                          "N layers instead of the reduced smoke variant")
     ap.add_argument("--param-dtype", default=None,
-                    help="override the model param/activation dtype; the "
-                         "megabatch path takes float32 only (bf16 zoo "
-                         "training comes with --supervise, a later slice)")
+                    help="override the model param/activation dtype (e.g. "
+                         "bfloat16 — implies the zoo mixed-precision "
+                         "program, which runs under --supervise)")
+    ap.add_argument("--zoo", action="store_true",
+                    help="train through the zoo program (trainer.train_zoo:"
+                         " mixed-precision carries, bf16 checkpoints) in "
+                         "the supervised worker")
+    ap.add_argument("--jit-cache", nargs="?", const="", default=None,
+                    metavar="DIR",
+                    help="the reference's persistent compilation cache "
+                         "(not ported: raises)")
+    ap.add_argument("--local", action="store_true",
+                    help="the legacy per-iteration loop "
+                         "(ElasticTrainer.run) with the simulated market")
     ap.add_argument("--strategy", default="optimal-two-bids",
                     choices=["no-interruptions", "optimal-one-bid",
                              "optimal-two-bids", "dynamic-bids"])
@@ -80,7 +101,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batched", action="store_true",
                     help="batched engine: strategy × --seeds replicas "
-                         "trained together (the only mode ported so far)")
+                         "trained together (implies --local)")
     ap.add_argument("--seeds", type=int, default=4,
                     help="number of market seeds for --batched")
     ap.add_argument("--megabatch", action="store_true",
@@ -90,6 +111,30 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--fused-update", action="store_true",
                     help="apply the elastic SGD update with the fused "
                          "CUDA kernel (requires --megabatch)")
+    ap.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="shard the grid over N devices (not ported: "
+                         "raises)")
+    ap.add_argument("--supervise", action="store_true",
+                    help="run durable batched training under the "
+                         "self-healing supervisor (subprocess worker, "
+                         "heartbeat watchdog, restart-on-crash; requires "
+                         "--run-dir)")
+    ap.add_argument("--run-dir", default=None,
+                    help="supervisor run directory (spec, checkpoints, "
+                         "heartbeat, recovery log)")
+    ap.add_argument("--save-every", type=int, default=8,
+                    help="durable checkpoint cadence in ticks (--supervise)")
+    ap.add_argument("--n-ticks", type=int, default=64,
+                    help="market-tick budget of the durable run "
+                         "(--supervise)")
+    ap.add_argument("--keep-last", type=int, default=3,
+                    help="checkpoint steps retained by GC (--supervise)")
+    ap.add_argument("--fault-plan", default=None,
+                    help="chaos FaultPlan JSON to inject (--supervise)")
+    ap.add_argument("--max-restarts", type=int, default=8)
+    ap.add_argument("--hang-timeout", type=float, default=120.0)
+    ap.add_argument("--devices", type=int, default=0,
+                    help="show the supervised worker the first N cards")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where to train (default cuda; without a card "
                          "the run fails rather than falling back)")
@@ -107,18 +152,27 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         args.arch = arch
     if args.param_dtype and args.param_dtype not in ("float32", "fp32",
                                                      "f32"):
-        ap.error("--param-dtype other than float32 reaches the zoo "
-                 "mixed-precision program only under --supervise, which "
-                 "comes with the supervisor slice of the port (in Python, "
-                 "trainer.train_zoo runs it now)")
+        args.zoo = True           # mixed precision needs the zoo carry
+    if args.supervise:
+        if args.run_dir is None:
+            ap.error("--supervise requires --run-dir")
+        return args
+    if args.zoo:
+        ap.error("--param-dtype other than float32 and --zoo train the zoo "
+                 "program, which the launcher runs under --supervise (in "
+                 "Python, trainer.train_zoo runs it directly)")
     if args.fused_update and not args.megabatch:
         ap.error("--fused-update requires --megabatch")
     if args.megabatch and not args.batched:
         ap.error("--megabatch requires --batched")
-    if not (args.batched and args.megabatch):
-        ap.error("only --batched --megabatch is ported so far (the legacy "
-                 "loop, the vmapped path and the dry run come with later "
-                 "slices)")
+    if args.mesh is not None and not args.batched:
+        ap.error("--mesh requires --batched")
+    if args.batched:
+        args.local = True
+    if not args.local:
+        ap.error("the dry run (no --local, --batched or --supervise) "
+                 "lowers for a mesh, which comes with the mesh slice of "
+                 "the port")
     return args
 
 
@@ -159,10 +213,55 @@ def build_trainer(args: argparse.Namespace):
                           seed=args.seed, device=args.device)
 
 
+def supervise(args: argparse.Namespace) -> Dict:
+    """--supervise: pin the workload as a WorkerSpec in the run dir and
+    hand it to the self-healing supervisor; returns its summary."""
+    from repro_torch.launch import supervisor as sup_mod
+    from repro_torch.launch.workload import WorkerSpec
+
+    # one two-bid fleet per strategy flavor: high/low split bids around
+    # the uniform price band, matching the paper's two-bid policies
+    n = args.workers
+    bids = tuple(tuple([hi] * (n // 2) + [lo] * (n - n // 2))
+                 for hi, lo in ((0.9, 0.5), (0.8, 0.6), (1.0, 0.4)))
+    spec = WorkerSpec(arch=args.arch, n_workers=n, seq_len=args.seq,
+                      global_batch=args.batch, bids=bids,
+                      iterations=args.iterations or 12,
+                      seeds=args.seeds, n_ticks=args.n_ticks,
+                      save_every=args.save_every,
+                      keep_last=args.keep_last,
+                      mesh=args.mesh or 0, seed=args.seed,
+                      reduce_depth=args.reduce_depth,
+                      param_dtype=args.param_dtype,
+                      zoo=args.zoo)
+    sup_mod.check_spec(spec)
+    os.makedirs(args.run_dir, exist_ok=True)
+    spec.save(os.path.join(args.run_dir, sup_mod.SPEC_NAME))
+    if args.fault_plan:
+        from repro_torch.chaos import FaultPlan
+        FaultPlan.load(args.fault_plan).save(
+            os.path.join(args.run_dir, sup_mod.PLAN_NAME))
+
+    sup = sup_mod.Supervisor(args.run_dir, sup_mod.SupervisorConfig(
+        max_restarts=args.max_restarts, hang_timeout=args.hang_timeout,
+        devices=args.devices, seed=args.seed, device=args.device))
+    return sup.run()
+
+
 def run(args: argparse.Namespace) -> Tuple[object, Dict]:
-    """Train as the flags say; returns (``BatchResult``, the summary the
-    CLI prints)."""
+    """Train as the flags say; returns (the ``BatchResult`` of a batched
+    run, else None; the summary the CLI prints)."""
+    if args.jit_cache is not None:
+        raise engine.not_ported("--jit-cache", "jitcache")
+    if args.mesh is not None:
+        raise engine.not_ported("--mesh", "mesh")
+    if args.supervise:
+        return None, supervise(args)
     trainer = build_trainer(args)
+    if not args.batched:
+        summary = trainer.run(iterations=args.iterations)
+        del summary["log"]
+        return None, summary
     res = trainer.run_batched(seeds=args.seeds, iterations=args.iterations,
                               megabatch=args.megabatch,
                               use_fused_update=args.fused_update)
@@ -175,9 +274,10 @@ def run(args: argparse.Namespace) -> Tuple[object, Dict]:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    _, out = run(parse_args(argv))
+    args = parse_args(argv)
+    _, out = run(args)
     print(json.dumps(out, indent=1, default=float))
-    return 0
+    return 0 if not args.supervise or out["ok"] else 1
 
 
 if __name__ == "__main__":

@@ -60,12 +60,10 @@ PRICE_UNIFORM, PRICE_TRUNC_GAUSS, PRICE_TRACE, PRICE_EMPIRICAL = 0, 1, 2, 3
 PRICE_TRACE_TICK = 4
 
 _LATER = {
-    "vmapped": "the vmapped/legacy slice (ElasticTrainer.run, "
-               "train_batched(megabatch=False) and make_train_program)",
-    "snapshots": "the snapshots/tick0-resume/checkpointing slice",
     "mesh": "the mesh slice",
-    "launch": "the launch and chaos slice (chaos/, launch/{workload,"
-              "supervisor,jitcache}.py)",
+    "jitcache": "the mesh slice's launch/jitcache.py (a persistent "
+                "compilation cache; the port builds its kernels once into "
+                "_build/)",
 }
 
 
@@ -609,6 +607,9 @@ class EngineResult:
     snapshot_ticks: Optional[np.ndarray] = None  # (n_snap,): snapshot i is
     #                              the carry after tick snapshot_ticks[i]
     #                              (resume passes it as tick0)
+    final_state: Optional["SimState"] = None  # the final carry itself, on
+    #                              the device: a resume from the end of
+    #                              this run needs no snapshot copy
 
     @property
     def losses(self) -> np.ndarray:
@@ -966,7 +967,7 @@ def _engine_result(final: SimState, snaps: Optional[SimState],
         total_time=host(final.t), total_cost=host(final.total_cost),
         total_idle=host(final.total_idle),
         J=host(scenarios.J), final_model=final.model, snapshots=snaps,
-        snapshot_ticks=snap_ticks)
+        snapshot_ticks=snap_ticks, final_state=final)
 
 
 @functools.lru_cache(maxsize=None)

@@ -21,7 +21,7 @@ Full width (Qwen2-7B, P ≈ 1.56e9 per replica) sets the memory design: p
 and v are updated in place, and each leaf's gradient is written straight
 into a view of one (R, P) gradient buffer that the step allocates once and
 reuses — p, v and g are the only replica-sized buffers. The embedding is a
-gather forward and an ``index_add_`` backward (a one-hot product at
+gather forward and a scatter-add backward (a one-hot product at
 V = 152064 would cost 1.2 GB and 2.2 TFLOP per replica), the gold-token
 term of the cross-entropy gradient is subtracted at its index, and the
 attention products are ``einsum`` calls rather than broadcast products.
@@ -370,7 +370,9 @@ def _bwd(p, cfg: ModelConfig, tok2, labels2, w2, res, dims, grads):
         dx = dx1 + _rms_bwd(dh1, p[("ln1", l)], xh1, inv1)
     g_embed = grads[("embed", -1)]
     for r in range(rt):
-        g_embed[r].zero_().index_add_(0, tok2[r], dx[r])
+        # accumulate=True sorts the token ids first, so the sums run in one
+        # order on every run; index_add_'s atomics on the card do not
+        g_embed[r].zero_().index_put_((tok2[r],), dx[r], accumulate=True)
 
 
 def _weights(masks, b: int, s: int, label_mask=None):

@@ -5,7 +5,10 @@ beside their CUDA-core counterparts; K2 at head_dims other than 64 and 128
 through its zero-padding entry point), the engine's random bits and RNG-free market on CUDA against
 the CPU, the quadratic oracle on the card against the CPU and its snapshot
 resume, a small megabatched run through K1, small zoo runs through K2
-(float32 and bf16) and a small Mamba2 served through K3.
+(float32 and bf16), a small Mamba2 served through K3, and durable
+training: a megabatch snapshot/save/restore/resume and a bf16 durable
+``train_zoo`` resume through K2, bit for bit, and checkpoint round trips
+of tensors on the card.
 
 Every test here needs an NVIDIA GPU and skips itself elsewhere. The file
 imports neither ``jax`` nor the reference, so it runs on a machine that
@@ -990,3 +993,140 @@ def test_snapshot_resume_on_cuda_is_bitexact(cuda_device, every, index):
             np.testing.assert_array_equal(getattr(res, f),
                                           getattr(straight, f), err_msg=f)
         assert torch.equal(res.final_model, straight.final_model)
+
+
+# ------------------------------------------------------- durable training
+
+
+def _stochastic_scenarios(n_workers=4):
+    """Random prices and exp runtimes: the market draws every tick."""
+    bids = [0.9] * (n_workers // 2) + [0.5] * (n_workers - n_workers // 2)
+    return [engine.Scenario(price=engine.PriceSpec.uniform(0.2, 1.0),
+                            alpha=0.1, bid_schedule=np.tile(bids, (8, 1)),
+                            rt_kind="exp", rt_lam=2.0, rt_delta=0.05,
+                            idle_step=0.5, name="s0")]
+
+
+def _bits(x):
+    x = x.detach().contiguous().cpu()
+    if x.dtype == torch.bfloat16:
+        x = x.view(torch.int16)
+    return x.numpy().tobytes()
+
+
+def _assert_same_bits(a, b):
+    from repro_torch.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert _bits(x) == _bits(y)
+
+
+def test_megabatch_snapshot_save_restore_resume_is_bitexact(cuda_device,
+                                                            tmp_path):
+    """The megabatch program through K1 on a market that draws: a second
+    run repeats the first bit for bit, and a run snapshotted mid-way,
+    saved, restored into fresh buffers and resumed at its tick lands on
+    the same bits, K1 launched once a tick in each."""
+    from repro_torch.train.trainer import restore_batched, save_batched
+
+    job = _job()
+    kw = dict(megabatch=True, use_fused_update=True, device=cuda_device)
+    ops.reset_launch_counts()
+    straight = train_batched(job, _stochastic_scenarios(), [0, 5],
+                             n_ticks=24, snapshot_every=4, **kw)
+    assert ops.launch_counts()["elastic_sgd_update"] == 24
+    again = train_batched(job, _stochastic_scenarios(), [0, 5], n_ticks=24,
+                          **kw)
+    _assert_same_bits(again.final_model, straight.final_model)
+    path = str(tmp_path / "mega.npz")
+    assert save_batched(path, straight, index=0) == 4
+    state, tick = restore_batched(path, job, _stochastic_scenarios(),
+                                  [0, 5], megabatch=True,
+                                  device=cuda_device)
+    assert state.model["p"].is_cuda and tick == 4
+    ops.reset_launch_counts()
+    resumed = train_batched(job, _stochastic_scenarios(), [0, 5],
+                            n_ticks=24, init_state=state, tick0=tick, **kw)
+    assert ops.launch_counts()["elastic_sgd_update"] == 20
+    for f in ("errors", "costs", "times", "ys", "iterations", "total_time",
+              "total_cost", "total_idle"):
+        np.testing.assert_array_equal(getattr(resumed, f),
+                                      getattr(straight, f), err_msg=f)
+    _assert_same_bits(resumed.final_model, straight.final_model)
+
+
+def test_bf16_durable_train_zoo_resume_through_k2(cuda_device, tmp_path):
+    """A bf16 zoo run with K2 at full width and two layers (InternVL2-1B's
+    heads: 14 q, 2 kv, head_dim 64), killed after its first chunk (a
+    shorter first call) and resumed from its step directory in fresh
+    buffers: bit for bit the uninterrupted run, the tensor-core kernels
+    launched once a layer, cell and tick, a NaN chunk rolled back."""
+    from repro_torch.chaos import Fault, FaultInjector, FaultLedger, FaultPlan
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import train_zoo
+
+    cfg = ARCHS["internvl2-1b"].with_(
+        num_layers=2, vocab_size=4096, dtype="bfloat16",
+        param_dtype="bfloat16", use_flash_attention=True)
+    job = JobConfig(model=cfg, shape=InputShape("t", 384, 8, "train"),
+                    n_workers=8, learning_rate=0.01)
+    scenarios = _stochastic_scenarios(8)
+    ops.reset_launch_counts()
+    full = train_zoo(job, scenarios, [0], n_ticks=12, device=cuda_device)
+    counts = ops.launch_counts()
+    for name in ("flash_attention_fwd_tc", "flash_attention_bwd_delta",
+                 "flash_attention_bwd_dkdv_tc", "flash_attention_bwd_dq_tc"):
+        assert counts[name] == 2 * 12, name
+    assert counts["flash_attention_fwd"] == counts[
+        "flash_attention_bwd_dq"] == 0
+    root = str(tmp_path / "ckpt")
+    kw = dict(checkpoint_path=root, save_every=4, keep_last=2,
+              nan_guard=True, device=cuda_device)
+    train_zoo(job, scenarios, [0], n_ticks=4, **kw)
+    inj = FaultInjector(FaultPlan((Fault("nan", at_tick=8),)),
+                        FaultLedger(str(tmp_path / "fired.json")))
+    resumed = train_zoo(job, scenarios, [0], n_ticks=12, hooks=inj, **kw)
+    assert [e["fault"] for e in inj.events] == ["nan", "rollback"]
+    assert ckpt.list_steps(root) == [8, 12]
+    for f in ("errors", "costs", "times", "ys", "iterations", "total_cost"):
+        np.testing.assert_array_equal(getattr(resumed, f),
+                                      getattr(full, f), err_msg=f)
+    _assert_same_bits(resumed.final_state, full.final_state)
+
+
+def test_checkpoint_roundtrip_of_cuda_tensors(cuda_device, tmp_path):
+    """bf16, float32 and int64 tensors on the card: saved as the
+    reference's format (bf16 as uint16 bits under ``__bf16__``) and
+    restored onto the card, bit for bit, in fresh contiguous buffers."""
+    from repro_torch.train import checkpoint as ckpt
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tree = {"p": torch.randn(5, 7, generator=g, device="cuda").to(
+        torch.bfloat16), "m": (torch.randn(4, generator=g, device="cuda"),
+                               torch.arange(6, device="cuda")),
+            "strided": torch.randn(8, 6, generator=g,
+                                   device="cuda").t()[::2]}
+    tree["p"][0, 0] = float("nan")
+    path = str(tmp_path / "c.npz")
+    ckpt.save(path, tree, 9)
+    with np.load(path) as f:
+        assert f["__bf16__"].tolist() == ["['p']"]
+        assert f["['p']"].dtype == np.uint16
+        assert f["['p']"].tobytes() == _bits(tree["p"])
+    like = {"p": torch.zeros(5, 7, dtype=torch.bfloat16, device="cuda"),
+            "m": (torch.zeros(4, device="cuda"),
+                  torch.zeros(6, dtype=torch.int64, device="cuda")),
+            "strided": torch.zeros(3, 8, device="cuda")}
+    got, step = ckpt.restore(path, like)
+    assert step == 9
+    assert got["p"].is_cuda and got["strided"].is_contiguous()
+    _assert_same_bits(got, tree)
+    want = tree["m"][0].clone()
+    with ckpt.AsyncCheckpointWriter() as w:
+        w.submit(str(tmp_path / "a.npz"), tree, 10)
+        tree["m"][0].add_(1.0)      # the writer holds its own host copy
+    got, _ = ckpt.restore(str(tmp_path / "a.npz"), like)
+    assert _bits(got["m"][0]) == _bits(want)

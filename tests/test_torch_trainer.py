@@ -140,19 +140,23 @@ def test_run_batched_trains_and_builds_no_model_up_front():
 
 
 def test_unported_paths_raise_naming_their_slice():
+    """Only the mesh is left unported on the trainer's paths; the legacy
+    loop, the per-cell program and snapshots run (their parity lives in
+    tests/test_torch_durable.py)."""
     tr = _trainer(device="cpu")
-    with pytest.raises(NotImplementedError, match="vmapped"):
-        tr.run(iterations=2)
-    with pytest.raises(NotImplementedError, match="vmapped"):
-        tr.run_batched(seeds=1, iterations=2, megabatch=False)
     with pytest.raises(NotImplementedError, match="mesh"):
         tr.run_batched(seeds=1, iterations=2, megabatch=True, mesh=object())
-    with pytest.raises(NotImplementedError, match="snapshots"):
-        tr.run_batched(seeds=1, iterations=2, megabatch=True,
-                       snapshot_every=2)
-    with pytest.raises(NotImplementedError, match="snapshots"):
-        train_batched(tr.job, [tr._scenario(tr.strategy, 2, "s")], 1,
-                      megabatch=True, tick0=3, device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        trainer.train_batched_durable(
+            tr.job, [tr._scenario(tr.strategy, 2, "s")], 1, mesh=object(),
+            checkpoint_path="unused.npz", save_every=1, device="cpu")
+    res = tr.run_batched(seeds=1, iterations=2, megabatch=True,
+                         snapshot_every=2)
+    assert res.result.snapshot_ticks[0] == 2
+    res = train_batched(tr.job, [tr._scenario(tr.strategy, 2, "s")], 1,
+                        megabatch=False, n_ticks=3, device="cpu")
+    assert np.isfinite(res.losses[0, 0, :res.iterations[0, 0]]).all()
+    assert tr.run(iterations=2)["iterations"] == 2
 
 
 def test_default_device_without_cuda_raises(monkeypatch):
@@ -189,12 +193,17 @@ def test_launcher_cpu_run_prints_summary_without_jax():
 
 
 def test_launcher_refuses_unported_modes():
-    from repro_torch.launch.train import parse_args
+    from repro_torch.launch.train import parse_args, run
 
-    for argv in (["--batched"], ["--megabatch"], [],
-                 ["--batched", "--megabatch", "--param-dtype", "bfloat16"]):
+    for argv in (["--megabatch"], [], ["--fused-update", "--batched"],
+                 ["--batched", "--megabatch", "--param-dtype", "bfloat16"],
+                 ["--supervise"]):
         with pytest.raises(SystemExit):
             parse_args(argv)
+    for argv, slice_ in ((["--batched", "--mesh", "2"], "mesh"),
+                         (["--local", "--jit-cache"], "launch/jitcache")):
+        with pytest.raises(NotImplementedError, match=slice_):
+            run(parse_args(argv + ["--device", "cpu"]))
 
 
 def _imports(path):

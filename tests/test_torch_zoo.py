@@ -376,10 +376,10 @@ def test_zoo_without_cuda_raises(monkeypatch):
 
 def test_unported_zoo_paths_raise_naming_their_slice():
     job, _ = _jobs()
-    with pytest.raises(NotImplementedError, match="snapshots"):
-        trainer.train_zoo(job, [_trace_scenario(engine)], seeds=[0],
-                          checkpoint_path="ckpt.npz", save_every=2,
-                          device="cpu")
+    for kw in ({}, dict(checkpoint_path="ckpt.npz", save_every=2)):
+        with pytest.raises(NotImplementedError, match="mesh"):
+            trainer.train_zoo(job, [_trace_scenario(engine)], seeds=[0],
+                              mesh=object(), device="cpu", **kw)
     params = init_zoo_state(job.model, job, 0, device="cpu")[0]
     x = torch.zeros(1, 4, 64)
     qpos = torch.arange(4)[None]
