@@ -97,7 +97,23 @@ Phases, each printing one JSON line and raising on failure:
    K2, the newest step bit for bit the first run's final carry; wall
    seconds, MTTR, bytes written); and the reduced Qwen2-7B megabatch grid
    through K1 snapshotted mid-way, saved, restored and resumed, bit for
-   bit the straight run.
+   bit the straight run;
+8. slice 10's path, serving the decoder-only transformer at full width in
+   bf16 (parameters, activations and caches; no kernel of the repo lies
+   on it, and each run's launch counts must stay 0): Qwen2-7B as
+   published (``serve_dense``) and DeepSeek-V2-Lite as the repo's config
+   gives it (MLA's latent cache, 64 routed experts top-6 plus 2 shared;
+   ``serve_moe_mla``), each through ``prefill_prompt`` (batch 8, a
+   2048-token prompt) and ``greedy_decode`` (32 generated tokens), twice.
+   Checks the tokens' range and their bit-equality across the two runs,
+   finite caches whose positions hold 0..2078, finite prefill logits
+   whose argmax is the first token, and prefill-then-decode against one
+   longer prefill (2048 + 32 against 2080 positions; in bf16, and in
+   float32 at depth 2); reports set-up seconds, prefill and decode times,
+   tokens per second, peak memory and cache bytes, one decode step under
+   ``torch.profiler``, and for DeepSeek-V2-Lite its latent cache beside
+   a full K/V cache and the share of routed assignments that capacity
+   drops in the prefill and in a decode step.
 
 Then the ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout,
@@ -2374,6 +2390,326 @@ def phase_durable(torch, smi):
         shutil.rmtree(DURABLE_DIR, ignore_errors=True)
 
 
+# ------------------------------------------------------------ slice 10
+
+#: slice 10: serving the decoder-only transformer at full width in its
+#: configs' own dtypes (bf16 parameters, activations and caches; positions
+#: int32): Qwen2-7B as published (configs/qwen2_7b.py, arXiv:2407.10671;
+#: 28 layers, d_model 3584, 28 q / 4 kv heads of 128, d_ff 18944, vocab
+#: 152064, QKV bias) and DeepSeek-V2-Lite as the repo gives it
+#: (configs/deepseek_v2_lite_16b.py, arXiv:2405.04434; 27 layers, d_model
+#: 2048, 16 heads, MLA with kv_lora_rank 512 and rope 64, 64 routed experts
+#: top-6 plus 2 shared), batch 8, a 2048-token prompt, 32 generated
+#: tokens, weights and prompt drawn from the seed
+SERVE_TF = {"archs": ("qwen2-7b", "deepseek-v2-lite-16b"), "batch": 8,
+            "prompt": 2048, "gen": 32, "seed": 0}
+#: prefill-then-decode against one longer prefill (2048 + 32 against 2080
+#: positions): max |logit difference| over the largest |logit|. In bf16 at
+#: full depth the two run the same function through GEMMs of other shapes
+#: (M = 8 a decode step against M = 16,640), whose bf16 outputs round at
+#: other places, and every layer's bf16 residual carries that on: 5e-2
+#: for the dense model (measured on an H100: 1.7e-2). The MoE model's
+#: bf16 error is reported, not held: rounding that differs flips its
+#: near-tied top-6 of 64 experts for some tokens, a discrete change of
+#: their hidden state (measured 0.24, top-1 agreement 87 %; the share of
+#: routings that differ is reported beside it). Both are held in float32
+#: at full width and depth 2 within the reference tests' 2e-3
+#: (tests/test_prefill.py; measured 2.4e-5 and 2.0e-5).
+TF_DECODE_TOL = {"bfloat16": 5e-2, "float32_abs": 2e-3}
+#: the depth of the float32 prefill-then-decode check
+TF_F32_DEPTH = 2
+
+
+def tf_serve_model(torch, arch):
+    """A served transformer: its full-width config, bf16 parameters on the
+    card (the router float32, as its spec says) and the prompt, both from
+    ``SERVE_TF["seed"]``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import init_params
+
+    cfg = get_config(arch)
+    params = init_params(model_zoo.param_defs(cfg), SERVE_TF["seed"],
+                         torch.bfloat16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_TF["seed"])
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (SERVE_TF["batch"], SERVE_TF["prompt"]),
+                           generator=gen, device="cuda")
+    return cfg, params, prompt
+
+
+def tf_fresh_caches(torch, cfg):
+    """A fresh cache tree for the served batch in the config's dtype:
+    zeros, positions −1 (int32)."""
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import init_params
+
+    return init_params(
+        model_zoo.cache_defs(cfg, SERVE_TF["batch"],
+                             SERVE_TF["prompt"] + SERVE_TF["gen"]),
+        SERVE_TF["seed"], cfg.resolved_param_dtype(), device="cuda")
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+@contextlib.contextmanager
+def recorded_routes(record: list):
+    """Within the block, every `moe._route` call appends its top-k expert
+    indices to ``record``."""
+    from repro_torch.models import moe
+
+    route = moe._route
+
+    def recording(x2d, router, moe_cfg):
+        out = route(x2d, router, moe_cfg)
+        record.append(out[0])
+        return out
+
+    moe._route = recording
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+def tf_decode_vs_longer_prefill(torch, cfg, params, prompt, tokens):
+    """The prefill's last logits and 31 decode steps fed the path's tokens,
+    against one prefill of the 2080 tokens: the worst |difference|, the
+    same over the largest |logit|, the share of positions whose argmax
+    agrees where the longer prefill's top two differ, and for an MoE model
+    the share of (layer, token) routings whose expert set differs between
+    the decode steps and the longer prefill. The MoE model runs at a
+    capacity of every token an expert (capacity_factor E / top_k): at the
+    configured factor a decode step (capacity 1) drops assignments that a
+    prefill keeps, by the reference's design."""
+    from repro_torch.models import model_zoo
+
+    if cfg.moe is not None:
+        cfg = cfg.with_(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    plen, n_gen = SERVE_TF["prompt"], SERVE_TF["gen"]
+    routes = {"decode": [], "long": []}
+    with torch.no_grad():
+        logits, caches = model_zoo.prefill(params, cfg, {"tokens": prompt},
+                                           tf_fresh_caches(torch, cfg))
+        steps = [logits[:, -1].float()]
+        del logits
+        with recorded_routes(routes["decode"]):
+            for g in range(n_gen - 1):
+                lg, caches = model_zoo.decode_step(
+                    params, cfg, tokens[:, g:g + 1], caches, plen + g)
+                steps.append(lg[:, 0].float())
+        del caches
+        got = torch.stack(steps, dim=1)
+        with recorded_routes(routes["long"]):
+            long, _ = model_zoo.prefill(
+                params, cfg, {"tokens": torch.cat([prompt, tokens], dim=1)},
+                tf_fresh_caches(torch, cfg))
+        want = long[:, plen - 1:plen + n_gen - 1].float()
+        del long
+    err = float((got - want).abs().max())
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 0
+    out = {"max_abs_err": err, "rel_err": err / float(want.abs().max()),
+           "top1_agree": float((got.argmax(-1) == want.argmax(-1))[clear]
+                               .float().mean())}
+    if cfg.moe is not None:
+        n_l, b, k = cfg.num_layers, prompt.shape[0], cfg.moe.top_k
+        dec = torch.stack(routes["decode"]).reshape(n_gen - 1, n_l, b, k)
+        lng = torch.stack(routes["long"]).reshape(n_l, b, plen + n_gen, k)
+        differ = (dec.permute(1, 2, 0, 3).sort(-1).values
+                  != lng[:, :, plen:plen + n_gen - 1].sort(-1).values).any(-1)
+        out["routing_differs_share"] = float(differ.float().mean())
+        out["routing_differs_share_layer0"] = float(differ[0].float().mean())
+    return out
+
+
+def tf_drop_shares(torch, cfg, params, prompt, tokens, caches):
+    """The share of routed assignments that capacity drops at layer 0's
+    MoE input (`moe._route` and `moe._dispatch_tables` at the config's
+    capacity factor): in the prefill (from a fresh cache) and in the first
+    decode step (from ``caches``, the path's, whose later positions the
+    causal mask hides)."""
+    from repro_torch.models import mla, moe
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.transformer import embed_tokens
+    from repro_torch.tree import tree_index
+
+    m = cfg.moe
+    lp = tree_index(params["layers"], 0)
+    out = {}
+    with torch.no_grad():
+        for name, toks, c, pos in (
+                ("prefill", prompt, tf_fresh_caches(torch, cfg), 0),
+                ("decode_step", tokens[:, :1], caches, SERVE_TF["prompt"])):
+            x = embed_tokens(params, cfg, toks)
+            b, s, _ = x.shape
+            qpos = pos + torch.arange(s, device=x.device).expand(b, s)
+            a, _ = mla.mla_block(lp["mla"], cfg,
+                                 rms_norm(x, lp["ln1"], cfg.norm_eps), qpos,
+                                 cache=tree_index(c, 0), cache_pos=pos)
+            h = rms_norm(x + a, lp["ln2"], cfg.norm_eps).reshape(b * s, -1)
+            cap = max(1, math.ceil(b * s * m.top_k / m.num_experts
+                                   * m.capacity_factor))
+            topi, topv, _ = moe._route(h, lp["moe"]["router"], m)
+            kept = moe._dispatch_tables(topi, topv, m.num_experts, cap)[2]
+            out[name] = {"capacity": cap, "assignments": b * s * m.top_k,
+                         "dropped_share": 1 - int(kept.sum())
+                         / (b * s * m.top_k)}
+    return out
+
+
+def phase_serve_transformer(torch, arch, smi):
+    """Slice 10's path for ``arch``, twice: ``launch.serve.prefill_prompt``
+    then ``greedy_decode``, each with the launch counts set to 0 just
+    before and read just after (the cached path runs no kernel: its
+    attention is the plain core, as the reference's). Then the prefill's
+    logits, one decode step under ``torch.profiler``, prefill-then-decode
+    against one longer prefill, and for the MoE model the cache's size
+    beside a full K/V cache's and capacity's drop shares."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import init_params
+    from repro_torch.train.train_step import make_serve_step
+    from repro_torch.tree import tree_leaves
+
+    name = "serve_dense" if arch == "qwen2-7b" else "serve_moe_mla"
+    bsz, plen, n_gen = SERVE_TF["batch"], SERVE_TF["prompt"], SERVE_TF["gen"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, prompt = tf_serve_model(torch, arch)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(2):
+        caches = tf_fresh_caches(torch, cfg)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        nxt, caches = serve.prefill_prompt(cfg, params, caches, prompt)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre = ops.launch_counts()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tokens, caches = serve.greedy_decode(cfg, params, caches, nxt, plen,
+                                             n_gen - 1)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        dec = ops.launch_counts()
+        if set(pre.values()) != {0} or set(dec.values()) != {0}:
+            raise AssertionError(f"{name}: launches {pre} in the prefill "
+                                 f"and {dec} in decode (designed none)")
+        if tuple(tokens.shape) != (bsz, n_gen) or not bool(
+                ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+            raise AssertionError(f"{name}: tokens {tuple(tokens.shape)} out "
+                                 f"of range [0, {cfg.vocab_size})")
+        if not all(bool(torch.isfinite(x).all()) for x in tree_leaves(caches)
+                   if x.is_floating_point()):
+            raise AssertionError(f"{name}: non-finite caches after decode")
+        want_pos = torch.arange(plen + n_gen, dtype=torch.int32,
+                                device=caches["pos"].device)
+        want_pos[-1] = -1        # the last generated token is not fed back
+        if not bool((caches["pos"] == want_pos).all()):
+            raise AssertionError(f"{name}: cache positions are not 0.."
+                                 f"{plen + n_gen - 2} and one unwritten")
+        runs.append({"prefill_ms": 1e3 * prefill_s,
+                     "prefill_tokens_per_s": bsz * plen / prefill_s,
+                     "decode_ms_per_step": 1e3 * decode_s / (n_gen - 1),
+                     "generated_tokens_per_s": bsz * (n_gen - 1) / decode_s,
+                     "launches_prefill": pre, "launches_decode": dec,
+                     "tokens": tokens})
+    peak = torch.cuda.max_memory_allocated()
+    same = bool(torch.equal(runs[0]["tokens"], runs[1]["tokens"]))
+    tokens = runs[1].pop("tokens")
+    runs[0].pop("tokens")
+    out = {"phase": name, "entry": "launch.serve.prefill_prompt + "
+           "greedy_decode (make_serve_step)", "serve": SERVE_TF,
+           "config": {"arch": arch, "layers": cfg.num_layers,
+                      "d_model": cfg.d_model, "dtype": "bfloat16",
+                      "params": sum(x.numel() for x in tree_leaves(params))},
+           "init_s": init_s, "init_peak_mem_bytes": init_peak,
+           "runs": runs, "same_tokens_both_runs": same,
+           "peak_mem_bytes": peak, "param_bytes": tree_bytes(params),
+           "cache_bytes": tree_bytes(caches),
+           "sample": tokens[0, :16].tolist()}
+    if cfg.mla is not None:
+        m, hq = cfg.mla, cfg.num_heads
+        out["full_kv_cache_bytes"] = (
+            cfg.num_layers * bsz * (plen + n_gen) * hq
+            * (m.qk_nope_head_dim + m.qk_rope_head_dim + m.v_head_dim) * 2)
+        out["capacity_drops"] = tf_drop_shares(torch, cfg, params, prompt,
+                                               tokens, caches)
+    del caches
+    free(torch)
+
+    # the prefill's logits: prefill_prompt returns only their argmax, so
+    # compute them again (outside the counted window)
+    with torch.no_grad():
+        logits, _ = model_zoo.prefill(params, cfg, {"tokens": prompt},
+                                      tf_fresh_caches(torch, cfg))
+        last = logits[:, -1].float()
+        finite = bool(torch.isfinite(logits).all())
+        del logits
+    top2 = last.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 0
+    agree = bool((last.argmax(-1)[clear] == tokens[clear, 0]).all())
+    out.update(logits_finite=finite, first_token_is_argmax=agree,
+               first_token_rows_compared=int(clear.sum()))
+    free(torch)
+
+    # one decode step under the profiler, from a prefilled cache
+    step = make_serve_step(cfg)
+    nxt, caches = serve.prefill_prompt(cfg, params,
+                                       tf_fresh_caches(torch, cfg), prompt)
+    step(params, caches, nxt, plen)
+    torch.cuda.synchronize()
+    busy, n_ops, top = device_profile(
+        torch, lambda: step(params, caches, nxt, plen))
+    wall = runs[1]["decode_ms_per_step"]
+    out["decode_profile"] = {
+        "device_busy_ms": busy, "wall_ms_unprofiled": wall,
+        "device_idle_share": 1 - busy / wall if busy != "not measured"
+        else "not measured", "device_ops": n_ops, "top5_ms": top}
+    del caches
+    free(torch)
+
+    # prefill then decode against one longer prefill: bf16 at full depth,
+    # then float32 at full width and depth TF_F32_DEPTH
+    bf16 = tf_decode_vs_longer_prefill(torch, cfg, params, prompt, tokens)
+    del params
+    free(torch)
+    cfg32 = cfg.with_(num_layers=TF_F32_DEPTH, dtype="float32",
+                      param_dtype="float32")
+    f32 = tf_decode_vs_longer_prefill(
+        torch, cfg32, init_params(model_zoo.param_defs(cfg32),
+                                  SERVE_TF["seed"], device="cuda"),
+        prompt, tokens)
+    free(torch)
+    held = cfg.moe is None
+    out["decode_vs_longer_prefill"] = {
+        "bfloat16": bf16, "bfloat16_held": held,
+        f"float32_depth_{TF_F32_DEPTH}": f32, "tolerance": TF_DECODE_TOL}
+    out["card"] = smi
+    emit(out)
+    ok_bf16 = bf16["rel_err"] <= TF_DECODE_TOL["bfloat16"] or not held
+    ok_f32 = f32["max_abs_err"] <= TF_DECODE_TOL["float32_abs"]
+    if not (same and finite and agree and ok_bf16 and ok_f32):
+        raise AssertionError(
+            f"{name}: same tokens both runs {same}, prefill logits finite "
+            f"{finite}, first token their argmax {agree}, prefill-then-"
+            f"decode vs longer prefill bf16 {bf16}, float32 {f32} "
+            f"(tolerance {TF_DECODE_TOL})")
+
+
 def free(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -2429,6 +2765,9 @@ def main() -> int:
     phase_bidserve(torch)
     free(torch)
     phase_durable(torch, smi)
+    free(torch)
+    for arch in SERVE_TF["archs"]:
+        phase_serve_transformer(torch, arch, smi)
     emit({"phase": "total", "seconds": time.perf_counter() - t_main})
     emit({"kernels": [k1] + k2 + k3})
     print(smi, flush=True)

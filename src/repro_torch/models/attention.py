@@ -1,9 +1,10 @@
-"""GQA attention: parameter definitions and the full-sequence (training)
-block. Causal and sliding-window masks; with ``cfg.use_flash_attention``
-the attention core is `kernels.ops.flash_mha` (K2 on the card), else the
-plain core `_attend`. The KV-cache decode path comes with the serving
-slice of the port and cross-attention with the zoo-families slice; both
-raise here."""
+"""GQA attention: parameter definitions, the full-sequence (training)
+block and the KV-cache path (chunked prefill and decode, sliding-window
+ring caches). Causal and sliding-window masks; with
+``cfg.use_flash_attention`` the cache-free self-attention core is
+`kernels.ops.flash_mha` (K2 on the card), else, and always against a
+cache, the plain core `_attend`, as in the reference. Cross-attention and
+its cache come with the enc-dec slice of the port and raise here."""
 from __future__ import annotations
 
 from typing import Optional
@@ -87,21 +88,34 @@ def _attend(q, k, v, qpos, kpos, *, causal, window):
     return blk(q, qpos)
 
 
+def cache_write(buf, new, slot):
+    """``jax.lax.dynamic_update_slice_in_dim(buf, new, slot, axis=1)``: a
+    copy of ``buf`` with ``new`` written along axis 1 from ``slot``. As in
+    JAX, a start that would overrun the buffer is clamped to ``W − S`` (a
+    negative one to 0), where slice assignment would not clamp."""
+    w, s = buf.shape[1], new.shape[1]
+    if s > w:
+        raise ValueError(f"{s} new positions do not fit a cache of {w}")
+    start = min(max(int(slot), 0), w - s)
+    out = buf.clone()
+    out[:, start:start + s] = new
+    return out
+
+
 def attention_block(p, cfg, x, qpos, *, kv_src=None, kv_pos=None, cache=None,
                     cache_pos=None, causal=True, cross_cached=False):
-    """One full-sequence self-attention block.
+    """One self-attention block.
 
-    x: (B, S, d) hidden states; qpos: (B, S) absolute positions. Returns
-    (y, None): the reference's second output is the updated decode cache,
-    which this path never has."""
-    if cache is not None or cache_pos is not None:
-        raise NotImplementedError(
-            "attention with a KV cache (decode/prefill) is not ported to "
-            "repro_torch yet: it comes with the dense serving slice")
+    x: (B, S, d) hidden states; qpos: (B, S) absolute positions.
+    cache: optional dict(k, v, pos) — decode mode; the new keys, values
+      and positions are written at ``cache_pos`` (modulo the cache length
+      for sliding windows: a ring buffer) into a new cache, and the block
+      attends over all of it; unwritten slots carry position −1.
+    Returns (y, new_cache); new_cache is None without a cache."""
     if kv_src is not None or cross_cached:
         raise NotImplementedError(
             "cross-attention is not ported to repro_torch yet: it comes "
-            "with the zoo-families slice (enc-dec) and the dense serving slice")
+            "with the enc-dec slice")
     B, S, _ = x.shape
     dh = cfg.resolved_head_dim
     hq = p["wq"].shape[1] // dh
@@ -125,12 +139,37 @@ def attention_block(p, cfg, x, qpos, *, kv_src=None, kv_pos=None, cache=None,
     if cfg.rope_theta > 0:
         q = rope(q, qpos, cfg.rope_theta)
         k = rope(k, kpos, cfg.rope_theta)
+    new_cache = None
+    if cache is not None:
+        slot = cache_pos % cache["k"].shape[1] if window is not None \
+            else cache_pos
+        k = cache_write(cache["k"], k, slot)
+        v = cache_write(cache["v"], v, slot)
+        kpos = cache_write(cache["pos"], kpos, slot)
+        new_cache = {"k": k, "v": v, "pos": kpos}
 
-    if cfg.use_flash_attention and kv_pos is None:
+    if cfg.use_flash_attention and cache is None and kv_pos is None:
         # positions come from array offsets in the kernel (query s at s,
         # keys at 0..T-1), which is exactly this path's contiguous qpos
         ctx = ops.flash_mha(q, k, v, causal=causal, window=window)
     else:
         ctx = _attend(q, k, v, qpos, kpos, causal=causal, window=window)
     ctx = ctx.reshape(B, S, hq * dh)
-    return ctx @ p["wo"], None
+    return ctx @ p["wo"], new_cache
+
+
+def self_cache_defs(cfg, batch: int, seq_len: int):
+    """ParamSpecs of one layer's decode KV cache: keys and values (zeros)
+    and their positions (−1: unwritten). A sliding window keeps a ring of
+    ``min(seq_len, window)`` slots."""
+    dh = cfg.resolved_head_dim
+    hkv = cfg.num_kv_heads
+    W = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+    kv = ParamSpec((batch, W, hkv, dh), ("batch", None, "tp", None),
+                   init="zeros")
+    return {
+        "k": kv,
+        "v": kv,
+        "pos": ParamSpec((batch, W), ("batch", None), init="neg_ones",
+                         dtype=torch.int32),
+    }

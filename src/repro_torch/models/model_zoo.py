@@ -6,13 +6,14 @@
 * ``cache_defs(cfg, batch, seq_len)`` -> ParamSpec nested dict of caches
 * ``prefill(params, cfg, batch, caches)`` -> (logits, caches)
 
-The dense and VLM families are ported for training (a VLM batch carries its
-projected patch embeddings as a prefix), the SSM family (Mamba2) for
-training's forward and for serving: the chunked prefill and the one-token
-decode. MoE blocks and the hybrid and enc-dec families come with the
-zoo-families slice; decoding the dense family (KV caches) with the dense
-serving slice. Layers run as a Python loop over the stacked (L, ...) layer
-leaves, the reference's ``lax.scan``."""
+The dense, MoE (incl. MLA) and VLM families are ported for training (a
+VLM batch carries its projected patch embeddings as a prefix) and for
+serving against KV caches (a VLM decodes text tokens only, as the
+reference does); the SSM family (Mamba2) for training's forward and for
+serving: the chunked prefill and the one-token decode. The hybrid and
+enc-dec families come with the zoo-families slice. Layers run as a Python
+loop over the stacked (L, ...) layer leaves, the reference's
+``lax.scan``."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -25,7 +26,7 @@ from repro_torch.models import transformer as tf_mod
 from repro_torch.models.common import ParamSpec, stack_specs
 from repro_torch.tree import tree_index, tree_map
 
-_PORTED = ("dense", "vlm", "ssm")
+_PORTED = ("dense", "moe", "vlm", "ssm")
 
 
 def _family(cfg) -> None:
@@ -33,15 +34,6 @@ def _family(cfg) -> None:
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported to repro_torch yet: "
             "it comes with the zoo-families slice")
-
-
-def _decode_family(cfg) -> None:
-    _family(cfg)
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"decoding the {cfg.family!r} family (lm_decode, KV caches) is "
-            "not ported to repro_torch yet: it comes with the dense serving "
-            "slice")
 
 
 # ---------------------------------------------------------------- pure-SSM LM
@@ -96,7 +88,7 @@ def param_defs(cfg):
     _family(cfg)
     if cfg.family == "ssm":
         return _ssm_lm_defs(cfg)
-    return tf_mod.lm_defs(cfg)          # dense | vlm
+    return tf_mod.lm_defs(cfg)          # dense | moe | vlm
 
 
 def forward(params, cfg, batch: Dict[str, torch.Tensor], remat: str = "none"
@@ -112,18 +104,21 @@ def forward(params, cfg, batch: Dict[str, torch.Tensor], remat: str = "none"
 
 def decode_step(params, cfg, tokens, caches, pos):
     """tokens (B, 1) integer ids, pos the position of the first."""
-    _decode_family(cfg)
-    return _ssm_lm_decode(params, cfg, tokens, caches, pos)
+    _family(cfg)
+    if cfg.family == "ssm":
+        return _ssm_lm_decode(params, cfg, tokens, caches, pos)
+    return tf_mod.lm_decode(params, cfg, tokens, caches, pos)
 
 
 def cache_defs(cfg, batch: int, seq_len: int):
-    _decode_family(cfg)
-    return _ssm_lm_cache_defs(cfg, batch, seq_len)
+    _family(cfg)
+    if cfg.family == "ssm":
+        return _ssm_lm_cache_defs(cfg, batch, seq_len)
+    return tf_mod.lm_cache_defs(cfg, batch, seq_len)
 
 
 def prefill(params, cfg, batch: Dict[str, torch.Tensor], caches, pos=0):
     """Chunked prefill: consume the whole prompt in ONE cached pass (decode
     semantics with S > 1). batch: tokens (B, S). Returns (logits (B, S, V),
     caches)."""
-    _decode_family(cfg)
     return decode_step(params, cfg, batch["tokens"], caches, pos)

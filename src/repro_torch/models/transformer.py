@@ -1,9 +1,9 @@
-"""Decoder-only transformer LM of the dense family (and the VLM family's
-text stack): parameter definitions and the training forward. Layers run as
-a Python loop over the stacked (L, ...) layer leaves, so gradients land in
-the stacked leaves. MoE and MLA blocks come with the zoo-families slice of
-the port, activation rematerialisation and the decode path with later
-slices; each raises naming its slice."""
+"""Decoder-only transformer LM covering the dense, MoE (incl. MLA) and VLM
+families: parameter definitions, the training forward and the decode
+against per-layer caches (a chunked prefill when S > 1). Layers run as a
+Python loop over the stacked (L, ...) layer leaves, so gradients land in
+the stacked leaves. Activation rematerialisation comes with the remat
+slice of the port and raises naming it."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -12,9 +12,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (ParamSpec, dense_spec, rms_norm,
                                        stack_specs)
-from repro_torch.tree import tree_index, tree_leaves
+from repro_torch.tree import tree_index, tree_leaves, tree_map
 
 
 def mlp_defs(cfg):
@@ -31,34 +33,40 @@ def mlp_block(p, x):
     return h @ p["w_down"]
 
 
-def _dense_only(cfg) -> None:
-    if cfg.mla is not None or cfg.moe is not None:
-        raise NotImplementedError(
-            "MLA and MoE blocks come with the zoo-families slice of the port")
-
-
 def layer_defs(cfg):
-    _dense_only(cfg)
     d = cfg.d_model
-    return {"ln1": ParamSpec((d,), (None,), init="ones"),
-            "ln2": ParamSpec((d,), (None,), init="ones"),
-            "attn": attn.attn_defs(cfg),
-            "mlp": mlp_defs(cfg)}
+    defs = {"ln1": ParamSpec((d,), (None,), init="ones"),
+            "ln2": ParamSpec((d,), (None,), init="ones")}
+    if cfg.mla is not None:
+        defs["mla"] = mla_mod.mla_defs(cfg)
+    else:
+        defs["attn"] = attn.attn_defs(cfg)
+    if cfg.moe is not None:
+        defs["moe"] = moe_mod.moe_defs(cfg)
+    else:
+        defs["mlp"] = mlp_defs(cfg)
+    return defs
 
 
 def decoder_layer(p, cfg, x, qpos, *, cache=None, cache_pos=None,
                   kv_src=None, kv_pos=None, causal=True):
     """Pre-norm block. Returns (x, new_cache, aux)."""
-    _dense_only(cfg)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    a, new_cache = attn.attention_block(
-        p["attn"], cfg, h, qpos, cache=cache, cache_pos=cache_pos,
-        kv_src=kv_src, kv_pos=kv_pos, causal=causal)
+    if cfg.mla is not None:
+        a, new_cache = mla_mod.mla_block(p["mla"], cfg, h, qpos, cache=cache,
+                                         cache_pos=cache_pos)
+    else:
+        a, new_cache = attn.attention_block(
+            p["attn"], cfg, h, qpos, cache=cache, cache_pos=cache_pos,
+            kv_src=kv_src, kv_pos=kv_pos, causal=causal)
     x = x + a
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    m = mlp_block(p["mlp"], h)
-    return x + m, new_cache, torch.zeros((), dtype=torch.float32,
-                                         device=x.device)
+    if cfg.moe is not None:
+        m, aux = moe_mod.moe_block(p["moe"], cfg, h)
+    else:
+        m, aux = mlp_block(p["mlp"], h), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
+    return x + m, new_cache, aux
 
 
 def lm_defs(cfg):
@@ -76,24 +84,28 @@ def lm_defs(cfg):
 def scan_decoder(layers_p, cfg, x, qpos, *, caches=None, cache_pos=None,
                  kv_src=None, kv_pos=None, causal=True, remat="none"):
     """Run the stacked decoder layers in order. Returns (x, new_caches,
-    aux_sum). Only ``remat="none"`` is ported: the reference's "dots" and
-    "full" recompute activations in the backward, which comes with the
-    remat slice of the port."""
+    aux_sum). With ``caches`` (stacked (L, ...) leaves) each layer decodes
+    against its own, and the new caches are written into fresh stacked
+    buffers; ``caches`` is left as it was. Only ``remat="none"`` is
+    ported: the reference's "dots" and "full" recompute activations in the
+    backward, which comes with the remat slice of the port."""
     if remat != "none":
         raise NotImplementedError(
             f"remat={remat!r} is not ported to repro_torch yet: it comes "
             "with the remat slice (activation checkpointing)")
-    if caches is not None:
-        raise NotImplementedError(
-            "decoding against layer caches is not ported to repro_torch "
-            "yet: it comes with the dense serving slice")
     n_layers = tree_leaves(layers_p)[0].shape[0]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_caches = None if caches is None else tree_map(torch.empty_like,
+                                                      caches)
     for layer in range(n_layers):
-        x, _, a = decoder_layer(tree_index(layers_p, layer), cfg, x, qpos,
+        cache = None if caches is None else tree_index(caches, layer)
+        x, c, a = decoder_layer(tree_index(layers_p, layer), cfg, x, qpos,
+                                cache=cache, cache_pos=cache_pos,
                                 kv_src=kv_src, kv_pos=kv_pos, causal=causal)
+        if c is not None:
+            tree_map(lambda out, new: out[layer].copy_(new), new_caches, c)
         aux = aux + a
-    return x, None, aux
+    return x, new_caches, aux
 
 
 def embed_tokens(params, cfg, tokens):
@@ -120,3 +132,23 @@ def lm_forward(params, cfg, tokens, *, prefix_embeds=None, remat="none"
     qpos = torch.arange(s, device=x.device).expand(b, s)
     x, _, aux = scan_decoder(params["layers"], cfg, x, qpos, remat=remat)
     return unembed(params, cfg, x), aux
+
+
+def lm_decode(params, cfg, token, caches, pos):
+    """Decode (S = 1) or chunked prefill (S > 1) against the caches.
+    token: (B, S) written at positions pos..pos+S−1 (uniform across the
+    batch). Returns (logits (B, S, V), new_caches)."""
+    x = embed_tokens(params, cfg, token)
+    b, s, _ = x.shape
+    qpos = pos + torch.arange(s, device=x.device).expand(b, s)
+    x, new_caches, _ = scan_decoder(params["layers"], cfg, x, qpos,
+                                    caches=caches, cache_pos=pos)
+    return unembed(params, cfg, x), new_caches
+
+
+def lm_cache_defs(cfg, batch: int, seq_len: int):
+    if cfg.mla is not None:
+        one = mla_mod.mla_cache_defs(cfg, batch, seq_len)
+    else:
+        one = attn.self_cache_defs(cfg, batch, seq_len)
+    return stack_specs(one, cfg.num_layers)

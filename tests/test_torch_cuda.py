@@ -5,7 +5,10 @@ beside their CUDA-core counterparts; K2 at head_dims other than 64 and 128
 through its zero-padding entry point), the engine's random bits and RNG-free market on CUDA against
 the CPU, the quadratic oracle on the card against the CPU and its snapshot
 resume, a small megabatched run through K1, small zoo runs through K2
-(float32 and bf16), a small Mamba2 served through K3, and durable
+(float32 and bf16), a small Mamba2 served through K3, the reduced dense,
+MLA and MoE transformers served on the card against the CPU (no kernel:
+the cached path is the plain attention core) and the MoE block's
+deterministic combine, and durable
 training: a megabatch snapshot/save/restore/resume and a bf16 durable
 ``train_zoo`` resume through K2, bit for bit, and checkpoint round trips
 of tensors on the card.
@@ -907,6 +910,72 @@ def test_serving_on_cuda_goes_through_k3(cuda_device):
         torch.testing.assert_close(gpu[1][k], cpu[1][k], rtol=1e-4,
                                    atol=1e-4)
     assert ops.launch_counts()["ssd_chunk_cuda_core"] == 0
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-v2-lite-16b",
+                                  "qwen2-moe-a2.7b"])
+def test_transformer_serving_on_cuda_matches_the_cpu(cuda_device, arch):
+    """A reduced dense (QKV bias), MLA + MoE and MoE transformer served on
+    the card: ``prefill_prompt`` over 16 tokens then 6 greedy serve steps.
+    float32, TF32 off: the prefill's logits and every cache leaf within
+    1e-4 of the CPU run (the same products summed in other orders), the
+    positions and greedy tokens equal, and no kernel launched."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import init_params
+    from repro_torch.tree import tree_map
+
+    cfg = ARCHS[arch].reduced()
+    params = init_params(model_zoo.param_defs(cfg), 0, device="cpu")
+    caches = init_params(model_zoo.cache_defs(cfg, 2, 24), 0, device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 16),
+                           generator=torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        p = tree_map(lambda t: t.to(dev), params)
+        c = tree_map(lambda t: t.to(dev), caches)
+        ops.reset_launch_counts()
+        logits, c1 = model_zoo.prefill(p, cfg, {"tokens": prompt.to(dev)}, c)
+        nxt, c = serve.prefill_prompt(cfg, p, c, prompt.to(dev))
+        toks, c = serve.greedy_decode(cfg, p, c, nxt, 16, 6)
+        assert set(ops.launch_counts().values()) == {0}
+        runs[str(dev)] = (logits.cpu(), tree_map(lambda t: t.cpu(), c1),
+                          toks.cpu(), tree_map(lambda t: t.cpu(), c))
+    cpu, gpu = runs["cpu"], runs[str(cuda_device)]
+    torch.testing.assert_close(gpu[0], cpu[0], rtol=1e-4, atol=1e-4)
+    assert torch.equal(gpu[2], cpu[2])
+    for i in (1, 3):
+        for k in cpu[i]:
+            if k == "pos":
+                assert torch.equal(gpu[i][k], cpu[i][k])
+            else:
+                torch.testing.assert_close(gpu[i][k], cpu[i][k], rtol=1e-4,
+                                           atol=1e-4)
+    assert cpu[3]["pos"][0, 0].tolist() == list(range(22)) + [-1, -1]
+
+
+def test_moe_block_on_cuda_is_bit_reproducible(cuda_device):
+    """The MoE block twice on the same inputs, bf16 and float32: output and
+    aux bit for bit (the combine's scatter-add sorts its indices rather
+    than adding by atomics), at 4096 tokens over 8 experts, top-2, capacity
+    1.25 (drops) — many tokens add into each row of the combine."""
+    import dataclasses
+
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params
+
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = ARCHS["qwen2-moe-a2.7b"].reduced()
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, num_experts=8,
+                                                num_experts_unpadded=6))
+        p = init_params(moe.moe_defs(cfg), 0, dtype, device=cuda_device)
+        x = torch.randn(16, 256, cfg.d_model, device=cuda_device,
+                        generator=torch.Generator(device=cuda_device
+                                                  ).manual_seed(1)).to(dtype)
+        y0, a0 = moe.moe_block(p, cfg, x)
+        y1, a1 = moe.moe_block(p, cfg, x)
+        assert y0.dtype == dtype and torch.isfinite(y0).all()
+        assert torch.equal(y0, y1) and torch.equal(a0, a1)
 
 
 def _quad_grid():

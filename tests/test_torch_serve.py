@@ -380,13 +380,16 @@ def test_prefill_prompt_and_greedy_tokens_match_reference():
     assert compared >= B * n_gen // 2
 
 
-def test_launcher_module_runs_on_the_cpu_without_jax():
-    """``python -m repro_torch.launch.serve --device cpu``, through its
-    ``__main__`` entry, in a process that never imports jax."""
+@pytest.mark.parametrize("arch", [ARCH, "qwen2-7b", "deepseek-v2-lite-16b"])
+def test_launcher_module_runs_on_the_cpu_without_jax(arch):
+    """``python -m repro_torch.launch.serve --arch ARCH --device cpu``,
+    through its ``__main__`` entry, in a process that never imports jax:
+    the reduced Mamba2, dense Qwen2-7B (KV caches) and DeepSeek-V2-Lite
+    (MLA's latent cache, MoE)."""
     code = (
         "import runpy, sys\n"
-        "sys.argv = ['serve', '--device', 'cpu', '--batch', '2', "
-        "'--prompt-len', '64', '--gen', '4']\n"
+        f"sys.argv = ['serve', '--arch', {arch!r}, '--device', 'cpu', "
+        "'--batch', '2', '--prompt-len', '64', '--gen', '4']\n"
         "runpy.run_module('repro_torch.launch.serve', run_name='__main__')\n"
         "print('JAX_LOADED', 'jax' in sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
@@ -397,21 +400,19 @@ def test_launcher_module_runs_on_the_cpu_without_jax():
     body, last = out.stdout.rsplit("\n", 2)[0], out.stdout.splitlines()[-1]
     assert last == "JAX_LOADED False"
     summary = json.loads(body)
-    assert summary["arch"] == ARCH and summary["device"] == "cpu"
+    assert summary["arch"] == arch and summary["device"] == "cpu"
     assert len(summary["sample"]) == 4
     assert all(0 <= t < 512 for t in summary["sample"])
 
 
 def test_other_families_do_not_decode_yet():
-    for arch, slice_ in (("qwen2-7b", "dense serving"),
-                         ("internvl2-1b", "dense serving"),
-                         ("zamba2-7b", "zoo-families"),
-                         ("whisper-base", "zoo-families")):
+    """The hybrid and enc-dec families come with the zoo-families slice."""
+    for arch in ("zamba2-7b", "whisper-base"):
         cfg = ARCHS[arch].reduced()
-        with pytest.raises(NotImplementedError, match=slice_):
+        with pytest.raises(NotImplementedError, match="zoo-families"):
             model_zoo.decode_step({}, cfg, torch.zeros(1, 1, dtype=torch.long),
                                   {}, 0)
-        with pytest.raises(NotImplementedError, match=slice_):
+        with pytest.raises(NotImplementedError, match="zoo-families"):
             model_zoo.cache_defs(cfg, 1, 8)
-        with pytest.raises(NotImplementedError, match=slice_):
+        with pytest.raises(NotImplementedError, match="zoo-families"):
             model_zoo.prefill({}, cfg, {"tokens": torch.zeros(1, 4)}, {})

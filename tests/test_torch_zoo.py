@@ -386,12 +386,10 @@ def test_unported_zoo_paths_raise_naming_their_slice():
     with pytest.raises(NotImplementedError, match="remat"):
         transformer.scan_decoder(params["layers"], job.model, x, qpos,
                                  remat="full")
-    with pytest.raises(NotImplementedError, match="serving"):
+    with pytest.raises(NotImplementedError, match="enc-dec"):
         attention.attention_block(
             tree_map(lambda t: t[0], params["layers"]["attn"]), job.model, x,
-            qpos, cache={})
+            qpos, kv_src=x)
     for arch in ("zamba2-7b", "whisper-base"):
         with pytest.raises(NotImplementedError, match="zoo-families"):
             model_zoo.param_defs(ARCHS[arch].reduced())
-    with pytest.raises(NotImplementedError, match="zoo-families"):
-        model_zoo.param_defs(ARCHS["qwen2-moe-a2.7b"].reduced())
