@@ -113,7 +113,34 @@ Phases, each printing one JSON line and raising on failure:
    tokens per second, peak memory and cache bytes, one decode step under
    ``torch.profiler``, and for DeepSeek-V2-Lite its latent cache beside
    a full K/V cache and the share of routed assignments that capacity
-   drops in the prefill and in a decode step.
+   drops in the prefill and in a decode step;
+9. slice 11's serving of the hybrid (``serve_hybrid``): Zamba2-7B at full
+   width and depth in bf16 through ``prefill_prompt`` (batch 8, a
+   2048-token prompt: K3 once per Mamba2 layer, 81 times, the SSD's
+   training route never) and ``greedy_decode`` (32 tokens, no kernel),
+   twice; tokens in range and bit-equal across the runs, finite caches,
+   KV positions 0..2078; one prefill and one decode step under
+   ``torch.profiler``; K3 in place (the first Mamba2 layer's block with K3
+   and with the plain version); prefill-then-decode against one longer
+   prefill (reported in bf16 at full depth, held in float32 at depth 7);
+   then K3 at the path's shape in bf16 (112 heads of one group, N 64):
+   its time beside its bound and the plain version's;
+10. slice 11's training of the hybrid (``train_hybrid``): ``train_zoo``
+   of Zamba2-7B at full width, depth 12 (two super-groups), bf16 with K2,
+   ``remat="full"``, batch 8, seq 1024, 4 ticks: K2's tensor-core forward
+   twice a site and tick (the recompute), its backward once, the SSD's
+   training route twice a Mamba2 layer, K3 never; finite losses, the
+   first near ln V; one loss-and-gradient step under "full", "none" and
+   "dots" at batch 2, bit-equal, with each mode's counts, time and peak;
+   K2 at the path's shape (B 8, S = T = 1023, H = Hkv = 32, D 112 padded
+   to 128);
+11. slice 11's enc-dec: ``train_zoo`` of Whisper-base as published (bf16,
+   K2 non-causal in the encoder and causal in the decoder, batch 8, 1500
+   frames, 448 tokens, 4 ticks) with K2's launches held; K2 at the
+   encoder's shape (S = T = 1500, H 8, D 64, non-causal) against its
+   plain version, timed beside its bound and SDPA's; serving through
+   ``model_zoo.prefill`` with the frames (the cross cache, K2 six times)
+   and 31 serve steps, twice.
 
 Then the ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout,
@@ -901,9 +928,11 @@ def phase_k2_in_place(torch, job):
     data = stack_batches(job, 1, device="cuda")
     batch = {k: x[0] for k, x in data.items()}
     mask = torch.ones(job.n_workers, device="cuda")
-    on, loss_on, _ = make_loss_grad(job.model, job)(params, batch, mask)
+    on, loss_on, _ = make_loss_grad(job.model, job, "none")(params, batch,
+                                                            mask)
     off_cfg = job.model.with_(use_flash_attention=False)
-    off, loss_off, _ = make_loss_grad(off_cfg, job)(params, batch, mask)
+    off, loss_off, _ = make_loss_grad(off_cfg, job, "none")(params, batch,
+                                                            mask)
 
     def rel_l2(a, b):
         a, b = a.float(), b.float()
@@ -961,12 +990,15 @@ def k2_plain_grads(torch, qt, kt, vt, out, lse, dout, mask):
 
 def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers,
                            shape=K2_PATH_SHAPE, phase="k2_at_path_shape",
-                           per_kernel_plain=False):
+                           per_kernel_plain=False, cuda_core=True):
     """K2 at a path's shape (by default the zoo path's), in the model
     layout it receives there: each kernel's time beside its bound, the
     plain version's and ``scaled_dot_product_attention``'s. The path runs
-    the tensor-core forward, dK/dV and dQ kernels; the CUDA-core forward,
-    dK/dV and dQ kernels are held and timed here in bf16 beside them.
+    the tensor-core forward, dK/dV and dQ kernels; with ``cuda_core`` the
+    CUDA-core forward, dK/dV and dQ kernels are held and timed here in bf16
+    beside them. A head_dim other than 64 or 128 runs, as on the path,
+    zero-padded to the next of them (``pad_head_dim``) with the unpadded
+    scale; the bound counts the unpadded work.
 
     The gradients are held against autograd through the plain forward, or
     with ``per_kernel_plain`` against `k2_plain_grads`: the plain version
@@ -977,70 +1009,85 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers,
     from repro_torch.kernels import ops, ref
 
     b, s, t, h, hkv, d = shape[:6]
-    mask = dict(causal=True, window=None, q_offset=0)
+    causal, window, q_offset = shape[6:]
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
     q, k, v, do = k2_inputs(torch, shape, torch.bfloat16, seed=5)
-    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     kern, plain = k2_both(torch, q, k, v, do, mask)
-    out, lse = flash.flash_fwd_tc(qt, kt, vt, **mask)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    # what the kernels receive on the path: padded when d is not 64 or 128
+    qp, kp, vp, _ = flash.pad_head_dim(q, k, v)
+    dop = F.pad(do, (0, qp.shape[-1] - d))
+    qpt, kpt, vpt, dopt = (x.transpose(1, 2) for x in (qp, kp, vp, dop))
+    scaled = dict(mask, scale=d ** -0.5)
+    kernels = K2_KERNELS if cuda_core else K2_ZOO_KERNELS
+    out, lse = flash.flash_fwd_tc(qpt, kpt, vpt, **scaled)
     if per_kernel_plain:
         plain = (plain[0],) + tuple(x.transpose(1, 2) for x in
-                                    k2_plain_grads(torch, qt, kt, vt, out,
-                                                   lse, dot, mask))
-    delta = flash.flash_bwd_delta(out, dot)
-    cuda_core_out, _ = flash.flash_fwd(qt, kt, vt, **mask)
-    cc_dk, cc_dv = (x.transpose(1, 2) for x in flash.flash_bwd_dkdv(
-        qt, kt, vt, out, lse, dot, **mask))
-    cc_dq = flash.flash_bwd_dq(qt, kt, vt, out, lse, dot,
-                               **mask).transpose(1, 2)
-    d_err = delta_err(torch, delta, out, dot)
+                                    k2_plain_grads(torch, qt, kt, vt,
+                                                   out[..., :d], lse, dot,
+                                                   mask))
+    delta = flash.flash_bwd_delta(out, dopt)
+    d_err = delta_err(torch, delta, out, dopt)
     errs = {"flash_attention_fwd_tc": abs_err(kern[0], plain[0]),
-            "flash_attention_fwd": abs_err(cuda_core_out.transpose(1, 2),
-                                           plain[0]),
             "flash_attention_bwd_dq_tc": abs_err(kern[1], plain[1]),
-            "flash_attention_bwd_dq": abs_err(cc_dq, plain[1]),
             "flash_attention_bwd_dkdv_tc": max(abs_err(kern[2], plain[2]),
                                                abs_err(kern[3], plain[3])),
-            "flash_attention_bwd_dkdv": max(abs_err(cc_dk, plain[2]),
-                                            abs_err(cc_dv, plain[3])),
             "flash_attention_bwd_delta": abs_err(
-                delta, ref.mha_delta_reference(out, dot))}
+                delta, ref.mha_delta_reference(out, dopt))}
     rels = {n: row_err(a, c) for n, a, c in zip(K2_GRADS, kern, plain)}
     bad = k2_check(rels, "bfloat16", shape)
-    off_path = {"flash_attention_fwd out": row_err(
-        cuda_core_out.transpose(1, 2), plain[0]),
-        "flash_attention_bwd_dkdv dk": row_err(cc_dk, plain[2]),
-        "flash_attention_bwd_dkdv dv": row_err(cc_dv, plain[3]),
-        "flash_attention_bwd_dq dq": row_err(cc_dq, plain[1])}
-    bad += [(shape, "bfloat16", n, e) for n, e in off_path.items()
-            if not e <= K2_TOL["bfloat16"][n.split()[-1]]]
     if not d_err <= K2_DELTA_TOL:
         bad.append((shape, "bfloat16", "flash_attention_bwd_delta", d_err))
-    tc_vs_cc = max(row_err(kern[2], cc_dk), row_err(kern[3], cc_dv))
-    dq_tc_vs_cc = row_err(kern[1], cc_dq)
-    del cuda_core_out, cc_dk, cc_dv, cc_dq
+    off_path, cc = {}, {}
+    if cuda_core:
+        cuda_core_out, _ = flash.flash_fwd(qpt, kpt, vpt, **scaled)
+        cc_dk, cc_dv = (x.transpose(1, 2)[..., :d] for x in
+                        flash.flash_bwd_dkdv(qpt, kpt, vpt, out, lse, dopt,
+                                             **scaled))
+        cc_dq = flash.flash_bwd_dq(qpt, kpt, vpt, out, lse, dopt,
+                                   **scaled).transpose(1, 2)[..., :d]
+        cc_out = cuda_core_out.transpose(1, 2)[..., :d]
+        errs.update({
+            "flash_attention_fwd": abs_err(cc_out, plain[0]),
+            "flash_attention_bwd_dq": abs_err(cc_dq, plain[1]),
+            "flash_attention_bwd_dkdv": max(abs_err(cc_dk, plain[2]),
+                                            abs_err(cc_dv, plain[3]))})
+        off_path = {"flash_attention_fwd out": row_err(cc_out, plain[0]),
+                    "flash_attention_bwd_dkdv dk": row_err(cc_dk, plain[2]),
+                    "flash_attention_bwd_dkdv dv": row_err(cc_dv, plain[3]),
+                    "flash_attention_bwd_dq dq": row_err(cc_dq, plain[1])}
+        bad += [(shape, "bfloat16", n, e) for n, e in off_path.items()
+                if not e <= K2_TOL["bfloat16"][n.split()[-1]]]
+        cc = {"dkdv_tc_vs_cuda_core_row_err": max(row_err(kern[2], cc_dk),
+                                                  row_err(kern[3], cc_dv)),
+              "dq_tc_vs_cuda_core_row_err": row_err(kern[1], cc_dq)}
+        del cuda_core_out, cc_out, cc_dk, cc_dv, cc_dq
     if bad:
         raise AssertionError(f"K2 at the path's shape differs from its plain "
                              f"version: {bad}")
     n = 10
     ms = {"flash_attention_fwd_tc": timed(
-        lambda: flash.flash_fwd_tc(qt, kt, vt, **mask), 5 * n, torch),
-        "flash_attention_fwd": timed(
-        lambda: flash.flash_fwd(qt, kt, vt, **mask), n, torch),
+        lambda: flash.flash_fwd_tc(qpt, kpt, vpt, **scaled), 5 * n, torch),
         "flash_attention_bwd_delta": timed(
-            lambda: flash.flash_bwd_delta(out, dot), 5 * n, torch),
+            lambda: flash.flash_bwd_delta(out, dopt), 5 * n, torch),
         "flash_attention_bwd_dkdv_tc": timed(
-            lambda: flash.flash_bwd_dkdv_tc(qt, kt, vt, out, lse, dot,
-                                            **mask, delta=delta),
+            lambda: flash.flash_bwd_dkdv_tc(qpt, kpt, vpt, out, lse, dopt,
+                                            **scaled, delta=delta),
             5 * n, torch),
-        "flash_attention_bwd_dkdv": timed(
-            lambda: flash.flash_bwd_dkdv(qt, kt, vt, out, lse, dot, **mask),
-            n, torch),
         "flash_attention_bwd_dq_tc": timed(
-            lambda: flash.flash_bwd_dq_tc(qt, kt, vt, out, lse, dot, **mask,
-                                          delta=delta), 5 * n, torch),
-        "flash_attention_bwd_dq": timed(
-            lambda: flash.flash_bwd_dq(qt, kt, vt, out, lse, dot, **mask),
-            n, torch)}
+            lambda: flash.flash_bwd_dq_tc(qpt, kpt, vpt, out, lse, dopt,
+                                          **scaled, delta=delta),
+            5 * n, torch)}
+    if cuda_core:
+        ms.update({
+            "flash_attention_fwd": timed(
+                lambda: flash.flash_fwd(qpt, kpt, vpt, **scaled), n, torch),
+            "flash_attention_bwd_dkdv": timed(
+                lambda: flash.flash_bwd_dkdv(qpt, kpt, vpt, out, lse, dopt,
+                                             **scaled), n, torch),
+            "flash_attention_bwd_dq": timed(
+                lambda: flash.flash_bwd_dq(qpt, kpt, vpt, out, lse, dopt,
+                                           **scaled), n, torch)})
 
     def fwd_bwd(attend):
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -1048,7 +1095,7 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers,
         torch.autograd.grad(o, leaves, do)
 
     fwd_bwd_ms = timed(lambda: fwd_bwd(lambda a, b_, c: ops.flash_mha(
-        a, b_, c, causal=True)), n, torch)
+        a, b_, c, **mask)), n, torch)
 
     # the plain version (autograd through ref.mha_reference) and the
     # library call, split the same way: forward; grads of k and v; grad
@@ -1069,11 +1116,11 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers,
                 "flash_attention_bwd_dq_tc": q_ms}
 
     plain_ms = split_times(lambda a, b_, c: ref.mha_reference(
-        a, b_, c, causal=True), 3)
+        a, b_, c, **mask), 3)
     plain_ms["flash_attention_bwd_delta"] = timed(
-        lambda: ref.mha_delta_reference(out, dot), n, torch)
+        lambda: ref.mha_delta_reference(out, dopt), n, torch)
     library_ms = split_times(lambda a, b_, c: F.scaled_dot_product_attention(
-        a, b_, c, is_causal=True, enable_gqa=True), n)
+        a, b_, c, is_causal=causal, enable_gqa=True), n)
     # no one PyTorch call forms rowsum(dO∘O) in float32 from bf16 inputs
     library_ms["flash_attention_bwd_delta"] = None
 
@@ -1101,7 +1148,7 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers,
                                       3 * q_bytes + 2 * kv_bytes
                                       + 2 * lse_bytes)}
     rows = []
-    for kname in K2_KERNELS:
+    for kname in kernels:
         flops, nbytes = work[kname]
         t_ops, t_bytes = flops / bf16, nbytes / hbm
         src, replaces = KERNEL_SOURCES[kname]
@@ -1113,38 +1160,43 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers,
                      "bound_by": "operations" if t_ops >= t_bytes
                      else "bytes",
                      "library_ms": library_ms[kname]})
+        if phase != "k2_at_path_shape":
+            rows[-1]["path"] = phase
     fb_flops = sum(work[kk][0] for kk in K2_ZOO_KERNELS)
-    emit({"phase": phase, "shape": shape, "dtype": "bfloat16",
-          "valid_pairs": pairs, "row_err": rels,
-          "off_path_row_err": off_path, "delta_rel_err": d_err,
-          "dkdv_tc_vs_cuda_core_row_err": tc_vs_cc,
-          "dq_tc_vs_cuda_core_row_err": dq_tc_vs_cc, "peak": label,
-          "kernels": {r["name"]: {kk: r[kk] for kk in
-                                  ("ms", "bound_ms", "plain_ms",
-                                   "library_ms", "max_abs_err")}
-                      for r in rows},
-          "achieved_TFLOPs": {kk: work[kk][0] / ms[kk] / 1e9
-                              for kk in K2_KERNELS},
-          "fwd_ms": ms["flash_attention_fwd_tc"],
-          "cuda_core_fwd_ms": ms["flash_attention_fwd"],
-          "fwd_speedup_over_cuda_core": ms["flash_attention_fwd"]
-          / ms["flash_attention_fwd_tc"],
-          "dkdv_ms": ms["flash_attention_bwd_dkdv_tc"]
-          + ms["flash_attention_bwd_delta"],
-          "cuda_core_dkdv_ms": ms["flash_attention_bwd_dkdv"],
-          "dkdv_speedup_over_cuda_core": ms["flash_attention_bwd_dkdv"]
-          / ms["flash_attention_bwd_dkdv_tc"],
-          "dq_ms": ms["flash_attention_bwd_dq_tc"],
-          "cuda_core_dq_ms": ms["flash_attention_bwd_dq"],
-          "dq_speedup_over_cuda_core": ms["flash_attention_bwd_dq"]
-          / ms["flash_attention_bwd_dq_tc"], "fwd_bwd_ms": fwd_bwd_ms,
-          "fwd_bwd_bound_ms": 1e3 * fb_flops / bf16,
-          "plain_fwd_bwd_ms": sum(plain_ms[kk] for kk in (
-              "flash_attention_fwd_tc", "flash_attention_bwd_dkdv_tc",
-              "flash_attention_bwd_dq_tc")),
-          "library_fwd_ms": library_ms["flash_attention_fwd"],
-          "share_of_zoo_cell_step": fwd_bwd_ms * n_layers / step_ms,
-          "card": smi})
+    out_line = {
+        "phase": phase, "shape": shape, "dtype": "bfloat16",
+        "padded_head_dim": qp.shape[-1], "valid_pairs": pairs,
+        "row_err": rels, "off_path_row_err": off_path,
+        "delta_rel_err": d_err, **cc, "peak": label,
+        "kernels": {r["name"]: {kk: r[kk] for kk in
+                                ("ms", "bound_ms", "plain_ms",
+                                 "library_ms", "max_abs_err")}
+                    for r in rows},
+        "achieved_TFLOPs": {kk: work[kk][0] / ms[kk] / 1e9
+                            for kk in kernels},
+        "fwd_ms": ms["flash_attention_fwd_tc"],
+        "dkdv_ms": ms["flash_attention_bwd_dkdv_tc"]
+        + ms["flash_attention_bwd_delta"],
+        "dq_ms": ms["flash_attention_bwd_dq_tc"], "fwd_bwd_ms": fwd_bwd_ms,
+        "fwd_bwd_bound_ms": 1e3 * fb_flops / bf16,
+        "plain_fwd_bwd_ms": sum(plain_ms[kk] for kk in (
+            "flash_attention_fwd_tc", "flash_attention_bwd_dkdv_tc",
+            "flash_attention_bwd_dq_tc")),
+        "library_fwd_ms": library_ms["flash_attention_fwd"],
+        "share_of_zoo_cell_step": fwd_bwd_ms * n_layers / step_ms,
+        "card": smi}
+    if cuda_core:
+        out_line.update(
+            cuda_core_fwd_ms=ms["flash_attention_fwd"],
+            fwd_speedup_over_cuda_core=ms["flash_attention_fwd"]
+            / ms["flash_attention_fwd_tc"],
+            cuda_core_dkdv_ms=ms["flash_attention_bwd_dkdv"],
+            dkdv_speedup_over_cuda_core=ms["flash_attention_bwd_dkdv"]
+            / ms["flash_attention_bwd_dkdv_tc"],
+            cuda_core_dq_ms=ms["flash_attention_bwd_dq"],
+            dq_speedup_over_cuda_core=ms["flash_attention_bwd_dq"]
+            / ms["flash_attention_bwd_dq_tc"])
+    emit(out_line)
     return rows
 
 
@@ -1461,59 +1513,72 @@ def phase_k3_in_place(torch, cfg, params, prompt, tokens, caches):
 
 
 def k3_work(shape, slab):
-    """(least FLOP, FLOP of the tensor-core kernel's products) of K3 at
-    ``shape``: the least work forms the scores once per (batch, chunk,
-    group) over the causal pairs, y over them per head, and each state;
-    the kernel forms the scores once per slab of ``slab`` heads and query
-    tile over whole 64 x 64 key tiles at or below the diagonal (N in
-    32-column stages), y over whole tiles below it and, on a diagonal
-    tile, over the 2560 pairs its four warps' 8-column steps reach, the
-    states over 64-row blocks of N; P padded to 64 or 128. Useful
-    products only: 3xTF32 issues three tensor-core products for each
-    float32 one (two for bf16)."""
+    """(least FLOP, FLOP of the tensor-core kernel's products, the scores'
+    share of the least FLOP) of K3 at ``shape``: the least work forms the
+    scores once per (batch, chunk, group) over the causal pairs, y over
+    them per head, and each state; the kernel forms the scores once per
+    slab of ``slab`` heads and query tile over whole 64 x 64 key tiles at
+    or below the diagonal (N in 32-column stages), y over whole tiles below
+    it and, on a diagonal tile, over the 2560 pairs its four warps'
+    8-column steps reach, the states over 64-row blocks of N; P padded to
+    64 or 128. Useful products only: 3xTF32 issues three tensor-core
+    products for each float32 one (two for bf16)."""
     b, s, h, p, g, n, q = shape
     nc, rep, t = s // q, h // g, -(-q // 64)
     pairs = q * (q + 1) // 2
-    least = b * nc * (g * 2 * pairs * n + h * (2 * pairs * p + 2 * q * n * p))
+    scores = b * nc * g * 2 * pairs * n
+    least = scores + b * nc * h * (2 * pairs * p + 2 * q * n * p)
     slabs = g * -(-rep // min(slab, rep))
     tiles = t * (t + 1) // 2
     pw, n_kc, n_state = (64 if p <= 64 else 128), -(-n // 32), -(-n // 64)
     done = b * nc * (slabs * tiles * 64 * 64 * 2 * 32 * n_kc
                      + h * 2 * pw * ((tiles - t) * 64 * 64 + t * 2560
                                      + n_state * 64 * 64 * t))
-    return least, done
+    return least, done, scores
 
 
-def phase_k3_at_path_shape(torch, smi, launches, prefill_ms):
-    """K3 at the serving path's shape: the tensor-core kernel's time beside
-    its bound, 3xTF32 over the least work (the scores once per group) or
-    the bytes, whichever is the larger; the CUDA-core kernel's time on the
-    same inputs; the plain version's, the glue's (``ops.ssd_chunked`` less
-    K3) and K3's share of the path's prefill."""
+def phase_k3_at_path_shape(torch, smi, launches, prefill_ms,
+                           shape=K3_PATH_SHAPE, dtype="float32",
+                           phase="k3_at_path_shape", cuda_core=True):
+    """K3 at a serving path's shape (by default Mamba2-1.3B's): the
+    tensor-core kernel's time beside its bound, the plain version's, the
+    glue's (``ops.ssd_chunked`` less K3) and K3's share of the path's
+    prefill; with ``cuda_core`` the CUDA-core kernel's time on the same
+    inputs. The bound is the larger of the bytes and the least work's
+    products: float32 inputs 3xTF32 for every product; bf16 inputs the
+    scores from the bf16 B and C at the bf16 rate, y and the states
+    (float32 weights against exact bf16 x) two TF32 products each."""
     from repro_torch.kernels import ops, ref, ssd_scan
 
-    shape = K3_PATH_SHAPE
     b, s, h, p, g, n, q = shape
-    args = k3_inputs(torch, shape, torch.float32, seed=5)
+    args = k3_inputs(torch, shape, getattr(torch, dtype), seed=5)
     errs, err = k3_errs(torch, args, q)
-    cc_got = ssd_scan.ssd_chunk_cuda_core(*args, chunk=q)
-    want = ref.ssd_chunk_reference(*args, chunk=q)
-    tc_got = ssd_scan.ssd_chunk(*args, chunk=q)
-    torch.cuda.synchronize()
-    cc_errs = {o: row_err(a, c) for o, a, c in zip(K3_OUTS, cc_got, want)}
-    cc_err = max(abs_err(a, c) for a, c in zip(cc_got, want))
-    tc_vs_cc = {o: row_err(a, c) for o, a, c in zip(K3_OUTS, tc_got, cc_got)}
-    del cc_got, want, tc_got
-    bad = [(k, o, e) for k, es in (("ssd_chunk", errs),
-                                   ("ssd_chunk_cuda_core", cc_errs))
-           for o, e in es.items() if not e <= K3_TOL["float32"][o]]
+    bad = [("ssd_chunk", o, e) for o, e in errs.items()
+           if not e <= K3_TOL[dtype][o]]
+    extra = {}
+    if cuda_core:
+        cc_got = ssd_scan.ssd_chunk_cuda_core(*args, chunk=q)
+        want = ref.ssd_chunk_reference(*args, chunk=q)
+        tc_got = ssd_scan.ssd_chunk(*args, chunk=q)
+        torch.cuda.synchronize()
+        cc_errs = {o: row_err(a, c) for o, a, c in zip(K3_OUTS, cc_got,
+                                                        want)}
+        cc_err = max(abs_err(a, c) for a, c in zip(cc_got, want))
+        extra["cuda_core_row_err"] = cc_errs
+        extra["tc_vs_cuda_core_row_err"] = {
+            o: row_err(a, c) for o, a, c in zip(K3_OUTS, tc_got, cc_got)}
+        del cc_got, want, tc_got
+        bad += [("ssd_chunk_cuda_core", o, e) for o, e in cc_errs.items()
+                if not e <= K3_TOL[dtype][o]]
     if bad:
-        raise AssertionError(f"K3 at the path's shape differs from its plain "
-                             f"version: {bad}")
+        raise AssertionError(f"K3 at the path's shape {shape} ({dtype}) "
+                             f"differs from its plain version: {bad}")
     n_rep = 20
     ms = timed(lambda: ssd_scan.ssd_chunk(*args, chunk=q), n_rep, torch)
-    cc_ms = timed(lambda: ssd_scan.ssd_chunk_cuda_core(*args, chunk=q), 10,
-                  torch)
+    if cuda_core:
+        cc_ms = timed(lambda: ssd_scan.ssd_chunk_cuda_core(*args, chunk=q),
+                      10, torch)
+        extra.update(cuda_core_ms=cc_ms, speedup_over_cuda_core=cc_ms / ms)
     ms_again = timed(lambda: ssd_scan.ssd_chunk(*args, chunk=q), n_rep,
                      torch)
     plain_ms = timed(lambda: ref.ssd_chunk_reference(*args, chunk=q), 3,
@@ -1521,43 +1586,45 @@ def phase_k3_at_path_shape(torch, smi, launches, prefill_ms):
     chunked_ms = timed(lambda: ops.ssd_chunked(*args, chunk=q), n_rep, torch)
 
     name = torch.cuda.get_device_name(0)
-    hbm, _, _, tf32, label = card_peaks(name)
-    least, done = k3_work(shape, ssd_scan.SLAB_HEADS)
-    nc, el = s // q, 4
+    hbm, _, bf16, tf32, label = card_peaks(name)
+    least, done, scores = k3_work(shape, ssd_scan.SLAB_HEADS)
+    nc, el = s // q, (4 if dtype == "float32" else 2)
     nbytes = (2 * b * s * h * p * el + b * s * h * 4 + h * 4
               + 2 * b * s * g * n * el + b * nc * h * (n * p + q + 1) * 4)
-    t_ops, t_bytes = 3 * least / tf32, nbytes / hbm
+    t_ops = (3 * least / tf32 if dtype == "float32"
+             else scores / bf16 + 2 * (least - scores) / tf32)
+    t_bytes = nbytes / hbm
     bound_ms = 1e3 * max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     per_prefill = launches["ssd_chunk"]
-    emit({"phase": "k3_at_path_shape", "shape": shape, "dtype": "float32",
-          "row_err": errs, "max_abs_err": err,
-          "cuda_core_row_err": cc_errs, "tc_vs_cuda_core_row_err": tc_vs_cc,
-          "ms": ms, "ms_again": ms_again, "cuda_core_ms": cc_ms,
-          "speedup_over_cuda_core": cc_ms / ms,
+    emit({"phase": phase, "shape": shape, "dtype": dtype,
+          "row_err": errs, "max_abs_err": err, **extra,
+          "ms": ms, "ms_again": ms_again,
           "slab_heads": ssd_scan.SLAB_HEADS, "flops_least": least,
-          "flops_kernel": done, "tensor_core_flops_issued": 3 * done,
+          "flops_scores": scores, "flops_kernel": done,
           "achieved_TFLOPs": least / ms / 1e9,
-          "cuda_core_achieved_TFLOPs": least / cc_ms / 1e9,
           "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
-          "bound_share": bound_ms / ms, "peak": label + " (TF32 dense)",
+          "bound_share": bound_ms / ms, "peak": label,
           "plain_ms": plain_ms, "ssd_chunked_ms": chunked_ms,
           "glue_ms": chunked_ms - ms,
           "launches_per_prefill": per_prefill,
-          "cuda_core_launches_per_prefill": launches["ssd_chunk_cuda_core"],
           "k3_share_of_prefill": per_prefill * ms / prefill_ms,
           "glue_share_of_prefill": per_prefill * (chunked_ms - ms)
           / prefill_ms, "card": smi})
-    rows = []
-    for kname, kms, kerr in (("ssd_chunk", ms, err),
-                             ("ssd_chunk_cuda_core", cc_ms, cc_err)):
+    rows = [("ssd_chunk", ms, err)]
+    if cuda_core:
+        rows.append(("ssd_chunk_cuda_core", cc_ms, cc_err))
+    out = []
+    for kname, kms, kerr in rows:
         src, replaces = KERNEL_SOURCES[kname]
-        rows.append({"name": kname, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[kname],
-                     "max_abs_err": kerr, "ms": kms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None})
-    return rows
+        out.append({"name": kname, "route": "cuda", "source": src,
+                    "replaces": replaces, "launches": launches[kname],
+                    "max_abs_err": kerr, "ms": kms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": None})
+        if phase != "k3_at_path_shape":
+            out[-1]["path"] = phase
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2710,6 +2777,583 @@ def phase_serve_transformer(torch, arch, smi):
             f"(tolerance {TF_DECODE_TOL})")
 
 
+# ------------------------------------------------------------ slice 11
+
+#: slice 11, serving the hybrid: Zamba2-7B as published
+#: (configs/zamba2_7b.py, arXiv:2411.15242; 81 Mamba2 layers in 13
+#: super-groups of 6 plus a tail of 3, d_model 3584, 112 SSD heads of 64,
+#: N 64, chunk 256; one shared attention/MLP block, 32 heads of 112, d_ff
+#: 14336, at 13 sites; vocab 32000) at full width and depth in its own
+#: bf16 (parameters, activations, KV and conv caches; the SSM states
+#: float32 as their spec says), batch 8, a 2048-token prompt, 32 generated
+#: tokens, weights and prompt drawn from the seed
+SERVE_HYBRID = {"arch": "zamba2-7b", "batch": 8, "prompt": 2048, "gen": 32,
+                "seed": 0}
+#: the shape the hybrid's prefill gives K3 (per Mamba2 layer), bf16
+K3_HYBRID_SHAPE = (8, 2048, 112, 64, 1, 64, 256)
+#: prefill-then-decode against one longer prefill (2048 + 32 positions
+#: against 2304, a whole number of chunks): max |logit difference|. Held in
+#: float32 at full width and depth HYBRID_F32_DEPTH (one super-group and a
+#: tail layer) within the reference tests' 2e-3 (tests/test_prefill.py;
+#: measured on an NVIDIA H100 80GB HBM3 at 700 W: 3.5e-5). In bf16 at full
+#: depth it is reported, not held: the reference's decode rounds each
+#: Mamba2 layer's SSD output to bf16 where its chunked route keeps float32
+#: until y_intra + y_inter (and K3's glue rounds the two apart), and 81
+#: such layers and 13 attention sites carry the difference on (measured on
+#: the same card: 0.11 of the largest logit, top-1 agreement 83 %).
+HYBRID_DECODE_TOL = {"float32_abs": 2e-3}
+HYBRID_F32_DEPTH = 7
+#: K3 in place: one full-width bf16 ssm_block prefill (the first Mamba2
+#: layer on the path's prompt, from its cache after the path) with K3 and
+#: with the plain version, max |a - b| over max |b|: the output is bf16, and
+#: K3 rounds y_intra to bf16 from float32 values that differ from the plain
+#: version's in their last bits (one ulp, 2^-8 of an entry), which the
+#: gate, the norm and the output product carry on; the state is float32
+#: (measured on an NVIDIA H100 80GB HBM3 at 700 W: out 5.6e-3, h 7.3e-6)
+HYBRID_IN_PLACE_TOL = {"out": 2e-2, "h": 1e-4, "conv": 0.0}
+
+#: slice 11, training the hybrid: Zamba2-7B at full width, depth cut from
+#: 81 to 12 (two super-groups, so the shared block is applied, and its
+#: gradient summed, at two sites), bf16 with float32 masters and momentum,
+#: K2 on (head_dim 112 zero-padded to 128), one scenario (four workers
+#: bidding 0.9, four 0.5) × one seed, batch 8, seq 1024, 4 ticks, through
+#: ``train_zoo(remat="full")``
+TRAIN_HYBRID_SPEC = dict(
+    arch="zamba2-7b", reduce_depth=12, param_dtype="bfloat16", zoo=True,
+    overrides={"use_flash_attention": 1}, n_workers=8, global_batch=8,
+    seq_len=1024, bids=((0.9, 0.9, 0.9, 0.9, 0.5, 0.5, 0.5, 0.5),),
+    iterations=4, seeds=1, n_ticks=4)
+#: the batch (and workers) of the one-step remat comparison: without remat
+#: the SSD's training route keeps ≈ 7 GB of float32 temporaries a Mamba2
+#: layer at batch 8 (three (B, nc, Q, Q, H) tensors of 0.94 GB among
+#: them; the saved tensors' sizes, counted at a smaller batch and scaled),
+#: 85 GB over 12 layers, so the three modes are compared at batch 2
+REMAT_BATCH = 2
+#: the shape the hybrid's training gives K2 (the shared block's sites)
+K2_HYBRID_SHAPE = (8, 1023, 1023, 32, 32, 112, True, None, 0)
+
+#: slice 11, the enc-dec: Whisper-base as published
+#: (configs/whisper_base.py, arXiv:2212.04356; 6 + 6 layers, d_model 512,
+#: 8 heads of 64, d_ff 2048, vocab 51865, 1500 frames), bf16 with float32
+#: masters and momentum, K2 on: non-causal in the encoder (S = T = 1500),
+#: causal in the decoder (S = T = 447 of the 448-token context); one
+#: scenario × one seed, batch 8, 4 ticks
+TRAIN_ENCDEC_SPEC = dict(
+    arch="whisper-base", reduce_depth=6, param_dtype="bfloat16", zoo=True,
+    overrides={"use_flash_attention": 1}, n_workers=8, global_batch=8,
+    seq_len=448, bids=((0.9, 0.9, 0.9, 0.9, 0.5, 0.5, 0.5, 0.5),),
+    iterations=4, seeds=1, n_ticks=4)
+#: serving it: the frames' cross cache built by ``model_zoo.prefill``, a
+#: 32-token decoder prompt, 32 generated tokens, batch 8 (the serve
+#: launcher hands ``prefill`` only tokens, as the reference's does, so
+#: the phase calls ``model_zoo`` directly)
+SERVE_ENCDEC = {"arch": "whisper-base", "batch": 8, "prompt": 32, "gen": 32,
+                "seed": 0}
+#: the shape the encoder gives K2 (non-causal)
+K2_WHISPER_SHAPE = (8, 1500, 1500, 8, 8, 64, False, None, 0)
+
+
+def reset_counts():
+    """Every kernel's launch count and the SSD training route's call count
+    to 0."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+
+    ops.reset_launch_counts()
+    ssm.ssd_chunked.calls = 0
+
+
+def read_counts():
+    """The launch counts and, under ``ssd_training_route``, the SSD
+    training route's calls."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+
+    return {**ops.launch_counts(),
+            "ssd_training_route": ssm.ssd_chunked.calls}
+
+
+def zoo_train_phase(torch, name, spec_kw, want_of, remat="none"):
+    """``train_zoo`` of a `WorkerSpec` workload with the counts set to 0
+    just before and read just after; the counts held against
+    ``want_of(job, cells, n_ticks)``, the losses finite and the first near
+    ln V. Returns (job, counts, ms a tick)."""
+    from repro_torch.launch.workload import WorkerSpec, build_workload
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import map_specs
+    from repro_torch.train.trainer import train_zoo
+    from repro_torch.tree import tree_leaves
+
+    spec = WorkerSpec(**spec_kw)
+    job, scenarios, seeds = build_workload(spec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = train_zoo(job, scenarios, seeds, n_ticks=spec.n_ticks,
+                    remat=remat, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    cells = int(res.iterations.size)
+    want = want_of(job, cells, spec.n_ticks)
+    losses = zoo_losses(res)
+    flat = [float(x) for row in losses for x in row]
+    vocab = job.model.vocab_size
+    emit({"phase": name, "entry": f"trainer.train_zoo(remat={remat!r})",
+          "spec": spec_kw, "params": sum(tree_leaves(map_specs(
+              lambda _, sp: math.prod(sp.shape),
+              model_zoo.param_defs(job.model)))), "cells": cells,
+          "n_ticks": spec.n_ticks, "iterations": res.iterations.tolist(),
+          "losses": [list(map(float, x)) for x in losses],
+          "ln_V": math.log(vocab), "counts": counts, "designed": want,
+          "run_s": run_s, "ms_per_tick": 1e3 * run_s / spec.n_ticks,
+          "peak_mem_bytes": peak})
+    if counts != want:
+        raise AssertionError(f"{name}: counts {counts}, designed {want}")
+    if not flat or not all(math.isfinite(x) for x in flat) or \
+            not abs(flat[0] - math.log(vocab)) < 3.0:
+        raise AssertionError(f"{name}: losses {losses} (ln V = "
+                             f"{math.log(vocab):.3f})")
+    return job, counts, 1e3 * run_s / spec.n_ticks
+
+
+def designed(**per_kernel):
+    """The counts a run should read: the named ones, every other 0."""
+    from repro_torch.kernels import ops
+
+    return {n: per_kernel.get(n, 0)
+            for n in list(ops.launch_counts()) + ["ssd_training_route"]}
+
+
+def k2_sites(fwd, bwd):
+    """K2's tensor-core kernels: ``fwd`` forwards, ``bwd`` backwards (each
+    one D_i pre-pass, one dK/dV and one dQ)."""
+    return {"flash_attention_fwd_tc": fwd, "flash_attention_bwd_delta": bwd,
+            "flash_attention_bwd_dkdv_tc": bwd,
+            "flash_attention_bwd_dq_tc": bwd}
+
+
+def phase_train_hybrid(torch, smi):
+    """``train_zoo(remat="full")`` of the cut Zamba2-7B: per cell and tick
+    K2's forward twice a site (the recompute), its backward once, the SSD's
+    training route twice a Mamba2 layer, K3 never. Then one cell step each
+    under "none", "dots" and "full" at `REMAT_BATCH`, and K2 at the path's
+    shape."""
+    def want(job, cells, ticks):
+        sites = job.model.num_layers // job.model.attn_every
+        return designed(**k2_sites(2 * sites * cells * ticks,
+                                   sites * cells * ticks),
+                        ssd_training_route=2 * job.model.num_layers
+                        * cells * ticks)
+
+    job, counts, tick_ms = zoo_train_phase(torch, "train_hybrid",
+                                           TRAIN_HYBRID_SPEC, want,
+                                           remat="full")
+    free(torch)
+    phase_remat_compare(torch, job)
+    free(torch)
+    sites = job.model.num_layers // job.model.attn_every
+    rows = phase_k2_at_path_shape(torch, smi, counts, tick_ms, sites,
+                                  shape=K2_HYBRID_SHAPE,
+                                  phase="k2_at_hybrid_shape",
+                                  cuda_core=False)
+    free(torch)
+    return rows
+
+
+def phase_remat_compare(torch, job):
+    """One loss-and-gradient step of the cut hybrid at `REMAT_BATCH` under
+    "full", "none" and "dots" on the same bf16 weights and batch: the loss
+    and every gradient leaf bit-equal to "full"'s, and each mode's counts
+    (K2's forward relaunched by both recomputing modes, the SSD's training
+    route run again), time and peak memory."""
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import init_params
+    from repro_torch.train.train_step import make_loss_grad
+    from repro_torch.train.trainer import stack_batches
+    from repro_torch.tree import tree_leaves
+
+    job = dataclasses.replace(job, n_workers=REMAT_BATCH,
+                              shape=dataclasses.replace(
+                                  job.shape, global_batch=REMAT_BATCH))
+    cfg = job.model
+    params = init_params(model_zoo.param_defs(cfg), job.seed,
+                         cfg.resolved_param_dtype(), device="cuda")
+    batch = {k: x[0] for k, x in stack_batches(job, 1, device="cuda").items()}
+    mask = torch.ones(job.n_workers, device="cuda")
+    sites, layers = cfg.num_layers // cfg.attn_every, cfg.num_layers
+    # one untimed step first: the batch's GEMM shapes are new to cuBLAS
+    make_loss_grad(cfg, job, "none")(params, batch, mask)
+    runs, ref_grads, ref_loss, bad = {}, None, None, []
+    for remat in ("full", "none", "dots"):
+        again = 1 if remat == "none" else 2
+        want = designed(**k2_sites(again * sites, sites),
+                        ssd_training_route=again * layers)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        grads, loss, _ = make_loss_grad(cfg, job, remat)(params, batch, mask)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        counts = read_counts()
+        if counts != want:
+            bad.append((remat, "counts", counts, want))
+        if ref_grads is None:
+            ref_grads, ref_loss = grads, loss
+            equal = True
+        else:
+            equal = bool(torch.equal(loss, ref_loss)) and all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(grads),
+                                                  tree_leaves(ref_grads)))
+            if not equal:
+                bad.append((remat, "gradients differ from full's"))
+        runs[remat] = {"step_ms": 1e3 * step_s, "loss": loss.item(),
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                       "counts": counts, "bit_equal_to_full": equal}
+        del grads
+    emit({"phase": "remat_hybrid", "batch": REMAT_BATCH,
+          "layers": layers, "sites": sites, "runs": runs})
+    if bad:
+        raise AssertionError(f"remat_hybrid: {bad}")
+
+
+def hybrid_fresh_caches(torch, cfg, seq_len):
+    """A fresh cache tree for the served batch in the config's dtype
+    (states float32): zeros, positions −1."""
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import init_params
+
+    return init_params(model_zoo.cache_defs(cfg, SERVE_HYBRID["batch"],
+                                            seq_len),
+                       SERVE_HYBRID["seed"], cfg.resolved_param_dtype(),
+                       device="cuda")
+
+
+def hybrid_decode_vs_longer_prefill(torch, cfg, params, prompt, tokens):
+    """The prefill's last logits and 31 decode steps fed the path's
+    tokens, against one prefill of 2304 positions (the prompt, the tokens
+    and seeded filler to a whole number of chunks): the worst |difference|,
+    the same over the largest |logit|, and the share of positions whose
+    argmax agrees where the longer prefill's top two differ."""
+    from repro_torch.models import model_zoo
+
+    plen, n_gen = SERVE_HYBRID["prompt"], SERVE_HYBRID["gen"]
+    q = cfg.ssm.chunk_size
+    long_len = -(-(plen + n_gen) // q) * q
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_HYBRID["seed"] + 1)
+    filler = torch.randint(0, cfg.vocab_size,
+                           (prompt.shape[0], long_len - plen - n_gen),
+                           generator=gen, device="cuda")
+    with torch.no_grad():
+        logits, caches = model_zoo.prefill(
+            params, cfg, {"tokens": prompt},
+            hybrid_fresh_caches(torch, cfg, plen + n_gen))
+        steps = [logits[:, -1].float()]
+        del logits
+        for g in range(n_gen - 1):
+            lg, caches = model_zoo.decode_step(params, cfg,
+                                               tokens[:, g:g + 1], caches,
+                                               plen + g)
+            steps.append(lg[:, 0].float())
+        del caches
+        got = torch.stack(steps, dim=1)
+        long, _ = model_zoo.prefill(
+            params, cfg,
+            {"tokens": torch.cat([prompt, tokens, filler], dim=1)},
+            hybrid_fresh_caches(torch, cfg, long_len))
+        want = long[:, plen - 1:plen + n_gen - 1].float()
+        del long
+    err = float((got - want).abs().max())
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 0
+    return {"long_prefill_tokens": long_len, "max_abs_err": err,
+            "rel_err": err / float(want.abs().max()),
+            "finite": bool(torch.isfinite(got).all()),
+            "top1_agree": float((got.argmax(-1) == want.argmax(-1))[clear]
+                                .float().mean())}
+
+
+def phase_serve_hybrid(torch, smi):
+    """Slice 11's serving path, twice: ``launch.serve.prefill_prompt`` (K3
+    once per Mamba2 layer, the SSD's training route never) then
+    ``greedy_decode`` (no kernel), each with the counts set to 0 just
+    before and read just after. Then one prefill and one decode step under
+    ``torch.profiler``, prefill-then-decode against one longer prefill, K3
+    in place, and K3 at the path's shape. Returns K3's kernel rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo, ssm
+    from repro_torch.models.common import init_params, rms_norm
+    from repro_torch.models.transformer import embed_tokens
+    from repro_torch.train.train_step import make_serve_step
+    from repro_torch.tree import tree_index, tree_leaves
+
+    bsz, plen, n_gen = (SERVE_HYBRID["batch"], SERVE_HYBRID["prompt"],
+                        SERVE_HYBRID["gen"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = get_config(SERVE_HYBRID["arch"])
+    params = init_params(model_zoo.param_defs(cfg), SERVE_HYBRID["seed"],
+                         torch.bfloat16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_HYBRID["seed"])
+    prompt = torch.randint(0, cfg.vocab_size, (bsz, plen), generator=gen,
+                           device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    want_pre = designed(ssd_chunk=cfg.num_layers)
+    want_dec = designed()
+    runs = []
+    for _ in range(2):
+        caches = hybrid_fresh_caches(torch, cfg, plen + n_gen)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        nxt, caches = serve.prefill_prompt(cfg, params, caches, prompt)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre = read_counts()
+        reset_counts()
+        t0 = time.perf_counter()
+        tokens, caches = serve.greedy_decode(cfg, params, caches, nxt, plen,
+                                             n_gen - 1)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        dec = read_counts()
+        if pre != want_pre or dec != want_dec:
+            raise AssertionError(
+                f"serve_hybrid: counts {pre} in the prefill (designed "
+                f"{want_pre}: K3 once per Mamba2 layer) and {dec} in decode "
+                "(designed none)")
+        if tuple(tokens.shape) != (bsz, n_gen) or not bool(
+                ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+            raise AssertionError(f"serve_hybrid: tokens "
+                                 f"{tuple(tokens.shape)} out of range")
+        if not all(bool(torch.isfinite(x).all()) for x in tree_leaves(caches)
+                   if x.is_floating_point()):
+            raise AssertionError("serve_hybrid: non-finite caches")
+        want_pos = torch.arange(plen + n_gen, dtype=torch.int32,
+                                device="cuda")
+        want_pos[-1] = -1        # the last generated token is not fed back
+        if not bool((caches["attn"]["pos"] == want_pos).all()):
+            raise AssertionError("serve_hybrid: KV cache positions are not "
+                                 f"0..{plen + n_gen - 2} and one unwritten")
+        runs.append({"prefill_ms": 1e3 * prefill_s,
+                     "prefill_tokens_per_s": bsz * plen / prefill_s,
+                     "decode_ms_per_step": 1e3 * decode_s / (n_gen - 1),
+                     "generated_tokens_per_s": bsz * (n_gen - 1) / decode_s,
+                     "counts_prefill": pre, "counts_decode": dec,
+                     "tokens": tokens})
+    peak = torch.cuda.max_memory_allocated()
+    same = bool(torch.equal(runs[0]["tokens"], runs[1]["tokens"]))
+    tokens = runs[1].pop("tokens")
+    runs[0].pop("tokens")
+    g_sites, tail = divmod(cfg.num_layers, cfg.attn_every)
+    out = {"phase": "serve_hybrid", "entry": "launch.serve.prefill_prompt "
+           "+ greedy_decode (make_serve_step)", "serve": SERVE_HYBRID,
+           "config": {"arch": cfg.name, "mamba2_layers": cfg.num_layers,
+                      "super_groups": g_sites, "tail": tail,
+                      "d_model": cfg.d_model, "dtype": "bfloat16",
+                      "params": sum(x.numel() for x in tree_leaves(params))},
+           "init_s": init_s, "runs": runs, "same_tokens_both_runs": same,
+           "peak_mem_bytes": peak, "param_bytes": tree_bytes(params),
+           "kv_cache_bytes": tree_bytes(caches["attn"]),
+           "ssm_cache_bytes": tree_bytes(caches["ssm_groups"])
+           + tree_bytes(caches.get("ssm_tail", {})),
+           "sample": tokens[0, :16].tolist()}
+
+    # one prefill and one decode step under the profiler
+    step = make_serve_step(cfg)
+    nxt = tokens[:, -1:]
+    busy_d, ops_d, top_d = device_profile(
+        torch, lambda: step(params, caches, nxt, plen + n_gen - 1))
+    busy_p, ops_p, top_p = device_profile(
+        torch, lambda: serve.prefill_prompt(
+            cfg, params, hybrid_fresh_caches(torch, cfg, plen + n_gen),
+            prompt))
+    for key, busy, n_ops, top, wall in (
+            ("prefill_profile", busy_p, ops_p, top_p, runs[1]["prefill_ms"]),
+            ("decode_profile", busy_d, ops_d, top_d,
+             runs[1]["decode_ms_per_step"])):
+        out[key] = {"device_busy_ms": busy, "wall_ms_unprofiled": wall,
+                    "device_idle_share": 1 - busy / wall
+                    if busy != "not measured" else "not measured",
+                    "device_ops": n_ops, "top5_ms": top}
+
+    # K3 in place: the first Mamba2 layer's block on the prompt, from its
+    # cache after the path, with K3 and with the plain version
+    lay = tree_index(params["groups"], (0, 0))
+    cache0 = tree_index(caches["ssm_groups"], (0, 0))
+    del caches
+    free(torch)
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+    with torch.no_grad():
+        x = rms_norm(embed_tokens(params, cfg, prompt), lay["ln"],
+                     cfg.norm_eps)
+        reset_counts()
+        out_k, c_k = ssm.ssm_block(lay["ssm"], cfg, x, cache=cache0)
+        in_place_counts = read_counts()
+        with plain_k3():
+            out_p, c_p = ssm.ssm_block(lay["ssm"], cfg, x, cache=cache0)
+    block = {"out": rel(out_k, out_p), "h": rel(c_k["h"], c_p["h"]),
+             "conv": rel(c_k["conv"], c_p["conv"])}
+    del out_k, out_p, c_k, c_p, x, cache0
+    free(torch)
+    out["k3_in_place"] = {"block_rel_err": block,
+                          "tolerance": HYBRID_IN_PLACE_TOL,
+                          "counts": in_place_counts}
+
+    # prefill then decode against one longer prefill: bf16 at full depth,
+    # then float32 at full width and depth HYBRID_F32_DEPTH
+    bf16 = hybrid_decode_vs_longer_prefill(torch, cfg, params, prompt,
+                                           tokens)
+    del params
+    free(torch)
+    cfg32 = cfg.with_(num_layers=HYBRID_F32_DEPTH, dtype="float32",
+                      param_dtype="float32")
+    f32 = hybrid_decode_vs_longer_prefill(
+        torch, cfg32, init_params(model_zoo.param_defs(cfg32),
+                                  SERVE_HYBRID["seed"], device="cuda"),
+        prompt, tokens)
+    free(torch)
+    out["decode_vs_longer_prefill"] = {
+        "bfloat16": bf16, "bfloat16_held": False,
+        f"float32_depth_{HYBRID_F32_DEPTH}": f32,
+        "tolerance": HYBRID_DECODE_TOL}
+    out["card"] = smi
+    emit(out)
+    ok_block = all(block[k] <= HYBRID_IN_PLACE_TOL[k] for k in block) and \
+        in_place_counts == designed(ssd_chunk=1)
+    ok_bf16 = bf16["finite"]
+    ok_f32 = f32["finite"] and f32["max_abs_err"] <= \
+        HYBRID_DECODE_TOL["float32_abs"]
+    if not (same and ok_block and ok_bf16 and ok_f32):
+        raise AssertionError(
+            f"serve_hybrid: same tokens both runs {same}, K3 in place "
+            f"{block} {in_place_counts}, prefill-then-decode vs longer "
+            f"prefill bf16 {bf16}, float32 {f32} (tolerance "
+            f"{HYBRID_DECODE_TOL})")
+    rows = phase_k3_at_path_shape(
+        torch, smi, runs[1]["counts_prefill"], runs[1]["prefill_ms"],
+        shape=K3_HYBRID_SHAPE, dtype="bfloat16",
+        phase="k3_at_hybrid_shape", cuda_core=False)
+    free(torch)
+    return rows
+
+
+def phase_train_encdec(torch, smi):
+    """``train_zoo`` of Whisper-base (no remat, as the trainer's default):
+    per cell and tick K2's forward and backward once at each of the six
+    encoder (non-causal) and six decoder (causal) sites, no other kernel;
+    then K2 at the encoder's shape. Returns K2's kernel rows there."""
+    def want(job, cells, ticks):
+        sites = (job.model.encoder.num_layers + job.model.num_layers) \
+            * cells * ticks
+        return designed(**k2_sites(sites, sites))
+
+    job, counts, tick_ms = zoo_train_phase(torch, "train_encdec",
+                                           TRAIN_ENCDEC_SPEC, want)
+    free(torch)
+    rows = phase_k2_at_path_shape(torch, smi, counts, tick_ms,
+                                  job.model.encoder.num_layers,
+                                  shape=K2_WHISPER_SHAPE,
+                                  phase="k2_at_whisper_encoder_shape",
+                                  cuda_core=False)
+    free(torch)
+    return rows
+
+
+def phase_serve_encdec(torch, smi):
+    """Whisper-base served through ``model_zoo.prefill`` (the encoder over
+    the frames, K2 non-causal once per encoder layer, and the cross cache)
+    and 31 ``make_serve_step`` steps (no kernel), twice, each with the
+    counts set to 0 just before and read just after."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import init_params
+    from repro_torch.train.train_step import make_serve_step
+    from repro_torch.tree import tree_leaves
+
+    bsz, plen, n_gen = (SERVE_ENCDEC["batch"], SERVE_ENCDEC["prompt"],
+                        SERVE_ENCDEC["gen"])
+    cfg = get_config(SERVE_ENCDEC["arch"]).with_(use_flash_attention=True)
+    params = init_params(model_zoo.param_defs(cfg), SERVE_ENCDEC["seed"],
+                         torch.bfloat16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_ENCDEC["seed"])
+    prompt = torch.randint(0, cfg.vocab_size, (bsz, plen), generator=gen,
+                           device="cuda")
+    frames = torch.randn(bsz, cfg.encoder.src_len, cfg.d_model,
+                         generator=gen, device="cuda") * 0.5
+    step = make_serve_step(cfg)
+    want_pre = designed(flash_attention_fwd_tc=cfg.encoder.num_layers)
+    runs = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        caches = init_params(model_zoo.cache_defs(cfg, bsz, plen + n_gen),
+                             SERVE_ENCDEC["seed"], torch.bfloat16,
+                             device="cuda")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, caches = model_zoo.prefill(
+                params, cfg, {"tokens": prompt, "frames": frames}, caches)
+            nxt = torch.argmax(logits[:, -1:], dim=-1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre = read_counts()
+        finite = bool(torch.isfinite(logits).all())
+        del logits
+        reset_counts()
+        t0 = time.perf_counter()
+        out = [nxt]
+        for g in range(n_gen - 1):
+            nxt, caches = step(params, caches, nxt, plen + g)
+            out.append(nxt)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        dec = read_counts()
+        tokens = torch.cat(out, dim=1)
+        cross_ok = tuple(caches["cross"]["k"].shape) == (
+            cfg.num_layers, bsz, cfg.encoder.src_len, cfg.num_kv_heads,
+            cfg.resolved_head_dim)
+        if pre != want_pre or dec != designed():
+            raise AssertionError(f"serve_encdec: counts {pre} in the prefill "
+                                 f"(designed {want_pre}) and {dec} in "
+                                 "decode (designed none)")
+        if not (finite and cross_ok and bool(
+                ((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+                and all(bool(torch.isfinite(x).all())
+                        for x in tree_leaves(caches)
+                        if x.is_floating_point())):
+            raise AssertionError(f"serve_encdec: logits finite {finite}, "
+                                 f"cross cache shape {cross_ok}, tokens "
+                                 f"{tokens[0].tolist()}")
+        runs.append({"prefill_ms": 1e3 * prefill_s,
+                     "decode_ms_per_step": 1e3 * decode_s / (n_gen - 1),
+                     "generated_tokens_per_s": bsz * (n_gen - 1) / decode_s,
+                     "counts_prefill": pre, "counts_decode": dec,
+                     "tokens": tokens})
+    same = bool(torch.equal(runs[0].pop("tokens"), runs[1]["tokens"]))
+    tokens = runs[1].pop("tokens")
+    emit({"phase": "serve_encdec", "entry": "model_zoo.prefill (frames) + "
+          "make_serve_step", "serve": SERVE_ENCDEC, "runs": runs,
+          "same_tokens_both_runs": same,
+          "params": sum(x.numel() for x in tree_leaves(params)),
+          "cache_bytes": tree_bytes(caches),
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "sample": tokens[0, :16].tolist(), "card": smi})
+    if not same:
+        raise AssertionError("serve_encdec: tokens differ between the runs")
+
+
 def free(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -2768,8 +3412,15 @@ def main() -> int:
     free(torch)
     for arch in SERVE_TF["archs"]:
         phase_serve_transformer(torch, arch, smi)
-    emit({"phase": "total", "seconds": time.perf_counter() - t_main})
-    emit({"kernels": [k1] + k2 + k3})
+    t11 = time.perf_counter()
+    k3_hybrid = phase_serve_hybrid(torch, smi)
+    k2_hybrid = phase_train_hybrid(torch, smi)
+    k2_whisper = phase_train_encdec(torch, smi)
+    phase_serve_encdec(torch, smi)
+    free(torch)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_main,
+          "slice_11_seconds": time.perf_counter() - t11})
+    emit({"kernels": [k1] + k2 + k3 + k3_hybrid + k2_hybrid + k2_whisper})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -20,8 +20,9 @@ staged by double-buffered ``cp.async``. The CUDA-core kernel it replaced,
 ``csrc/ssd_scan.cu`` (`ssd_chunk_cuda_core`), computes the same function
 and stays in the library, off the path, as the yardstick the card times
 beside it. Each source's header says what bounds it and how it is laid
-out. Neither has a backward: the SSM training slice brings one, and until
-then both refuse inputs that require a gradient. Their plain version is
+out. Neither has a backward, as the reference's Pallas kernel has none,
+and both refuse inputs that require a gradient: the model trains through
+``models.ssm.ssd_chunked``, the reference model's jnp route. Their plain version is
 ``kernels.ref.ssd_chunk_reference``; ``kernels.ops.ssd_chunked`` picks
 between it and `ssd_chunk` by the device of the tensors and runs the
 inter-chunk recurrence around them."""
@@ -72,8 +73,10 @@ def _check(xh, dt, a_h, bm, cm, q) -> None:
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xh, dt, a_h, bm, cm)):
         raise NotImplementedError(
-            "the SSD chunk kernel (K3) has no backward yet: it comes with "
-            "the SSM training slice; run the forward under torch.no_grad()")
+            "the SSD chunk kernel (K3) has no backward, as the reference's "
+            "Pallas kernel has none: training takes models.ssm.ssd_chunked "
+            "(the reference model's jnp route); run K3 under "
+            "torch.no_grad()")
     dev = xh.device
     if dev.type != "cuda":
         raise ValueError(f"ssd_chunk runs on CUDA tensors, got {dev}; CPU "

@@ -1,10 +1,11 @@
 """GQA attention: parameter definitions, the full-sequence (training)
-block and the KV-cache path (chunked prefill and decode, sliding-window
-ring caches). Causal and sliding-window masks; with
-``cfg.use_flash_attention`` the cache-free self-attention core is
-`kernels.ops.flash_mha` (K2 on the card), else, and always against a
-cache, the plain core `_attend`, as in the reference. Cross-attention and
-its cache come with the enc-dec slice of the port and raise here."""
+block, the KV-cache path (chunked prefill and decode, sliding-window
+ring caches) and cross-attention (enc-dec: keys and values from the
+encoder's states, or from a precomputed cross cache when decoding).
+Causal and sliding-window masks; with ``cfg.use_flash_attention`` the
+cache-free self-attention core is `kernels.ops.flash_mha` (K2 on the
+card), else, and always against a cache or across, the plain core
+`_attend`, as in the reference."""
 from __future__ import annotations
 
 from typing import Optional
@@ -104,18 +105,18 @@ def cache_write(buf, new, slot):
 
 def attention_block(p, cfg, x, qpos, *, kv_src=None, kv_pos=None, cache=None,
                     cache_pos=None, causal=True, cross_cached=False):
-    """One self-attention block.
+    """One attention block (self- or cross-).
 
     x: (B, S, d) hidden states; qpos: (B, S) absolute positions.
+    kv_src: (B, T, d) for cross-attention (the keys' and values' source;
+      no rope, neither causal nor windowed), at ``kv_pos``.
     cache: optional dict(k, v, pos) — decode mode; the new keys, values
       and positions are written at ``cache_pos`` (modulo the cache length
       for sliding windows: a ring buffer) into a new cache, and the block
-      attends over all of it; unwritten slots carry position −1.
+      attends over all of it; unwritten slots carry position −1. With
+      ``cross_cached`` the cache holds the precomputed cross keys and
+      values, is attended as it is and comes back unchanged.
     Returns (y, new_cache); new_cache is None without a cache."""
-    if kv_src is not None or cross_cached:
-        raise NotImplementedError(
-            "cross-attention is not ported to repro_torch yet: it comes "
-            "with the enc-dec slice")
     B, S, _ = x.shape
     dh = cfg.resolved_head_dim
     hq = p["wq"].shape[1] // dh
@@ -127,33 +128,44 @@ def attention_block(p, cfg, x, qpos, *, kv_src=None, kv_pos=None, cache=None,
     if "bq" in p:
         q = q + p["bq"]
     q = _split_heads(q, hq, dh)
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if "bk" in p:
-        k = k + p["bk"]
-    if "bv" in p:
-        v = v + p["bv"]
-    k = _split_heads(k, hkv, dh)
-    v = _split_heads(v, hkv, dh)
-    kpos = kv_pos if kv_pos is not None else qpos
-    if cfg.rope_theta > 0:
+    use_rope = cfg.rope_theta > 0 and kv_src is None and not cross_cached
+    if use_rope:
         q = rope(q, qpos, cfg.rope_theta)
-        k = rope(k, kpos, cfg.rope_theta)
-    new_cache = None
-    if cache is not None:
-        slot = cache_pos % cache["k"].shape[1] if window is not None \
-            else cache_pos
-        k = cache_write(cache["k"], k, slot)
-        v = cache_write(cache["v"], v, slot)
-        kpos = cache_write(cache["pos"], kpos, slot)
-        new_cache = {"k": k, "v": v, "pos": kpos}
 
-    if cfg.use_flash_attention and cache is None and kv_pos is None:
+    new_cache = None
+    if cross_cached:
+        k, v, kpos = cache["k"], cache["v"], cache["pos"]
+        new_cache = cache
+    else:
+        src = kv_src if kv_src is not None else x
+        k = src @ p["wk"]
+        v = src @ p["wv"]
+        if "bk" in p:
+            k = k + p["bk"]
+        if "bv" in p:
+            v = v + p["bv"]
+        k = _split_heads(k, hkv, dh)
+        v = _split_heads(v, hkv, dh)
+        kpos = kv_pos if kv_pos is not None else qpos
+        if use_rope:
+            k = rope(k, kpos, cfg.rope_theta)
+        if cache is not None:
+            slot = cache_pos % cache["k"].shape[1] if window is not None \
+                else cache_pos
+            k = cache_write(cache["k"], k, slot)
+            v = cache_write(cache["v"], v, slot)
+            kpos = cache_write(cache["pos"], kpos, slot)
+            new_cache = {"k": k, "v": v, "pos": kpos}
+
+    is_cross = kv_src is not None or cross_cached
+    if (cfg.use_flash_attention and cache is None and not is_cross
+            and kv_pos is None):
         # positions come from array offsets in the kernel (query s at s,
         # keys at 0..T-1), which is exactly this path's contiguous qpos
         ctx = ops.flash_mha(q, k, v, causal=causal, window=window)
     else:
-        ctx = _attend(q, k, v, qpos, kpos, causal=causal, window=window)
+        ctx = _attend(q, k, v, qpos, kpos, causal=causal and not is_cross,
+                      window=None if is_cross else window)
     ctx = ctx.reshape(B, S, hq * dh)
     return ctx @ p["wo"], new_cache
 
@@ -171,5 +183,21 @@ def self_cache_defs(cfg, batch: int, seq_len: int):
         "k": kv,
         "v": kv,
         "pos": ParamSpec((batch, W), ("batch", None), init="neg_ones",
+                         dtype=torch.int32),
+    }
+
+
+def cross_cache_defs(cfg, batch: int, src_len: int):
+    """ParamSpecs of one decoder layer's cross cache: the encoder states'
+    keys and values and their positions (zeros until
+    ``encdec.build_cross_cache`` fills them)."""
+    dh = cfg.resolved_head_dim
+    hkv = cfg.num_kv_heads
+    kv = ParamSpec((batch, src_len, hkv, dh), ("batch", None, "tp", None),
+                   init="zeros")
+    return {
+        "k": kv,
+        "v": kv,
+        "pos": ParamSpec((batch, src_len), ("batch", None), init="zeros",
                          dtype=torch.int32),
     }

@@ -1,5 +1,6 @@
 """Shared model infrastructure: the declarative ``ParamSpec`` and its
-materialization, and the numerics helpers (RMSNorm, RoPE, SwiGLU).
+materialization, and the numerics helpers (RMSNorm, RoPE, SwiGLU, the
+sinusoidal positions).
 
 ``ParamSpec`` is the single source of truth for every parameter: shape,
 dtype, logical sharding tokens (kept as data so the definitions read as in
@@ -10,6 +11,7 @@ tests hand both packages the same weights instead (``convert``)."""
 from __future__ import annotations
 
 import dataclasses
+import math
 import zlib
 from typing import Any, Optional, Tuple
 
@@ -131,6 +133,24 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x2 = x[..., half:].to(torch.float32)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def sinusoidal_at(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Whisper-style absolute sinusoidal embeddings at given positions, in
+    float32. positions: (...,) integers -> (..., d)."""
+    half = d // 2
+    dev = positions.device
+    freqs = torch.exp(-torch.tensor(math.log(10000.0), dtype=torch.float32,
+                                    device=dev)
+                      * torch.arange(half, dtype=torch.float32, device=dev)
+                      / max(half - 1, 1))
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_positions(length: int, d: int, *, device=None) -> torch.Tensor:
+    """Whisper-style absolute sinusoidal embeddings (length, d)."""
+    return sinusoidal_at(torch.arange(length, device=device), d)
 
 
 def swiglu(gate_up: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Unified model API over the families the port runs.
+"""Unified model API over every family of the reference.
 
 * ``param_defs(cfg)``   -> ParamSpec nested dict
 * ``forward(params, cfg, batch)``  -> (logits, moe_aux)   [train / prefill]
@@ -6,34 +6,26 @@
 * ``cache_defs(cfg, batch, seq_len)`` -> ParamSpec nested dict of caches
 * ``prefill(params, cfg, batch, caches)`` -> (logits, caches)
 
-The dense, MoE (incl. MLA) and VLM families are ported for training (a
-VLM batch carries its projected patch embeddings as a prefix) and for
-serving against KV caches (a VLM decodes text tokens only, as the
-reference does); the SSM family (Mamba2) for training's forward and for
-serving: the chunked prefill and the one-token decode. The hybrid and
-enc-dec families come with the zoo-families slice. Layers run as a Python
-loop over the stacked (L, ...) layer leaves, the reference's
-``lax.scan``."""
+Families: dense, MoE (incl. MLA) and VLM (`models.transformer`; a VLM
+batch carries its projected patch embeddings as a prefix and decodes text
+tokens only, as the reference does), the SSM family (Mamba2), the hybrid
+(Zamba2, `models.hybrid`) and enc-dec (Whisper, `models.encdec`). Layers
+run as a Python loop over the stacked (L, ...) layer leaves, the
+reference's ``lax.scan``; the training forward runs each layer (each
+super-group of the hybrid) under ``remat``, "full" by default, as in the
+reference."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.common import ParamSpec, stack_specs
-from repro_torch.tree import tree_index, tree_map
-
-_PORTED = ("dense", "moe", "vlm", "ssm")
-
-
-def _family(cfg) -> None:
-    if cfg.family not in _PORTED:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported to repro_torch yet: "
-            "it comes with the zoo-families slice")
+from repro_torch.tree import tree_index
 
 
 # ---------------------------------------------------------------- pure-SSM LM
@@ -49,31 +41,28 @@ def _ssm_lm_defs(cfg):
     }
 
 
-def _ssm_lm_forward(params, cfg, tokens, remat="none"):
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r} is not ported to repro_torch yet: it comes "
-            "with the remat slice (activation checkpointing)")
+def _ssm_lm_forward(params, cfg, tokens, remat="full"):
     x = tf_mod.embed_tokens(params, cfg, tokens)
+
+    def body(x, layer_p):
+        y, _ = hybrid_mod._ssm_layer(layer_p, cfg, x)
+        return y
+
+    body = tf_mod._remat(body, remat)
     for layer in range(cfg.num_layers):
-        x, _ = hybrid_mod._ssm_layer(tree_index(params["layers"], layer),
-                                     cfg, x)
+        x = body(x, tree_index(params["layers"], layer))
     return tf_mod.unembed(params, cfg, x), torch.zeros(
         (), dtype=torch.float32, device=x.device)
 
 
 def _ssm_lm_decode(params, cfg, token, caches, pos):
     """Every layer against its cache: a chunked prefill when ``token`` has
-    S > 1 positions, a decode step when it has one. The new caches are
-    written into fresh stacked buffers, layer by layer; ``caches`` is left
-    as it was."""
+    S > 1 positions, a decode step when it has one. The new caches come
+    back in fresh stacked buffers; ``caches`` is left as it was."""
     del pos  # the SSM state is O(1) in the position
     x = tf_mod.embed_tokens(params, cfg, token)
-    new_caches = tree_map(torch.empty_like, caches)
-    for layer in range(cfg.num_layers):
-        x, c = hybrid_mod._ssm_layer(tree_index(params["layers"], layer), cfg,
-                                     x, cache=tree_index(caches, layer))
-        tree_map(lambda out, new: out[layer].copy_(new), new_caches, c)
+    x, new_caches = hybrid_mod._ssm_stack(params["layers"], cfg, x,
+                                          caches=caches)
     return tf_mod.unembed(params, cfg, x), new_caches
 
 
@@ -85,18 +74,27 @@ def _ssm_lm_cache_defs(cfg, batch, seq_len):
 # ---------------------------------------------------------------- dispatch
 
 def param_defs(cfg):
-    _family(cfg)
+    if cfg.family == "encdec":
+        return encdec_mod.encdec_defs(cfg)
     if cfg.family == "ssm":
         return _ssm_lm_defs(cfg)
+    if cfg.family == "hybrid":
+        return hybrid_mod.hybrid_defs(cfg)
     return tf_mod.lm_defs(cfg)          # dense | moe | vlm
 
 
-def forward(params, cfg, batch: Dict[str, torch.Tensor], remat: str = "none"
+def forward(params, cfg, batch: Dict[str, torch.Tensor], remat: str = "full"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """batch keys: tokens (B, S); vlm additionally patches (B, P, d)."""
-    _family(cfg)
+    """batch keys: tokens (B, S); encdec additionally frames (B, src, d);
+    vlm additionally patches (B, P, d)."""
+    if cfg.family == "encdec":
+        return encdec_mod.encdec_forward(params, cfg, batch["tokens"],
+                                         batch["frames"], remat=remat)
     if cfg.family == "ssm":
         return _ssm_lm_forward(params, cfg, batch["tokens"], remat=remat)
+    if cfg.family == "hybrid":
+        return hybrid_mod.hybrid_forward(params, cfg, batch["tokens"],
+                                         remat=remat)
     prefix = batch.get("patches") if cfg.family == "vlm" else None
     return tf_mod.lm_forward(params, cfg, batch["tokens"],
                              prefix_embeds=prefix, remat=remat)
@@ -104,21 +102,32 @@ def forward(params, cfg, batch: Dict[str, torch.Tensor], remat: str = "none"
 
 def decode_step(params, cfg, tokens, caches, pos):
     """tokens (B, 1) integer ids, pos the position of the first."""
-    _family(cfg)
+    if cfg.family == "encdec":
+        return encdec_mod.encdec_decode(params, cfg, tokens, caches, pos)
     if cfg.family == "ssm":
         return _ssm_lm_decode(params, cfg, tokens, caches, pos)
+    if cfg.family == "hybrid":
+        return hybrid_mod.hybrid_decode(params, cfg, tokens, caches, pos)
     return tf_mod.lm_decode(params, cfg, tokens, caches, pos)
 
 
 def cache_defs(cfg, batch: int, seq_len: int):
-    _family(cfg)
+    if cfg.family == "encdec":
+        return encdec_mod.encdec_cache_defs(cfg, batch, seq_len)
     if cfg.family == "ssm":
         return _ssm_lm_cache_defs(cfg, batch, seq_len)
+    if cfg.family == "hybrid":
+        return hybrid_mod.hybrid_cache_defs(cfg, batch, seq_len)
     return tf_mod.lm_cache_defs(cfg, batch, seq_len)
 
 
 def prefill(params, cfg, batch: Dict[str, torch.Tensor], caches, pos=0):
     """Chunked prefill: consume the whole prompt in ONE cached pass (decode
-    semantics with S > 1). batch: tokens (B, S). Returns (logits (B, S, V),
-    caches)."""
+    semantics with S > 1, every family). batch: tokens (B, S), and for
+    enc-dec frames (B, src, d): the cross cache is built here. Returns
+    (logits (B, S, V), caches)."""
+    if cfg.family == "encdec":
+        caches = dict(caches)
+        caches["cross"] = encdec_mod.build_cross_cache(params, cfg,
+                                                       batch["frames"])
     return decode_step(params, cfg, batch["tokens"], caches, pos)

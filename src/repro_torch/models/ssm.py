@@ -3,9 +3,19 @@
 Chunked SSD forward (full sequence and prefill): intra-chunk attention-like
 products plus the inter-chunk linear state recurrence, O(S·Q) work and an
 O(1)-per-token state. Decode: a one-token recurrent update of the (H, P, N)
-state. The chunked branches run `kernels.ops.ssd_chunked`, whose
-intra-chunk terms are K3 on the card (the reference's model runs its jnp
-``ssd_chunked`` instead and leaves its Pallas kernel to the tests).
+state.
+
+The chunked SSD has two routes, each the counterpart of a reference
+function, and `ssm_block` picks one by a single rule: when autograd is
+recording and an SSD input requires a gradient (training), it runs
+`ssd_chunked` here, the plain PyTorch port of the reference model's jnp
+``ssd_chunked`` (``models/ssm.py``), on either device; otherwise
+(serving, evaluation) it runs `kernels.ops.ssd_chunked`, the counterpart
+of the reference's ``kernels.ops.ssd_chunked_pallas``, whose intra-chunk
+terms are K3 on the card. K3 has no backward, nor has the reference's
+Pallas kernel; the reference's model trains through its jnp function. The
+two round bf16 differently by the reference's design: the training route
+rounds y once, the kernel route y_intra and y_inter separately.
 
 Mixed dtypes: with bf16 activations and float32 parameters the reference's
 ``x @ w`` promotes to float32 (jnp's rule); ``torch.matmul`` refuses mixed
@@ -79,20 +89,76 @@ def _conv_step(u_t: torch.Tensor, conv_state: torch.Tensor,
 
 def ssd_chunked(xh, dt, a_h, bm, cm, chunk: int,
                 h0: Optional[torch.Tensor] = None):
-    """Chunked SSD.
+    """Chunked SSD, the training route: the reference model's jnp
+    ``ssd_chunked`` in plain PyTorch with the same arithmetic (float32
+    throughout, B and C repeated to the heads, the lower-triangular decay
+    masked with −inf, y rounded once to xh's dtype), differentiable by
+    autograd. Counts its calls in ``ssd_chunked.calls``.
 
     xh: (B, S, H, P)  dt: (B, S, H) (post-softplus)  a_h: (H,) (negative)
     bm, cm: (B, S, G, N) (G broadcast over heads); h0 (B, H, P, N).
-    Returns y (B, S, H, P) and final state (B, H, P, N) [fp32]. Runs
-    `kernels.ops.ssd_chunked`."""
-    return ops.ssd_chunked(xh, dt, a_h, bm, cm, chunk=chunk, h0=h0)
+    Returns y (B, S, H, P) and final state (B, H, P, N) [fp32]. Its
+    (B, nc, Q, Q, H) float32 temporaries are what the reference
+    materializes too."""
+    ssd_chunked.calls += 1
+    b, s, h, p = xh.shape
+    g, n = bm.shape[2], bm.shape[3]
+    q = min(chunk, s)
+    assert s % q == 0, (s, q)
+    nc = s // q
+    rep = h // g
+
+    f32 = torch.float32
+    xc = xh.reshape(b, nc, q, h, p).to(f32)
+    dtc = dt.reshape(b, nc, q, h).to(f32)
+    bch = bm.reshape(b, nc, q, g, n).to(f32).repeat_interleave(rep, dim=3)
+    cch = cm.reshape(b, nc, q, g, n).to(f32).repeat_interleave(rep, dim=3)
+
+    a = dtc * a_h.to(f32)                                # (b,nc,q,h) ≤ 0
+    cs = torch.cumsum(a, dim=2)                          # within-chunk cumsum
+
+    # intra-chunk: Y[i] = Σ_{j≤i} exp(cs_i−cs_j)·(C_i·B_j)·dt_j·x_j
+    tril = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                 device=xh.device))
+    decay = torch.exp(torch.where(
+        tril[None, None, :, :, None],
+        cs[:, :, :, None, :] - cs[:, :, None, :, :],
+        -torch.inf))                                     # (b,nc,q_i,q_j,h)
+    scores = torch.einsum("bcqhn,bckhn->bcqkh", cch, bch)
+    y_intra = torch.einsum("bcqkh,bckh,bckhp->bcqhp", scores * decay, dtc,
+                           xc)
+
+    # chunk-final states: S_c = Σ_j exp(cs_last−cs_j)·dt_j·B_j⊗x_j
+    last = cs[:, :, -1:, :]                              # (b,nc,1,h)
+    w = torch.exp(last - cs) * dtc                       # (b,nc,q,h)
+    states = torch.einsum("bcqh,bcqhn,bcqhp->bchpn", w, bch, xc)
+    chunk_decay = torch.exp(last[:, :, 0, :])            # (b,nc,h)
+
+    # inter-chunk recurrence, the state entering each chunk kept
+    hprev = (torch.zeros((b, h, p, n), dtype=f32, device=xh.device)
+             if h0 is None else h0.to(f32))
+    hprevs = []
+    for c in range(nc):
+        hprevs.append(hprev)
+        hprev = hprev * chunk_decay[:, c, :, None, None] + states[:, c]
+    hprevs = torch.stack(hprevs, dim=1)                  # (b,nc,h,p,n)
+
+    y_inter = torch.einsum("bcqhn,bchpn,bcqh->bcqhp", cch, hprevs,
+                           torch.exp(cs))
+    y = (y_intra + y_inter).reshape(b, s, h, p)
+    return y.to(xh.dtype), hprev
+
+
+ssd_chunked.calls = 0
 
 
 def ssm_block(p, cfg, x, *, cache=None):
     """Full Mamba2 block. x: (B, S, d). Returns (y, new_cache): the full
     sequence without a cache, a chunked prefill with one (S > 1, starting
     from the cached state and conv context), a one-token decode step with
-    one (S = 1)."""
+    one (S = 1). The chunked SSD takes the training route `ssd_chunked`
+    under the module's route rule, else `kernels.ops.ssd_chunked` (K3 on
+    the card)."""
     s_cfg = cfg.ssm
     b, s, d = x.shape
     d_inner = s_cfg.expand * d
@@ -145,7 +211,14 @@ def ssm_block(p, cfg, x, *, cache=None):
 
     if cache is None or prefill:
         h0 = cache["h"] if prefill else None
-        y, hfin = ssd_chunked(xh, dt, a_h, bm, cm, s_cfg.chunk_size, h0=h0)
+        # the route rule: autograd records and an SSD input needs a grad
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (xh, dt, a_h, bm, cm)):
+            y, hfin = ssd_chunked(xh, dt, a_h, bm, cm, s_cfg.chunk_size,
+                                  h0=h0)
+        else:
+            y, hfin = ops.ssd_chunked(xh, dt, a_h, bm, cm,
+                                      chunk=s_cfg.chunk_size, h0=h0)
         if prefill:
             new_cache = {"h": hfin, "conv": new_conv_state}
     else:

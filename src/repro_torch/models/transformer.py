@@ -2,14 +2,16 @@
 families: parameter definitions, the training forward and the decode
 against per-layer caches (a chunked prefill when S > 1). Layers run as a
 Python loop over the stacked (L, ...) layer leaves, so gradients land in
-the stacked leaves. Activation rematerialisation comes with the remat
-slice of the port and raises naming it."""
+the stacked leaves. `_remat` is the reference's activation
+rematerialisation for every family's training forward."""
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
@@ -81,27 +83,58 @@ def lm_defs(cfg):
     return defs
 
 
+#: the products without batch dimensions, whose outputs "dots" keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of the plain
+    matrix products, recompute everything else (batched products
+    included)."""
+    del ctx, args, kwargs
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, mode: str):
+    """The reference's ``_remat``: "none" runs ``fn`` as it is; "full"
+    keeps only its inputs and runs it again in the backward
+    (``jax.checkpoint``); "dots" keeps the outputs of products without
+    batch dimensions as well and recomputes the rest
+    (``dots_with_no_batch_dims_saveable``), by selective checkpointing.
+    Neither changes a value."""
+    if mode == "none":
+        return fn
+    if mode == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if mode == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"remat must be 'none', 'dots' or 'full', got {mode!r}")
+
+
 def scan_decoder(layers_p, cfg, x, qpos, *, caches=None, cache_pos=None,
-                 kv_src=None, kv_pos=None, causal=True, remat="none"):
+                 kv_src=None, kv_pos=None, causal=True, remat="full"):
     """Run the stacked decoder layers in order. Returns (x, new_caches,
     aux_sum). With ``caches`` (stacked (L, ...) leaves) each layer decodes
     against its own, and the new caches are written into fresh stacked
-    buffers; ``caches`` is left as it was. Only ``remat="none"`` is
-    ported: the reference's "dots" and "full" recompute activations in the
-    backward, which comes with the remat slice of the port."""
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r} is not ported to repro_torch yet: it comes "
-            "with the remat slice (activation checkpointing)")
+    buffers; ``caches`` is left as it was. Each layer runs under
+    ``_remat(remat)``."""
+    def body(x, layer_p, cache):
+        return decoder_layer(layer_p, cfg, x, qpos, cache=cache,
+                             cache_pos=cache_pos, kv_src=kv_src,
+                             kv_pos=kv_pos, causal=causal)
+
+    body = _remat(body, remat)
     n_layers = tree_leaves(layers_p)[0].shape[0]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = None if caches is None else tree_map(torch.empty_like,
                                                       caches)
     for layer in range(n_layers):
         cache = None if caches is None else tree_index(caches, layer)
-        x, c, a = decoder_layer(tree_index(layers_p, layer), cfg, x, qpos,
-                                cache=cache, cache_pos=cache_pos,
-                                kv_src=kv_src, kv_pos=kv_pos, causal=causal)
+        x, c, a = body(x, tree_index(layers_p, layer), cache)
         if c is not None:
             tree_map(lambda out, new: out[layer].copy_(new), new_caches, c)
         aux = aux + a
@@ -120,7 +153,7 @@ def unembed(params, cfg, x):
     return x @ head.to(x.dtype)
 
 
-def lm_forward(params, cfg, tokens, *, prefix_embeds=None, remat="none"
+def lm_forward(params, cfg, tokens, *, prefix_embeds=None, remat="full"
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward. tokens: (B, S_text). ``prefix_embeds`` (B, P, d)
     are precomputed frontend embeddings (VLM patches) prefixed to the
@@ -142,7 +175,8 @@ def lm_decode(params, cfg, token, caches, pos):
     b, s, _ = x.shape
     qpos = pos + torch.arange(s, device=x.device).expand(b, s)
     x, new_caches, _ = scan_decoder(params["layers"], cfg, x, qpos,
-                                    caches=caches, cache_pos=pos)
+                                    caches=caches, cache_pos=pos,
+                                    remat="none")
     return unembed(params, cfg, x), new_caches
 
 

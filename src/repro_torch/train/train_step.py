@@ -17,7 +17,7 @@ from repro_torch.train.loss import (elastic_token_weights, next_token_loss,
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 
-def make_loss_grad(cfg: ModelConfig, job: JobConfig, remat: str = "none"):
+def make_loss_grad(cfg: ModelConfig, job: JobConfig, remat: str = "full"):
     """Returns grad_step(params, batch, active_mask) -> (grads, loss, aux).
 
     Per-worker token weights from the elastic ``active_mask``, masked-mean
@@ -103,11 +103,11 @@ def make_loss_grad(cfg: ModelConfig, job: JobConfig, remat: str = "none"):
 
 
 def make_train_step(cfg: ModelConfig, job: JobConfig,
-                    lr_fn: Optional[Callable] = None, remat: str = "none"):
+                    lr_fn: Optional[Callable] = None, remat: str = "full"):
     """Returns train_step(params, opt_state, batch, active_mask, step).
 
-    batch: tokens (B,S), labels (B,S), optional label_mask (B,S), patches
-    for vlm. active_mask: (n_workers,) float — the elastic worker mask
+    batch: tokens (B,S), labels (B,S), optional label_mask (B,S), frames
+    for encdec, patches for vlm. active_mask: (n_workers,) float — the elastic worker mask
     (Eq. (5) with y_j = Σ mask)."""
     opt = get_optimizer(job.optimizer, job.momentum)
     lr_fn = lr_fn or constant_lr(job.learning_rate)

@@ -84,7 +84,8 @@ class ElasticTrainer:
             self.params, self.opt_state = init_train_state(
                 self.job.model, self.job, self.job.seed, device=self.device)
         if self._step_fn is None:
-            self._step_fn = make_train_step(self.job.model, self.job)
+            self._step_fn = make_train_step(self.job.model, self.job,
+                                            remat="none")
 
     # ---------------------------------------------------------------- loop
 
@@ -265,7 +266,7 @@ def make_train_program(job: JobConfig, n_batches: int
     (deterministic — matches the legacy loop's ``lm_batch(..., index=j)``
     when ``n_batches >= J``). The scenario's ``alpha`` is ignored: the LR
     comes from the job, exactly as in ``ElasticTrainer.run``."""
-    step = make_train_step(job.model, job)
+    step = make_train_step(job.model, job, remat="none")
 
     def step_fn(model, data, key, mask, j, alpha):
         del key, alpha
@@ -755,9 +756,12 @@ def train_zoo(job: JobConfig,
               model0=None,
               device=None,
               **kw) -> engine.EngineResult:
-    """Train ``job.model`` — a dense or VLM zoo config, full width or
-    reduced, float32 or bf16 mixed precision — under every scenario × seed
-    on ``device`` (default ``cuda``).
+    """Train ``job.model`` — any zoo config (dense, MoE, VLM, SSM, hybrid,
+    enc-dec), full width or reduced, float32 or bf16 mixed precision —
+    under every scenario × seed on ``device`` (default ``cuda``), each
+    step's forward under ``remat`` ("none" by default, as the reference's;
+    "dots" or "full" recompute activations in the backward, the same
+    values).
 
     A thin front over `train_batched` (and, when ``checkpoint_path`` +
     ``save_every`` are given, over `train_batched_durable` — the same

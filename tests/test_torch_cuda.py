@@ -11,7 +11,10 @@ the cached path is the plain attention core) and the MoE block's
 deterministic combine, and durable
 training: a megabatch snapshot/save/restore/resume and a bf16 durable
 ``train_zoo`` resume through K2, bit for bit, and checkpoint round trips
-of tensors on the card.
+of tensors on the card; then the rest of the zoo: K3 at the hybrid's
+serving shape, K2 non-causal at Whisper's encoder shape, the SSD's
+training route against the CPU, and remat's gradients bit for bit with
+the kernels on the path.
 
 Every test here needs an NVIDIA GPU and skips itself elsewhere. The file
 imports neither ``jax`` nor the reference, so it runs on a machine that
@@ -856,7 +859,7 @@ def test_k3_synchronous_route_gives_the_async_routes_bits(cuda_device,
 def test_k3_refuses_what_it_does_not_take(cuda_device):
     xh, dt, a_h, bm, cm = ssd_inputs((1, 512, 4, 64, 2, 64), torch.float32,
                                      cuda_device)
-    with pytest.raises(NotImplementedError, match="SSM training slice"):
+    with pytest.raises(NotImplementedError, match="models.ssm.ssd_chunked"):
         ssd_scan.ssd_chunk(xh.clone().requires_grad_(), dt, a_h, bm, cm,
                            chunk=64)
     bad = [
@@ -1199,3 +1202,147 @@ def test_checkpoint_roundtrip_of_cuda_tensors(cuda_device, tmp_path):
         tree["m"][0].add_(1.0)      # the writer holds its own host copy
     got, _ = ckpt.restore(str(tmp_path / "a.npz"), like)
     assert _bits(got["m"][0]) == _bits(want)
+
+
+# ---------------------------------------------------- the rest of the zoo
+
+#: the shape the hybrid's prefill gives K3 (Zamba2-7B: 112 heads of 64 in
+#: one group, N 64, batch 8, 2048 tokens), in its bf16
+K3_HYBRID_SHAPE = (8, 2048, 112, 64, 1, 64, 256)
+#: the shape Whisper-base's encoder gives K2: non-causal over 1500 frames
+K2_WHISPER_SHAPE = (8, 1500, 1500, 8, 8, 64, False, None, 0)
+
+
+def test_k3_matches_plain_at_hybrid_shape(cuda_device):
+    """The tensor-core kernel at the hybrid's serving shape in bf16 (seven
+    slabs of 16 heads a group, N 64): every output within its per-row
+    tolerance of the plain version."""
+    args = ssd_inputs(K3_HYBRID_SHAPE, torch.bfloat16, cuda_device)
+    got = ssd_scan.ssd_chunk(*args, chunk=K3_HYBRID_SHAPE[6])
+    want = ref.ssd_chunk_reference(*args, chunk=K3_HYBRID_SHAPE[6])
+    torch.cuda.synchronize()
+    for name, a, b in zip(K3_OUTS, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert row_err(a, b) <= K3_TOL[torch.bfloat16][name], name
+
+
+def test_k2_non_causal_at_whisper_encoder_shape(cuda_device):
+    """K2 forward and backward, non-causal, at the encoder's shape (S = T
+    = 1500, ragged against the 64-row tiles) in bf16 through
+    ``ops.flash_mha``, against autograd through the plain version, per
+    row: the tensor-core forward, D_i, dK/dV and dQ kernels once each."""
+    q, k, v, do = k2_inputs(K2_WHISPER_SHAPE, torch.bfloat16, cuda_device)
+    mask = dict(causal=False, window=None, q_offset=0)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = ref.mha_reference(*(x.transpose(1, 2) for x in leaves),
+                             **mask).transpose(1, 2)
+    want_g = torch.autograd.grad(want, leaves, do)
+    ops.reset_launch_counts()
+    mine = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = ops.flash_mha(*mine, **mask)
+    got_g = torch.autograd.grad(out, mine, do)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for name in ("flash_attention_fwd_tc", "flash_attention_bwd_delta",
+                 "flash_attention_bwd_dkdv_tc", "flash_attention_bwd_dq_tc"):
+        assert counts[name] == 1, name
+    tol = K2_ROW_TOL[torch.bfloat16]
+    assert row_err(out, want) <= tol["out"]
+    for name, a, b in zip(("dq", "dk", "dv"), got_g, want_g):
+        assert row_err(a, b) <= tol[name], name
+
+
+def test_ssd_training_route_on_cuda_matches_the_cpu(cuda_device):
+    """``models.ssm.ssd_chunked`` (the training route) on the card against
+    the CPU in float32 with a nonzero initial state: y, the final state and
+    the gradients of every input within 1e-4 (the same products summed in
+    other orders; TF32 off), one call counted on each, K3 never."""
+    from repro_torch.models import ssm
+
+    shape = (2, 256, 4, 32, 2, 32, 64)
+    args = ssd_inputs(shape, torch.float32, "cpu", seed=4)
+    h0 = torch.randn(2, 4, 32, 32, generator=torch.Generator().manual_seed(5))
+    w_y = torch.randn(2, 256, 4, 32,
+                      generator=torch.Generator().manual_seed(6))
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        leaves = [x.to(dev).requires_grad_() for x in args]
+        ssm.ssd_chunked.calls = 0
+        ops.reset_launch_counts()
+        y, hfin = ssm.ssd_chunked(*leaves, shape[6], h0=h0.to(dev))
+        grads = torch.autograd.grad(
+            (y * w_y.to(dev)).sum() + hfin.sum(), leaves)
+        assert ssm.ssd_chunked.calls == 1
+        assert set(ops.launch_counts().values()) == {0}
+        runs[str(dev)] = [t.detach().cpu() for t in (y, hfin) + grads]
+    for a, b in zip(runs[str(cuda_device)], runs["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def _zoo_job(arch, dtype, **over):
+    cfg = ARCHS[arch].reduced().with_(dtype=dtype, param_dtype=dtype,
+                                      use_flash_attention=True, **over)
+    return JobConfig(model=cfg, shape=InputShape("t", 64, 4, "train"),
+                     n_workers=4)
+
+
+def _zoo_batch(job, device):
+    from repro_torch.train.trainer import stack_batches
+
+    return {k: x[0] for k, x in stack_batches(job, 1, device=device).items()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,over", [("zamba2-7b", {"num_layers": 5}),
+                                       ("whisper-base", {}),
+                                       ("mamba2-1.3b", {})])
+def test_remat_gradients_bit_equal_with_kernels_on_the_path(
+        cuda_device, arch, over, dtype):
+    """One loss-and-gradient step of a reduced hybrid, enc-dec and SSM LM on
+    the card with K2 on, under "none", "dots" and "full": the loss and every
+    gradient leaf bit for bit; K2's forward launched again in the backward
+    by both recomputing modes (once per attention site), its backward once;
+    the SSD's training route run again likewise; K3 never."""
+    from repro_torch.models import model_zoo, ssm
+    from repro_torch.models.common import init_params
+    from repro_torch.train.train_step import make_loss_grad
+    from repro_torch.tree import tree_leaves
+
+    job = _zoo_job(arch, dtype, **over)
+    cfg = job.model
+    params = init_params(model_zoo.param_defs(cfg), 0,
+                         cfg.resolved_param_dtype(), device=cuda_device)
+    batch = _zoo_batch(job, cuda_device)
+    mask = torch.tensor([1.0, 0.0, 1.0, 1.0], device=cuda_device)
+    fwd = "flash_attention_fwd_tc" if dtype == "bfloat16" \
+        else "flash_attention_fwd"
+    runs = {}
+    for remat in ("none", "dots", "full"):
+        ops.reset_launch_counts()
+        ssm.ssd_chunked.calls = 0
+        grads, loss, _ = make_loss_grad(cfg, job, remat)(params, batch, mask)
+        torch.cuda.synchronize()
+        runs[remat] = (grads, loss, ops.launch_counts()[fwd],
+                       ssm.ssd_chunked.calls, ops.launch_counts()["ssd_chunk"])
+    base = runs["none"]
+    assert base[2] > 0 or arch == "mamba2-1.3b"
+    assert base[4] == 0
+    for remat in ("dots", "full"):
+        grads, loss, n_fwd, n_ssd, n_k3 = runs[remat]
+        assert torch.equal(loss, base[1]), remat
+        assert all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(grads), tree_leaves(base[0]))), remat
+        assert n_k3 == 0
+    if arch == "whisper-base":
+        # every layer of the encoder and decoder is checkpointed
+        assert runs["full"][2] == runs["dots"][2] == 2 * base[2]
+    elif arch == "zamba2-7b":
+        # each super-group is checkpointed, the tail is not
+        g, tail = divmod(cfg.num_layers, cfg.attn_every)
+        assert runs["full"][2] == runs["dots"][2] == 2 * base[2] == 2 * g
+        assert base[3] == cfg.num_layers
+        assert runs["full"][3] == runs["dots"][3] == cfg.num_layers + g * \
+            cfg.attn_every
+    else:
+        assert runs["full"][3] == runs["dots"][3] == 2 * base[3] == \
+            2 * cfg.num_layers

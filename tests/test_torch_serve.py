@@ -403,16 +403,3 @@ def test_launcher_module_runs_on_the_cpu_without_jax(arch):
     assert summary["arch"] == arch and summary["device"] == "cpu"
     assert len(summary["sample"]) == 4
     assert all(0 <= t < 512 for t in summary["sample"])
-
-
-def test_other_families_do_not_decode_yet():
-    """The hybrid and enc-dec families come with the zoo-families slice."""
-    for arch in ("zamba2-7b", "whisper-base"):
-        cfg = ARCHS[arch].reduced()
-        with pytest.raises(NotImplementedError, match="zoo-families"):
-            model_zoo.decode_step({}, cfg, torch.zeros(1, 1, dtype=torch.long),
-                                  {}, 0)
-        with pytest.raises(NotImplementedError, match="zoo-families"):
-            model_zoo.cache_defs(cfg, 1, 8)
-        with pytest.raises(NotImplementedError, match="zoo-families"):
-            model_zoo.prefill({}, cfg, {"tokens": torch.zeros(1, 4)}, {})

@@ -2,9 +2,13 @@
 (``ref.ssd_chunk_reference``) against the reference's Pallas kernel
 ``ssd_chunk_pallas`` in interpret mode, all four outputs; the glue
 ``ops.ssd_chunked`` against ``ops.ssd_chunked_pallas``, the naive
-recurrence ``ref.ssd_reference`` and the model's ``ssm.ssd_chunked``, with
-and without an initial state; and K3's wrapper refusing what it does not
-take. Inputs are drawn with numpy from a seed and handed to both packages.
+recurrence ``ref.ssd_reference`` and the reference model's jnp
+``ssd_chunked``, with and without an initial state; and K3's wrapper
+refusing what it does not take. Then SSM training: the training route
+``ssm.ssd_chunked`` (the reference model's jnp ``ssd_chunked`` ported)
+against it in value and against ``jax.grad`` of it, ``ssm_block``'s route
+rule, and the reduced Mamba2's loss and gradients against ``jax.grad`` of
+the reference's ``make_loss_grad``. Inputs are drawn with numpy from a seed and handed to both packages.
 
 Tolerances, and why:
 
@@ -25,6 +29,7 @@ Tolerances, and why:
 """
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,6 +41,7 @@ from repro.kernels.ssd_scan import ssd_chunk_pallas
 from repro.models import ssm as jax_ssm
 from repro_torch.kernels import ops, ref, ssd_scan
 from repro_torch.models import ssm
+from torch_parity import assert_loss_grad_match, jobs, loss_grad_both
 
 #: (B, S, H, P, G, N): the shapes of tests/test_kernels.py's SSD sweep,
 #: multi-group included
@@ -138,9 +144,10 @@ def test_glue_matches_reference_glue_and_recurrence(shape, chunk, dtype):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("shape", SHAPES[::2])
 def test_glue_matches_model_ssd_and_naive_recurrence(shape, dtype, with_h0):
-    """The model's chunked SSD forwards to the glue; with an initial state
-    (the prefill's cached one) it agrees with the reference model's jnp
-    ``ssd_chunked`` and with the port's naive recurrence run from it."""
+    """The glue, the serving route of the model's chunked SSD; with an
+    initial state (the prefill's cached one) it agrees with the reference
+    model's jnp ``ssd_chunked`` and with the port's naive recurrence run
+    from it."""
     b, _, h, p, _, n = shape
     jargs, targs = _both(shape, dtype)
     h0 = None
@@ -148,7 +155,7 @@ def test_glue_matches_model_ssd_and_naive_recurrence(shape, dtype, with_h0):
         h0 = (np.random.default_rng(5).standard_normal((b, h, p, n))
               * 0.5).astype(np.float32)
     th0 = None if h0 is None else torch.from_numpy(h0)
-    y, hfin = ssm.ssd_chunked(*targs, 64, h0=th0)
+    y, hfin = ops.ssd_chunked(*targs, chunk=64, h0=th0)
     yj, hj = jax_ssm.ssd_chunked(*jargs, 64,
                                  h0=None if h0 is None else jnp.asarray(h0))
     yn, hn = ref.ssd_reference(*targs, h0=th0)
@@ -183,7 +190,7 @@ def test_short_sequence_takes_one_chunk_of_its_own_length():
 
 def test_kernel_wrapper_refuses_what_it_does_not_take():
     _, (xh, dt, a_h, bm, cm) = _both(SHAPES[0], "float32")
-    with pytest.raises(NotImplementedError, match="SSM training slice"):
+    with pytest.raises(NotImplementedError, match="models.ssm.ssd_chunked"):
         ssd_scan.ssd_chunk(xh.clone().requires_grad_(), dt, a_h, bm, cm,
                            chunk=64)
     with pytest.raises(NotImplementedError, match="backward"):
@@ -207,3 +214,104 @@ def test_plain_path_keeps_autograd_on_the_cpu():
     y, _ = ops.ssd_chunked(x, dt, a_h, bm, cm, chunk=64)
     (g,) = torch.autograd.grad(y.sum(), [x])
     assert torch.isfinite(g).all() and g.abs().sum() > 0
+
+
+# ----------------------------------------------------------- SSM training
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES)
+def test_training_route_matches_reference_ssd_chunked(shape, dtype,
+                                                      with_h0):
+    """``models.ssm.ssd_chunked``, the training route, against the
+    reference model's jnp ``ssd_chunked``, which it ports: float32 within
+    F32_TOL; with bf16 inputs both round y once from float32 values that
+    differ in their last bits, one bf16 ulp, 1e-2. One call counted."""
+    b, _, h, p, _, n = shape
+    jargs, targs = _both(shape, dtype)
+    h0 = None
+    if with_h0:
+        h0 = (np.random.default_rng(5).standard_normal((b, h, p, n))
+              * 0.5).astype(np.float32)
+    ssm.ssd_chunked.calls = 0
+    y, hfin = ssm.ssd_chunked(*targs, 64,
+                              h0=None if h0 is None else torch.from_numpy(h0))
+    assert ssm.ssd_chunked.calls == 1
+    yj, hj = jax_ssm.ssd_chunked(*jargs, 64,
+                                 h0=None if h0 is None else jnp.asarray(h0))
+    assert y.dtype == targs[0].dtype and hfin.dtype == torch.float32
+    y_tol = F32_TOL if dtype == "float32" else dict(rtol=1e-2, atol=1e-2)
+    np.testing.assert_allclose(_np(y), _f32(yj), **y_tol)
+    np.testing.assert_allclose(_np(hfin), _f32(hj), **F32_TOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES[::2])
+def test_training_route_gradients_match_jax_grad(shape):
+    """The gradients of a weighted sum of y and the final state with
+    respect to x, dt, a_h, B, C and h0, by autograd through the training
+    route against ``jax.grad`` of the reference's ``ssd_chunked``: float32
+    summed in other orders, rtol 1e-4 and 1e-4 of each gradient's
+    largest entry."""
+    b, s, h, p, _, n = shape
+    jargs, targs = _both(shape, "float32")
+    rng = np.random.default_rng(9)
+    h0 = (rng.standard_normal((b, h, p, n)) * 0.5).astype(np.float32)
+    wy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    wh = rng.standard_normal((b, h, p, n)).astype(np.float32)
+
+    def objective(*args):
+        y, hfin = jax_ssm.ssd_chunked(*args[:5], 64, h0=args[5])
+        return (y * wy).sum() + (hfin * wh).sum()
+
+    want = jax.grad(objective, argnums=tuple(range(6)))(
+        *jargs, jnp.asarray(h0))
+    leaves = [t.clone().requires_grad_() for t in targs + (
+        torch.from_numpy(h0),)]
+    y, hfin = ssm.ssd_chunked(*leaves[:5], 64, h0=leaves[5])
+    got = torch.autograd.grad(
+        (y * torch.from_numpy(wy)).sum() + (hfin * torch.from_numpy(wh)).sum(),
+        leaves)
+    for a, w in zip(got, want):
+        w = _f32(w)
+        np.testing.assert_allclose(_np(a), w, rtol=1e-4,
+                                   atol=1e-4 * np.abs(w).max())
+
+
+def test_ssm_block_routes_the_ssd_by_the_grad_rule():
+    """Under grad with an SSD input that requires one, the block takes the
+    training route; under ``torch.no_grad()``, or when nothing requires a
+    gradient, it takes ``ops.ssd_chunked`` (K3 on the card). Both give the
+    same float32 output within F32_TOL."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.common import init_params
+
+    cfg = ARCHS["mamba2-1.3b"].reduced()
+    p = init_params(ssm.ssm_defs(cfg), 0, device="cpu")
+    x = torch.randn(2, 128, cfg.d_model,
+                    generator=torch.Generator().manual_seed(0))
+    ssm.ssd_chunked.calls = 0
+    frozen, _ = ssm.ssm_block(p, cfg, x)
+    with torch.no_grad():
+        served, _ = ssm.ssm_block(p, cfg, x)
+    assert ssm.ssd_chunked.calls == 0
+    live = {k: v.clone().requires_grad_() for k, v in p.items()}
+    trained, _ = ssm.ssm_block(live, cfg, x)
+    assert ssm.ssd_chunked.calls == 1
+    with torch.no_grad():
+        ssm.ssm_block(live, cfg, x)
+    assert ssm.ssd_chunked.calls == 1
+    assert torch.equal(frozen, served)
+    np.testing.assert_allclose(_np(trained), _np(served), **F32_TOL)
+
+
+@pytest.mark.parametrize("mask", ["full", "preempted"])
+def test_mamba2_loss_grad_matches_reference(mask):
+    """The reduced Mamba2 LM's loss and every gradient leaf, trained through
+    the SSD's training route, against ``jax.grad`` of the reference's
+    ``make_loss_grad`` (tolerances of tests/torch_parity.py)."""
+    job, jjob = jobs("mamba2-1.3b")
+    ssm.ssd_chunked.calls = 0
+    grads, loss, jg, jl = loss_grad_both(job, jjob, mask)
+    assert ssm.ssd_chunked.calls == job.model.num_layers
+    assert_loss_grad_match(grads, loss, jg, jl)

@@ -199,7 +199,7 @@ def test_cpu_path_launches_neither_kernel():
 
 def test_cuda_core_wrapper_refuses_what_it_does_not_take():
     _, (xh, dt, a_h, bm, cm) = _both(SHAPES[0][:6], "float32")
-    with pytest.raises(NotImplementedError, match="SSM training slice"):
+    with pytest.raises(NotImplementedError, match="models.ssm.ssd_chunked"):
         ssd_scan.ssd_chunk_cuda_core(xh.clone().requires_grad_(), dt, a_h,
                                      bm, cm, chunk=64)
     with pytest.raises(ValueError, match="CUDA"):

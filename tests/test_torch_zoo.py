@@ -30,13 +30,13 @@ from repro_torch import convert
 from repro_torch import device as device_mod
 from repro_torch.configs import ARCHS
 from repro_torch.configs.base import InputShape, JobConfig
-from repro_torch.models import attention, model_zoo, transformer
+from repro_torch.models import model_zoo
 from repro_torch.sim import engine
 from repro_torch.train import trainer
 from repro_torch.train.train_step import (make_eval_step, make_loss_grad,
                                           make_train_step)
 from repro_torch.train.zoo_program import init_zoo_state, is_mixed_precision
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves
 
 J = 8
 N_W = 4
@@ -380,16 +380,4 @@ def test_unported_zoo_paths_raise_naming_their_slice():
         with pytest.raises(NotImplementedError, match="mesh"):
             trainer.train_zoo(job, [_trace_scenario(engine)], seeds=[0],
                               mesh=object(), device="cpu", **kw)
-    params = init_zoo_state(job.model, job, 0, device="cpu")[0]
-    x = torch.zeros(1, 4, 64)
-    qpos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError, match="remat"):
-        transformer.scan_decoder(params["layers"], job.model, x, qpos,
-                                 remat="full")
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        attention.attention_block(
-            tree_map(lambda t: t[0], params["layers"]["attn"]), job.model, x,
-            qpos, kv_src=x)
-    for arch in ("zamba2-7b", "whisper-base"):
-        with pytest.raises(NotImplementedError, match="zoo-families"):
-            model_zoo.param_defs(ARCHS[arch].reduced())
+
