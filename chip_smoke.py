@@ -67,17 +67,19 @@ Phases, each printing one JSON line and raising on failure:
    before it and must stay 0): the paper's figures through
    ``sim.evaluate.evaluate_batch`` at the reference benchmark's set-up
    (fig3 under two i.i.d. markets, fig4 on the 30-day trace, fig5a and
-   fig5b; 8 seeds, the engine's default tick budget; a 16-tick warm-up
+   fig5b, the latter at half the benchmark's 3000 static iterations; 8
+   seeds, the engine's default tick budget; a 16-tick warm-up
    call on the same grid, then a timed one), checking that every
    completed cell is finite; one RNG-free grid on the card and the CPU
    (equal accounting, errors within rtol 1e-5) and a stochastic one (64
    seeds, within 4 standard errors);
    ``examples/scenario_sweep.py``'s 200 × 4 grid, timed and with a window
    of ticks under ``torch.profiler`` (the device's busy time and idle
-   share); the fig3-uniform grid as two halves through ``snapshot_every``,
-   ``snapshot_state`` and ``tick0``, bit for bit the straight run; and
-   ``python -m repro_torch.launch.bidserve`` at its defaults, twice, the
-   second report bit for bit the first;
+   share); the fig3-uniform grid in two parts (its first 480 ticks, then
+   the rest) through ``snapshot_every``, ``snapshot_state`` and
+   ``tick0``, bit for bit the straight run; and ``python -m
+   repro_torch.launch.bidserve`` at its defaults, twice, the second time
+   through ``--mesh 1``, the second report bit for bit the first;
 7. slice 9's path, durable training (the free disk space of the run
    directory checked first; the directory removed at the end): InternVL2-1B
    as published (24 layers, bf16 with float32 masters and momentum, K2 at
@@ -140,7 +142,23 @@ Phases, each printing one JSON line and raising on failure:
    encoder's shape (S = T = 1500, H 8, D 64, non-causal) against its
    plain version, timed beside its bound and SDPA's; serving through
    ``model_zoo.prefill`` with the frames (the cross cache, K2 six times)
-   and 31 serve steps, twice.
+   and 31 serve steps, twice;
+12. slice 12's scenario mesh (``sim.engine.simulate_sharded``; shards of
+   a ``launch.mesh.Mesh`` that lists the one card more than once run in
+   turn): slice 1's grid twice more, through ``launch/train.py ...
+   --mesh 1`` and through ``run_batched(mesh=)`` with its two seeds in two
+   shards, held against phase 3's run (a digest of its final carry taken
+   before K1 was timed on it): K1 once per shard and tick, ms per tick
+   and peak memory beside phase 3's (the two shards' peak within 1.1×),
+   the market bit for bit, the losses and carry bit for bit or within
+   tests/test_torch_megabatch.py's tolerance with the largest difference
+   printed; K1 at the shard's shape (1, P) against its plain version; the
+   fig3-uniform grid's first 480 ticks in three shards (2 + 1 + 1
+   scenarios), bit for bit phase 6's first part; ``score_requests`` of
+   four jobs' slates over two shards, bit for bit unsharded; the reduced
+   megabatch grid through ``train_batched_durable(mesh=, save_shards=2)``
+   killed before a save, restored and resumed unsharded, bit for bit the
+   straight run.
 
 Then the ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout,
@@ -596,7 +614,13 @@ def phase_main_path(torch):
           "run_s": run_s, "ms_per_tick_e2e": 1e3 * run_s / n_ticks,
           "trained_tokens_per_s_e2e": trained / run_s,
           "peak_mem_bytes": peak, "summary": summary})
-    return res, job, launches
+    # what the mesh phase holds its runs of the same argv against: the
+    # trajectories, and a digest of the final carry (K1's timing below
+    # updates the carry in place)
+    main = {"n_ticks": n_ticks, "run_s": run_s, "peak_mem_bytes": peak,
+            "trajectories": {f: getattr(r, f) for f in TRAJECTORIES},
+            "digest": carry_digests(torch, r.final_model)}
+    return res, job, launches, main
 
 
 def phase_steady_step(torch, res, job):
@@ -626,11 +650,24 @@ def phase_steady_step(torch, res, job):
 
 def phase_kernel_at_main_shape(torch, res, smi, launches):
     """K1 at (R, P) of the main path, on the run's own final p and v."""
+    model = res.result.final_model
+    row = k1_at_shape(torch, model["p"].view(-1, model["p"].shape[-1]),
+                      model["v"].view(-1, model["v"].shape[-1]), smi,
+                      "kernel_at_main_shape")
+    src, replaces = KERNEL_SOURCES["elastic_sgd_update"]
+    return {"name": "elastic_sgd_update", "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": launches["elastic_sgd_update"], **row,
+            "library_ms": None}
+
+
+def k1_at_shape(torch, p, v, smi, phase):
+    """K1 on rows ``p``, ``v`` (R, P) of a run's final carry, updated in
+    place: bit for bit against its plain version, its time beside its
+    bound, the plain version's time and a device-to-device copy rate.
+    Returns the kernel line's measured keys."""
     from repro_torch.kernels import ops, ref
 
-    model = res.result.final_model
-    p = model["p"].view(-1, model["p"].shape[-1])
-    v = model["v"].view(-1, model["v"].shape[-1])
     r, n = p.shape
     dev = p.device
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -682,21 +719,16 @@ def phase_kernel_at_main_shape(torch, res, smi, launches):
     nbytes = 20 * r * n          # read p, v, g; write p, v (float32)
     flops = 5 * r * n            # μ·v, g·inv, +, lr·v', −
     bound_ms = 1e3 * max(nbytes / hbm, flops / f32)
-    emit({"phase": "kernel_at_main_shape", "kernel": "elastic_sgd_update",
+    emit({"phase": phase, "kernel": "elastic_sgd_update",
           "R": r, "P": n, "bit_exact": True, "max_abs_err": err,
           "ms": ms, "achieved_GBps": nbytes / ms / 1e6,
           "bound_ms": bound_ms, "peak": label, "plain_ms": plain_ms,
           "copy_ms": copy_ms, "copy_GBps": 2 * 4 * r * n / copy_ms / 1e6,
           "card": smi})
-    src, replaces = KERNEL_SOURCES["elastic_sgd_update"]
-    return {"name": "elastic_sgd_update", "route": "cuda", "source": src,
-            "replaces": replaces,
-            "launches": launches["elastic_sgd_update"],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if nbytes / hbm >= flops / f32
-            else "operations",
-            "library_ms": None}
+            else "operations"}
 
 
 # ------------------------------------------------------------------ K2
@@ -1641,8 +1673,13 @@ WARMUP_TICKS = 16
 #: per job of both
 CARD_VS_CPU_SEEDS, CARD_VS_CPU_J = 64, 100
 #: examples/scenario_sweep.py's grid, and the profiled window of its ticks
+#: (50: the profiler's trace of 100 ticks cost ≈ 35 s of the run's limit)
 SWEEP = {"n1": 4, "n": 8, "J": 150, "seeds": 4, "ticks": 900,
-         "profile_ticks": 100}
+         "profile_ticks": 50}
+#: fig5b's static iterations: the reference benchmark's 3000, cut in half
+#: to keep the whole script inside its time limit (the tick loop is
+#: host-bound, so its time goes with the ticks, 4·J + 64, not the seeds)
+FIG5B_J_STATIC = 1500
 
 
 def fig_strategies(prob, eps, theta, n, dist, rt):
@@ -1685,9 +1722,10 @@ def figure_setups():
     """The reference benchmark's fig3 (two i.i.d. markets), fig4 (the
     30-day synthetic trace, time-indexed), fig5a (Theorem 4's worker count
     against half and double it, q 0.5) and fig5b (static n 1 against
-    dynamic η 1.002) as ``evaluate_batch`` calls (benchmarks/run.py
-    :199-333): (tag, strategies, scenarios, keyword arguments, empirical
-    error level or None)."""
+    dynamic η 1.002, at ``FIG5B_J_STATIC`` iterations) as
+    ``evaluate_batch`` calls (benchmarks/run.py :199-333): (tag,
+    strategies, scenarios, keyword arguments, empirical error level or
+    None)."""
     from repro_torch.core import convergence as conv
     from repro_torch.core import provisioning as prov
     from repro_torch.core import strategies as strat
@@ -1731,7 +1769,7 @@ def figure_setups():
         "double-n": strat.StaticWorkers(prov.ProvisionPlan(
             n=plan.n * 2, J=plan.J, expected_error=0, cost_proxy=0))}
     out.append(("fig5a", choices, {"q": None}, q5, 0.02))
-    J_static, eta = 3000, 1.002
+    J_static, eta = FIG5B_J_STATIC, 1.002
     runs = {"static_n1": strat.DynamicWorkers(n0=1, eta=1.0, J=J_static),
             "dynamic_eta": strat.DynamicWorkers(
                 n0=1, eta=eta, J=conv.dynamic_iterations(J_static, eta,
@@ -1987,15 +2025,17 @@ def phase_sweep(torch):
 
 def phase_resume(torch, fig3):
     """The fig3-uniform grid run straight through (the figures phase's
-    timed call) against the same grid as two halves: the first half with
-    one snapshot at its end, ``snapshot_state``, then the rest from its
-    tick. Bit for bit on the card."""
+    timed call) against the same grid in two parts: the first
+    ``RESUME_SPLIT_TICK`` ticks with one snapshot at their end,
+    ``snapshot_state``, then the rest from its tick. Bit for bit on the
+    card. Returns the first part's run (and what made it), which the mesh
+    phase repeats in shards."""
     from repro_torch.sim import engine
 
     strategies, scenarios, kw, straight = fig3
     r = straight.result
     n_ticks = 4 * r.errors.shape[2] + 64
-    half = n_ticks // 2
+    split = RESUME_SPLIT_TICK
     batch = engine.stack_scenarios(scenarios, device="cuda")
     quad = engine.torch_quadratic(kw["quad"], "cuda")
     program = engine.quadratic_program("minibatch", kw["batch"])
@@ -2003,8 +2043,8 @@ def phase_resume(torch, fig3):
     t0 = time.perf_counter()
     first = engine.simulate_program(
         batch, program, w0, quad, FIG_SEEDS,
-        engine.SimConfig(n_ticks=half, batch=kw["batch"],
-                         snapshot_every=half), device="cuda")
+        engine.SimConfig(n_ticks=split, batch=kw["batch"],
+                         snapshot_every=split), device="cuda")
     state, tick = engine.snapshot_state(first, -1)
     second = engine.simulate_program(
         batch, program, None, quad, FIG_SEEDS,
@@ -2026,18 +2066,23 @@ def phase_resume(torch, fig3):
         raise AssertionError(f"resume: two halves differ from the straight "
                              f"run {equal} (unfinished cells at the split: "
                              f"{unfinished})")
+    return {"batch": batch, "quad": quad, "program": program, "w0": w0,
+            "cfg": engine.SimConfig(n_ticks=split, batch=kw["batch"],
+                                    snapshot_every=split), "run": first}
 
 
 def phase_bidserve(torch):
     """``python -m repro_torch.launch.bidserve`` at its defaults (2 jobs, 2
     markets, 416 ticks, horizon 32, warm-up 32, 2 scoring seeds) on the
-    card, twice: the report must repeat bit for bit (latencies aside)."""
+    card, twice, the second time with ``--mesh 1`` (scoring through
+    ``simulate_sharded`` on a one-card mesh): the report must repeat bit
+    for bit (latencies aside)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import bidserve
 
     reports, walls = [], []
-    for _ in range(2):
-        args = bidserve.build_parser().parse_args([])
+    for flags in ([], ["--mesh", "1"]):
+        args = bidserve.build_parser().parse_args(flags)
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2065,7 +2110,8 @@ def phase_bidserve(torch):
             for name, j in s["jobs"].items()}
     emit({"phase": "bidserve", "phase_s": sum(walls),
           "command": "python -m "
-          "repro_torch.launch.bidserve", "wall_s": walls,
+          "repro_torch.launch.bidserve", "second_run_flags": ["--mesh", "1"],
+          "wall_s": walls,
           "replans": s["horizons"], "decisions": s["decisions"],
           "replan_p50_ms": s["replan_p50_ms"],
           "replan_p95_ms": s["replan_p95_ms"],
@@ -3354,6 +3400,367 @@ def phase_serve_encdec(torch, smi):
         raise AssertionError("serve_encdec: tokens differ between the runs")
 
 
+# ------------------------------------------------------------ slice 12
+
+#: the fig3-uniform grid's first part in the resume phase, which the mesh
+#: phase repeats in three shards on the card (each shard runs every tick
+#: of its own, and the tick loop is host-bound: 3 × 480 ticks ≈ 15 s)
+RESUME_SPLIT_TICK = 480
+#: an EngineResult's trajectories and accounting
+TRAJECTORIES = ("errors", "costs", "times", "ys", "iterations", "total_time",
+                "total_cost", "total_idle")
+#: the market's part of them: bit for bit whatever the shards' products
+MARKET = TRAJECTORIES[1:]
+#: tests/test_torch_megabatch.py's tolerance (RTOL, ATOL) for the
+#: megabatch's losses and carry, should the card's products over fewer
+#: replicas not give the unsharded run's bits
+MEGABATCH_TOL = (5e-4, 1e-5)
+#: the elements of a carry leaf compared or digested at once
+CHUNK = 1 << 26
+
+
+class MeshKilled(Exception):
+    """The mesh phase's stand-in for a kill of its durable run."""
+
+
+def card_mesh(n, axis):
+    """``n`` shards on the one card, along ``axis``."""
+    from repro_torch.launch.mesh import Mesh
+
+    return Mesh(["cuda:0"] * n, (axis,))
+
+
+def carry_digests(torch, model) -> dict:
+    """A 64-bit digest of each flat carry leaf's bits on the card: the sum
+    mod 2^64 of each element's bits times an odd weight from its position.
+    Integer sums do not depend on their order, so equal bits give equal
+    digests on any run, and one changed element changes the digest."""
+    out = {}
+    for k, x in model.items():
+        flat = x.reshape(-1).view(torch.int32)
+        total = 0
+        for lo in range(0, flat.numel(), CHUNK):
+            part = flat[lo:lo + CHUNK].to(torch.int64)
+            weight = torch.arange(lo, lo + part.numel(), dtype=torch.int64,
+                                  device=x.device) * 2654435762 + 1
+            total = (total + int((part * weight).sum())) % (1 << 64)
+        out[k] = total
+    return out
+
+
+def compare_carries(torch, a, b) -> dict:
+    """Bit-equality, the largest |a − b| and whether every element is
+    within ``MEGABATCH_TOL`` of b, over flat carries on the card."""
+    rtol, atol = MEGABATCH_TOL
+    equal, err, within = True, 0.0, True
+    for k in a:
+        x, y = a[k].reshape(-1), b[k].reshape(-1)
+        for lo in range(0, x.numel(), CHUNK):
+            xs, ys = x[lo:lo + CHUNK], y[lo:lo + CHUNK]
+            equal &= bool(torch.equal(xs, ys))
+            d = (xs - ys).abs()
+            err = max(err, float(d.max()))
+            within &= bool((d <= atol + rtol * ys.abs()).all())
+    return {"bit_equal": equal, "max_abs_diff": err,
+            "within_megabatch_tol": within}
+
+
+def same_trajectories(a, b, fields=TRAJECTORIES) -> dict:
+    return {f: bool(np.array_equal(getattr(a, f), b[f] if isinstance(b, dict)
+                                   else getattr(b, f), equal_nan=True))
+            for f in fields}
+
+
+def phase_mesh_megabatch(torch, smi, main):
+    """Slice 1's grid (``MAIN_ARGV``: Qwen2-7B at full width, depth 2,
+    float32, the megabatch through K1, R = 2) twice more, held against the
+    main path's run of the same argv: through ``launch/train.py ...
+    --mesh 1`` (one shard, the whole grid), then through
+    ``ElasticTrainer.run_batched(mesh=)`` with its two seeds in two shards
+    on the card (replica axis; each shard's step a batch of one replica).
+    K1 runs once per shard and tick; each run's time per tick and peak
+    memory (above what was held before it) beside the main path's; the
+    market bit for bit, the losses and the final carry bit for bit or
+    their largest difference held at ``MEGABATCH_TOL``. Then K1 at the
+    shard's shape (1, P). Returns the phase's record."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+
+    n_ticks = main["n_ticks"]
+
+    def run(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn().result
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return res, {"run_s": wall, "ms_per_tick_e2e": 1e3 * wall / n_ticks,
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated()
+                     - base, "launches_k1":
+                     ops.launch_counts()["elastic_sgd_update"]}
+
+    args = launch.parse_args(MAIN_ARGV + ["--mesh", "1"])
+    one, one_rec = run(lambda: launch.run(args)[0])
+    one_rec.update(trajectories_bit_equal=same_trajectories(
+        one, main["trajectories"]),
+        carry_digest_equal=carry_digests(torch, one.final_model)
+        == main["digest"])
+    tr = launch.build_trainer(launch.parse_args(MAIN_ARGV))
+    two, two_rec = run(lambda: tr.run_batched(
+        seeds=args.seeds, iterations=args.iterations, megabatch=True,
+        use_fused_update=True, mesh=card_mesh(2, "replica")))
+    two_rec.update(market_bit_equal=same_trajectories(
+        two, main["trajectories"], MARKET),
+        losses_bit_equal=bool(np.array_equal(
+            two.errors, main["trajectories"]["errors"], equal_nan=True)),
+        carry=compare_carries(torch, two.final_model, one.final_model))
+    want = main["trajectories"]["errors"]
+    diff = np.abs(np.nan_to_num(two.errors) - np.nan_to_num(want))
+    two_rec.update(losses_max_abs_diff=float(diff.max()),
+                   losses_within_megabatch_tol=bool(
+                       (np.isnan(two.errors) == np.isnan(want)).all()
+                       and (diff <= MEGABATCH_TOL[1] + MEGABATCH_TOL[0]
+                            * np.abs(np.nan_to_num(want))).all()))
+    del one
+    free(torch)
+    # K1 at the shard's shape, on the first shard's rows of the final carry
+    k1 = k1_at_shape(torch, two.final_model["p"][0, 0:1],
+                     two.final_model["v"][0, 0:1], smi, "k1_at_shard_shape")
+    del two
+    rec = {"grid": "python -m repro_torch.launch.train " + " ".join(
+        MAIN_ARGV), "n_ticks": n_ticks,
+        "unsharded": {k: main[k] for k in ("run_s", "peak_mem_bytes")},
+        "mesh_1": one_rec, "two_shards": two_rec,
+        "k1_at_shard_shape": k1}
+    return rec
+
+
+def phase_mesh_fig3(torch, resumed):
+    """The fig3-uniform grid's first ``RESUME_SPLIT_TICK`` ticks (4
+    scenarios × 8 seeds, the resume phase's first part) over three shards
+    on the card (2 + 1 + 1 scenarios): every trajectory, the final iterates
+    and the snapshot bit for bit the straight run's."""
+    from repro_torch.kernels import ops
+    from repro_torch.sim import engine
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = engine.simulate_sharded(
+        resumed["batch"], resumed["program"], resumed["w0"],
+        resumed["quad"], FIG_SEEDS, resumed["cfg"],
+        mesh=card_mesh(3, "data"))
+    wall = time.perf_counter() - t0
+    first = resumed["run"]
+    equal = same_trajectories(res, first)
+    equal["final_model"] = bool(torch.equal(res.final_model,
+                                            first.final_model))
+    equal["snapshot"] = all(
+        torch.equal(torch.nan_to_num(x.float(), 7.0),
+                    torch.nan_to_num(y.float(), 7.0))
+        for x, y in zip(res.snapshots, first.snapshots)
+        if isinstance(x, torch.Tensor))
+    return {"cells": int(res.iterations.size), "shards": 3,
+            "ticks": resumed["cfg"].n_ticks, "wall_s": wall,
+            "launches": ops.launch_counts(), "bit_equal": equal}
+
+
+def phase_mesh_score_requests(torch):
+    """``service.planner.score_requests`` of four jobs' slates (the
+    service's candidates from ``generate_candidates`` over empirical
+    posteriors and exp runtimes; the demo problem, minibatch gradients),
+    unsharded and over two shards on the card: the scores bit for bit."""
+    from repro_torch.core.cost_model import EmpiricalPrice, RuntimeModel
+    from repro_torch.kernels import ops
+    from repro_torch.service import planner as pl
+    from repro_torch.service.server import demo_problem
+    from repro_torch.sim import engine
+
+    quad, w0, prob = demo_problem(seed=0)
+    rng = np.random.default_rng(0)
+    rt = RuntimeModel(kind="exp", lam=2.0, delta=0.05)
+    requests = []
+    for i in range(4):
+        samples = rng.uniform(0.2, 1.0, 128).astype(np.float32)
+        j_left, theta = 20 + 4 * i, 60.0 + 10 * i
+        requests.append(pl.PlanRequest(
+            job=i, market=i, price_spec=engine.PriceSpec.empirical(samples),
+            rt=rt, q_hat=0.1, j_left=j_left, theta_left=theta, eps=0.5,
+            n_workers=4, candidates=pl.generate_candidates(
+                prob, eps=0.5, theta_left=theta, j_left=j_left, n=4,
+                dist=EmpiricalPrice(samples=samples), rt=rt, q_hat=0.1,
+                multibid_partitions=((2, 2),))))
+    kw = dict(alpha=prob.alpha, model0=torch.as_tensor(
+        np.asarray(w0, np.float32), device="cuda"),
+        data=engine.torch_quadratic(quad, "cuda"),
+        program=engine.quadratic_program("minibatch", 4),
+        j_cap=max(r.j_left for r in requests), n_cap=4, seeds=[1000, 1001],
+        score_ticks=256, grad="minibatch", batch=4)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    plain = pl.score_requests(requests, device="cuda", **kw)
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded = pl.score_requests(requests, mesh=card_mesh(2, "data"), **kw)
+    sharded_s = time.perf_counter() - t0
+    return {"jobs": len(requests), "slate": len(requests[0].candidates),
+            "finite": int(np.isfinite(plain).sum()),
+            "wall_s": {"unsharded": plain_s, "two_shards": sharded_s},
+            "launches": ops.launch_counts(),
+            "bit_equal": bool(np.array_equal(plain, sharded))}
+
+
+def phase_mesh_durable(torch):
+    """The reduced Qwen2-7B megabatch grid (phase 7's: one scenario × 2
+    seeds) through ``train_batched_durable(mesh=two shards on the replica
+    axis, save_shards=2)`` (the manifest and min(2, S) shard files),
+    killed before its tick-16 save, restored from the tick-8 files and
+    resumed unsharded: bit for bit the same ticks run without the file
+    (0-8 in two shards, 8-28 unsharded, through ``init_state``/``tick0``),
+    and against the straight unsharded run the market bit for bit, the
+    losses and carry bit for bit or within ``MEGABATCH_TOL`` (the shards'
+    products over one replica). K1 once per shard and tick while
+    sharded."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.train import megabatch as mb
+    from repro_torch.train import trainer
+
+    args = launch.parse_args(["--config", "qwen2_7b", "--batched",
+                              "--megabatch", "--fused-update", "--seeds",
+                              "2", "--iterations", "6", "--device", "cuda"])
+    tr = launch.build_trainer(args)
+    job = tr.job
+    scenarios = [tr._scenario(tr.strategy, args.iterations, "s")]
+    n_ticks = trainer.default_n_ticks(args.iterations)
+
+    class Kill:
+        def before_save(self, tick):
+            if tick == 16:
+                raise MeshKilled(tick)
+
+    kw = dict(n_ticks=n_ticks, save_every=8, save_shards=2,
+              batch_seed=tr.seed, device="cuda",
+              program=lambda n: trainer.make_megabatch_train_program(
+                  job, n, True),
+              model0=lambda: mb.init_megabatch_state(job.model, job,
+                                                     job.seed, device="cuda"))
+    path = os.path.join(DURABLE_DIR, "mesh_megabatch.ckpt")
+    os.makedirs(DURABLE_DIR, exist_ok=True)
+    try:
+        ops.reset_launch_counts()
+        try:
+            trainer.train_batched_durable(job, scenarios, args.seeds,
+                                          checkpoint_path=path,
+                                          mesh=card_mesh(2, "replica"),
+                                          hooks=Kill(), **kw)
+            killed = False
+        except MeshKilled:
+            killed = True
+        k1_sharded = ops.launch_counts()["elastic_sgd_update"]
+        with open(path) as f:
+            n_files = len(json.load(f)["shards"])
+        ops.reset_launch_counts()
+        resumed = trainer.train_batched_durable(
+            job, scenarios, args.seeds, checkpoint_path=path, **kw)
+        k1_resumed = ops.launch_counts()["elastic_sgd_update"]
+        run_kw = dict(megabatch=True, use_fused_update=True,
+                      batch_seed=tr.seed, device="cuda")
+        first = trainer.train_batched(job, scenarios, args.seeds,
+                                      n_ticks=8, mesh=card_mesh(2, "replica"),
+                                      **run_kw)
+        same_ticks = trainer.train_batched(
+            job, scenarios, args.seeds, n_ticks=n_ticks,
+            init_state=first.final_state, tick0=8, **run_kw)
+        equal = same_trajectories(resumed, same_ticks)
+        equal.update({k: bool(torch.equal(resumed.final_model[k],
+                                          same_ticks.final_model[k]))
+                      for k in ("p", "v")})
+        del first, same_ticks
+        straight = trainer.train_batched(job, scenarios, args.seeds,
+                                         n_ticks=n_ticks, **run_kw)
+        market = same_trajectories(resumed, straight, MARKET)
+        carry = compare_carries(torch, resumed.final_model,
+                                straight.final_model)
+        diff = np.abs(np.nan_to_num(resumed.errors)
+                      - np.nan_to_num(straight.errors))
+        losses_within = bool(
+            (np.isnan(resumed.errors) == np.isnan(straight.errors)).all()
+            and (diff <= MEGABATCH_TOL[1] + MEGABATCH_TOL[0] * np.abs(
+                np.nan_to_num(straight.errors))).all())
+    finally:
+        shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    return {"config": "qwen2-7b reduced", "n_ticks": n_ticks,
+            "scenarios": len(scenarios), "seeds": args.seeds,
+            "killed_before_save": 16 if killed else None,
+            "shard_files": n_files,
+            "k1_launches": {"sharded_ticks_0_16": k1_sharded,
+                            "resumed_unsharded_8_end": k1_resumed},
+            "bit_equal_same_ticks": equal,
+            "vs_straight_unsharded": {
+                "market_bit_equal": market, "carry": carry,
+                "losses_max_abs_diff": float(diff.max()),
+                "losses_within_megabatch_tol": losses_within}}
+
+
+def phase_mesh(torch, smi, main, resumed):
+    """Slice 12's paths, each with the launch counts set to 0 before it
+    and read after; one line, then the checks."""
+    t0 = time.perf_counter()
+    mega = phase_mesh_megabatch(torch, smi, main)
+    free(torch)
+    fig3 = phase_mesh_fig3(torch, resumed)
+    score = phase_mesh_score_requests(torch)
+    durable = phase_mesh_durable(torch)
+    free(torch)
+    n_ticks = main["n_ticks"]
+    emit({"phase": "mesh", "phase_s": time.perf_counter() - t0,
+          "megabatch": mega, "fig3_uniform": fig3,
+          "score_requests": score, "durable_megabatch": durable,
+          "card": smi})
+    one, two = mega["mesh_1"], mega["two_shards"]
+    bad = []
+    if one["launches_k1"] != n_ticks or two["launches_k1"] != 2 * n_ticks:
+        bad.append(f"K1 launches {one['launches_k1']} / "
+                   f"{two['launches_k1']}: want {n_ticks} (one shard) and "
+                   f"{2 * n_ticks} (two shards × {n_ticks} ticks)")
+    if not all(one["trajectories_bit_equal"].values()) \
+            or not one["carry_digest_equal"]:
+        bad.append("--mesh 1 differs from the main path's run")
+    if not all(two["market_bit_equal"].values()):
+        bad.append(f"two shards: market {two['market_bit_equal']}")
+    if not (two["carry"]["bit_equal"] and two["losses_bit_equal"]) and not (
+            two["carry"]["within_megabatch_tol"]
+            and two["losses_within_megabatch_tol"]):
+        bad.append(f"two shards: carry {two['carry']}, losses "
+                   f"{two['losses_max_abs_diff']}")
+    if two["peak_mem_bytes"] > 1.1 * main["peak_mem_bytes"]:
+        bad.append(f"two shards' peak {two['peak_mem_bytes']} > 1.1 × "
+                   f"{main['peak_mem_bytes']}")
+    if not all(fig3["bit_equal"].values()):
+        bad.append(f"fig3 in three shards: {fig3['bit_equal']}")
+    if not score["bit_equal"] or not score["finite"]:
+        bad.append(f"score_requests: {score}")
+    vs = durable["vs_straight_unsharded"]
+    if not durable["killed_before_save"] or durable["shard_files"] != min(
+            2, durable["scenarios"]) \
+            or not all(durable["bit_equal_same_ticks"].values()) \
+            or not all(vs["market_bit_equal"].values()) \
+            or not (vs["carry"]["within_megabatch_tol"]
+                    and vs["losses_within_megabatch_tol"]) \
+            or durable["k1_launches"] != {
+                "sharded_ticks_0_16": 2 * 16,
+                "resumed_unsharded_8_end": durable["n_ticks"] - 8}:
+        bad.append(f"durable megabatch: {durable}")
+    for name, rec in (("fig3_uniform", fig3), ("score_requests", score)):
+        if set(rec["launches"].values()) - {0}:
+            bad.append(f"{name}: a kernel launched on a path that runs none")
+    if bad:
+        raise AssertionError("mesh: " + "; ".join(bad))
+
+
 def free(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -3379,7 +3786,7 @@ def main() -> int:
     phase_small_compare(torch)
     phase_k2_small(torch)
     phase_k3_small(torch)
-    res, job, launches = phase_main_path(torch)
+    res, job, launches, main_run = phase_main_path(torch)
     phase_steady_step(torch, res, job)
     k1 = phase_kernel_at_main_shape(torch, res, smi, launches)
     del res
@@ -3405,7 +3812,7 @@ def main() -> int:
     fig3 = phase_figures(torch)
     phase_figures_card_vs_cpu(torch)
     phase_sweep(torch)
-    phase_resume(torch, fig3)
+    resumed = phase_resume(torch, fig3)
     phase_bidserve(torch)
     free(torch)
     phase_durable(torch, smi)
@@ -3418,8 +3825,11 @@ def main() -> int:
     k2_whisper = phase_train_encdec(torch, smi)
     phase_serve_encdec(torch, smi)
     free(torch)
+    t12 = time.perf_counter()
+    phase_mesh(torch, smi, main_run, resumed)
     emit({"phase": "total", "seconds": time.perf_counter() - t_main,
-          "slice_11_seconds": time.perf_counter() - t11})
+          "slice_11_seconds": t12 - t11,
+          "slice_12_seconds": time.perf_counter() - t12})
     emit({"kernels": [k1] + k2 + k3 + k3_hybrid + k2_hybrid + k2_whisper})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

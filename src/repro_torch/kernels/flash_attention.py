@@ -35,7 +35,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, count_launch
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
@@ -229,7 +229,7 @@ def flash_fwd(q, k, v, *, causal: bool, window: Optional[int],
             *_problem(q, k, causal, window, q_offset, _scale(q, scale)),
             _stream(q))
     _raise_on(err, "flash_attention_fwd")
-    flash_fwd.launches += 1
+    count_launch(flash_fwd)
     return out, lse
 
 
@@ -258,7 +258,7 @@ def flash_fwd_tc(q, k, v, *, causal: bool, window: Optional[int],
             *_problem(q, k, causal, window, q_offset, _scale(q, scale)),
             _stream(q))
     _raise_on(err, "flash_attention_fwd_tc")
-    flash_fwd_tc.launches += 1
+    count_launch(flash_fwd_tc)
     return out, lse
 
 
@@ -292,7 +292,7 @@ def flash_bwd_dkdv(q, k, v, out, lse, dout, *, causal: bool,
             *_problem(q, k, causal, window, q_offset, _scale(q, scale)),
             _stream(q))
     _raise_on(err, "flash_attention_bwd_dkdv")
-    flash_bwd_dkdv.launches += 1
+    count_launch(flash_bwd_dkdv)
     return dk, dv
 
 
@@ -329,7 +329,7 @@ def flash_bwd_delta(out, dout) -> torch.Tensor:
             d, out.data_ptr(), dout.data_ptr(), delta.data_ptr(),
             _strides(out, dout), b, h, s, _stream(out))
     _raise_on(err, "flash_attention_bwd_delta")
-    flash_bwd_delta.launches += 1
+    count_launch(flash_bwd_delta)
     return delta
 
 
@@ -386,7 +386,7 @@ def flash_bwd_dkdv_tc(q, k, v, out, lse, dout, *, causal: bool,
             *_problem(q, k, causal, window, q_offset, _scale(q, scale)),
             _stream(q))
     _raise_on(err, "flash_attention_bwd_dkdv_tc")
-    flash_bwd_dkdv_tc.launches += 1
+    count_launch(flash_bwd_dkdv_tc)
     return dk, dv
 
 
@@ -418,7 +418,7 @@ def flash_bwd_dq(q, k, v, out, lse, dout, *, causal: bool,
             *_problem(q, k, causal, window, q_offset, _scale(q, scale)),
             _stream(q))
     _raise_on(err, "flash_attention_bwd_dq")
-    flash_bwd_dq.launches += 1
+    count_launch(flash_bwd_dq)
     return dq
 
 
@@ -444,7 +444,7 @@ def flash_bwd_dq_tc(q, k, v, out, lse, dout, *, causal: bool,
             *_problem(q, k, causal, window, q_offset, _scale(q, scale)),
             _stream(q))
     _raise_on(err, "flash_attention_bwd_dq_tc")
-    flash_bwd_dq_tc.launches += 1
+    count_launch(flash_bwd_dq_tc)
     return dq
 
 

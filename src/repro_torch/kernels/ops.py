@@ -11,7 +11,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import flash_attention as flash
-from repro_torch.kernels import ref, ssd_scan
+from repro_torch.kernels import count_launch, ref, ssd_scan
 from repro_torch.kernels.elastic_update import elastic_sgd_update
 
 
@@ -32,7 +32,7 @@ def fused_elastic_update(params, mom, grads, w_sum, running, lr, *,
         return params, mom
     elastic_sgd_update(params, mom, grads, w_sum, running, lr,
                        momentum=momentum)
-    fused_elastic_update.launches += 1
+    count_launch(fused_elastic_update)
     return params, mom
 
 
@@ -88,7 +88,7 @@ def ssd_chunked(xh, dt, a_h, bm, cm, *, chunk: int,
     else:
         y_intra, states, cs, decay = ssd_scan.ssd_chunk(
             xh, dt, a_h, bm, cm, chunk=q)
-        ssd_chunked.launches += 1
+        count_launch(ssd_chunked)
     f32 = torch.float32
     # the state entering each chunk, laid out (B, nc, G, N, rep·P) so one
     # batched product per (batch, chunk, group) gives every head of the

@@ -33,7 +33,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, count_launch
 
 MAX_Q, MAX_N, MAX_P = 256, 128, 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -210,7 +210,7 @@ def ssd_chunk_cuda_core(xh: torch.Tensor, dt: torch.Tensor,
     lib = _bind("ssd_scan", "ssd_chunk_fwd", _ARGTYPES)
     outs = _launch("ssd_chunk_cuda_core", lib.ssd_chunk_fwd, (), xh, dt,
                    a_h, bm, cm, q)
-    ssd_chunk_cuda_core.launches += 1
+    count_launch(ssd_chunk_cuda_core)
     return outs
 
 

@@ -14,15 +14,20 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.bidserve --trace a.npz \\
       --trace b.csv
 
-``--mesh`` and ``--devices`` come with the mesh slice, ``--jit-cache``
-with the launch slice; each raises naming its slice.
+``--mesh N`` shards candidate scoring over an N-device
+``launch.mesh.make_scenario_mesh`` mesh — bit for bit the default
+single-device scores: the first N cards, or on the CPU N of the host
+devices that ``--devices N`` makes (the counterpart of the reference's
+forced XLA host devices; ``launch.mesh.HOST_DEVICES_ENV`` otherwise):
+  PYTHONPATH=src python -m repro_torch.launch.bidserve --device cpu \\
+      --devices 2 --mesh 2
+``--jit-cache [DIR]`` is accepted: the kernels already build once into
+``src/repro_torch/_build/`` (``launch.jitcache``).
 """
 from __future__ import annotations
 
 import argparse
 import json
-
-from repro_torch.sim.engine import not_ported
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,33 +62,35 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--out", default=None,
                     help="directory for decisions.jsonl")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="shard candidate scoring over N devices (raises: "
-                    "the mesh slice)")
+                    help="shard candidate scoring over N devices")
     ap.add_argument("--devices", type=int, default=0,
-                    help="force N virtual host devices (raises: the mesh "
-                    "slice)")
+                    help="N host devices for a CPU mesh (--device cpu)")
     ap.add_argument("--json", action="store_true",
                     help="print the full report, not just the summary")
     ap.add_argument("--jit-cache", nargs="?", const="", default=None,
                     metavar="DIR",
-                    help="persistent compilation cache (raises: the launch "
-                    "slice)")
+                    help="the reference's persistent compilation cache; the "
+                    "kernels already build once into _build/, so this "
+                    "changes nothing")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where every engine call runs (default cuda)")
     return ap
 
 
 def run(args) -> dict:
-    if args.mesh or args.devices:
-        raise not_ported("bidserve --mesh/--devices", "mesh")
-    if args.jit_cache is not None:
-        raise not_ported("bidserve --jit-cache", "jitcache")
     from repro_torch.core.cost_model import RuntimeModel
     from repro_torch.device import exact_float32
+    from repro_torch.launch.jitcache import enable_persistent_cache
+    from repro_torch.launch.mesh import make_scenario_mesh
     from repro_torch.service import (BidServer, JobSpec, ServeConfig,
                                      feed_from_traces, synthetic_feed)
     from repro_torch.service.server import demo_problem
 
+    if args.devices and args.device != "cpu":
+        raise ValueError("--devices N sets a CPU mesh's host devices; on "
+                         "the card the mesh takes the first --mesh cards")
+    if args.jit_cache is not None:
+        enable_persistent_cache(args.jit_cache or None)
     exact_float32()
     if args.trace:
         feed = feed_from_traces(args.trace)
@@ -105,11 +112,14 @@ def run(args) -> dict:
         score_seeds=args.score_seeds, seed=args.seed, batch=batch,
         multibid_partitions=partitions,
         include_provision=not args.no_provision, out_dir=args.out)
+    mesh = (make_scenario_mesh(args.mesh, device=args.device,
+                               host_devices=args.devices or None)
+            if args.mesh > 0 else None)
     server = BidServer(
         feed, jobs, prob=prob, quad=quad, w0=w0,
         alpha=prob.alpha, rt_true=RuntimeModel(kind="exp", lam=2.0,
                                                delta=0.05),
-        cfg=cfg, device=args.device)
+        cfg=cfg, mesh=mesh, device=args.device)
     return server.run()
 
 

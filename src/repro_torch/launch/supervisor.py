@@ -10,10 +10,13 @@ durable loop (`trainer.train_batched_durable`) in a worker subprocess and
   ``max_restarts`` budget, each restart auto-resuming from the newest
   *valid* checkpoint (`checkpoint.restore_newest(strict=False)` inside the
   worker quarantines corrupt step dirs and falls back);
-* degrades onto fewer cards when devices disappear between restarts (a
+* degrades onto fewer devices when devices disappear between restarts (a
   ``shrink`` fault, or ``degrade_after`` consecutive no-progress
   failures): the worker then sees the first N cards through
-  ``CUDA_VISIBLE_DEVICES``;
+  ``CUDA_VISIBLE_DEVICES``, or N host devices on the CPU
+  (``launch.mesh.HOST_DEVICES_ENV``), and a spec with ``mesh`` > 1
+  shards its grid over what it sees — the mesh-portable restore resumes
+  the run on the smaller mesh bit for bit;
 * emits a structured recovery log (``recovery.json``): every spawn /
   crash / hang / shrink / rollback event plus restarts, ticks lost, and
   MTTR.
@@ -27,7 +30,8 @@ Layout of a run directory::
       heartbeat.json       {"tick", "time", "pid", "phase"}, atomic
       ckpt/step_*/         step-directory checkpoints (keep_last GC'd)
       result.json          written by the worker on success (with the
-                           worker's device and its kernel launch counts)
+                           devices its mesh saw, its device and its
+                           kernel launch counts)
       worker_events.jsonl  injected faults + NaN rollbacks, as they happen
       attempt_{k}.log      worker stdout+stderr per attempt
       recovery.json        the supervisor's structured recovery log
@@ -52,6 +56,8 @@ import time
 from typing import List, Optional
 
 import numpy as np
+
+from repro_torch.launch.mesh import HOST_DEVICES_ENV
 
 HEARTBEAT_NAME = "heartbeat.json"
 SPEC_NAME = "spec.json"
@@ -185,15 +191,23 @@ def worker_main(run_dir: str, device: str = "cuda") -> int:
     ``device``. Exit 0 ⇔ the final checkpoint is at ``spec.n_ticks``."""
     from repro_torch.device import resolve_device
     from repro_torch.kernels import ops
+    from repro_torch.launch.jitcache import (cache_dir_for_run,
+                                             enable_persistent_cache)
+    from repro_torch.launch.mesh import make_scenario_mesh, visible_devices
     from repro_torch.launch.workload import WorkerSpec, build_workload
     from repro_torch.train import trainer
 
     spec = WorkerSpec.load(os.path.join(run_dir, SPEC_NAME))
-    check_spec(spec)
     device = resolve_device(device)
-    # spec.jit_cache has no effect here: the kernels are built once into
-    # _build/, and a restart loads them from there
+    if spec.jit_cache:
+        # changes nothing: a restart loads the kernels from _build/
+        enable_persistent_cache(cache_dir_for_run(run_dir))
     job, scenarios, seeds = build_workload(spec)
+
+    mesh = None
+    n_visible = len(visible_devices(device))
+    if spec.mesh > 1 and n_visible > 1:
+        mesh = make_scenario_mesh(min(spec.mesh, n_visible), device=device)
 
     injector = None
     plan_path = os.path.join(run_dir, PLAN_NAME)
@@ -207,7 +221,7 @@ def worker_main(run_dir: str, device: str = "cuda") -> int:
     hooks = _CompositeHooks(_Heartbeat(run_dir), injector)
     kw = dict(
         checkpoint_path=os.path.join(run_dir, CKPT_DIRNAME),
-        save_every=spec.save_every, n_ticks=spec.n_ticks,
+        save_every=spec.save_every, n_ticks=spec.n_ticks, mesh=mesh,
         save_shards=spec.save_shards, async_save=spec.async_save,
         keep_last=spec.keep_last, strict_resume=False, nan_guard=True,
         hooks=hooks, device=device)
@@ -219,7 +233,8 @@ def worker_main(run_dir: str, device: str = "cuda") -> int:
     else:
         res = trainer.train_batched_durable(job, scenarios, seeds, **kw)
 
-    out = {"final_tick": spec.n_ticks, "mesh_devices": 0,
+    out = {"final_tick": spec.n_ticks,
+           "mesh_devices": n_visible if mesh is not None else 0,
            "total_cost": np.asarray(res.total_cost).tolist(),
            "device": str(device), "launches": ops.launch_counts()}
     tmp = os.path.join(run_dir, RESULT_NAME + ".tmp")
@@ -227,13 +242,6 @@ def worker_main(run_dir: str, device: str = "cuda") -> int:
         json.dump(out, f)
     os.replace(tmp, os.path.join(run_dir, RESULT_NAME))
     return 0
-
-
-def check_spec(spec) -> None:
-    """Refuse what the port cannot run yet: a spec sharded over a mesh."""
-    if spec.mesh > 1:
-        from repro_torch.sim import engine
-        raise engine.not_ported(f"WorkerSpec(mesh={spec.mesh})", "mesh")
 
 
 # ---------------------------------------------------------------------------
@@ -249,8 +257,9 @@ class SupervisorConfig:
     jitter: float = 0.25           # ± fraction of the backoff, seeded
     hang_timeout: float = 120.0    # stale-heartbeat seconds before SIGKILL
     poll_interval: float = 0.25
-    devices: int = 0               # show the child the first N cards (0 =
-    #                                inherit whatever the child sees)
+    devices: int = 0               # show the child N devices — the first N
+    #                                cards, or N host devices on the CPU
+    #                                (0 = inherit whatever the child sees)
     degrade_after: int = 2         # consecutive no-progress failures before
     #                                halving the visible device count
     seed: int = 0
@@ -279,7 +288,9 @@ class Supervisor:
         src = os.path.dirname(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))))
         env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
-        if devices > 0:
+        if devices > 0 and self.cfg.device == "cpu":
+            env[HOST_DEVICES_ENV] = str(devices)
+        elif devices > 0:
             # the first N of the cards this process may use
             visible = [d for d in env.get("CUDA_VISIBLE_DEVICES", "").split(
                 ",") if d.strip()] or [str(i) for i in range(devices)]
@@ -471,7 +482,8 @@ def main(argv=None):
     ap.add_argument("--hang-timeout", type=float, default=120.0)
     ap.add_argument("--backoff-base", type=float, default=0.5)
     ap.add_argument("--devices", type=int, default=0,
-                    help="show the worker the first N cards (0 = inherit)")
+                    help="show the worker N devices: the first N cards, or "
+                         "N host devices with --device cpu (0 = inherit)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the worker trains (default cuda; without "
                          "a card it fails rather than falling back)")
@@ -488,7 +500,6 @@ def main(argv=None):
             os.path.join(args.run_dir, SPEC_NAME))
     elif not os.path.exists(os.path.join(args.run_dir, SPEC_NAME)):
         ap.error(f"no --spec and no {SPEC_NAME} in {args.run_dir}")
-    check_spec(WorkerSpec.load(os.path.join(args.run_dir, SPEC_NAME)))
     if args.fault_plan:
         from repro_torch.chaos import FaultPlan
         FaultPlan.load(args.fault_plan).save(

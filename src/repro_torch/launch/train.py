@@ -14,8 +14,13 @@ Modes:
   restarts from the newest valid checkpoint. ``--param-dtype bfloat16``
   selects the zoo's mixed-precision program there.
 
-The reference's dry run, ``--mesh`` and ``--jit-cache`` raise naming the
-slice they come with.
+``--batched --mesh N [--mesh-replica M]`` shards the grid over N devices
+(an N × M scenario × replica mesh with ``--mesh-replica``) through
+``engine.simulate_sharded``: the first cards, or on the CPU the host
+devices of ``launch.mesh.HOST_DEVICES_ENV``. The result JSON reports the
+mesh's axis sizes. ``--jit-cache`` is accepted and changes nothing (the
+kernels build once into ``_build/``). The reference's dry run lowers for a
+TPU pod and is not ported.
 
 Example (one H100, full-width Qwen2-7B at two layers):
   PYTHONPATH=src python -m repro_torch.launch.train --config qwen2_7b \\
@@ -82,8 +87,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "the supervised worker")
     ap.add_argument("--jit-cache", nargs="?", const="", default=None,
                     metavar="DIR",
-                    help="the reference's persistent compilation cache "
-                         "(not ported: raises)")
+                    help="the reference's persistent compilation cache; "
+                         "the kernels already build once into _build/, so "
+                         "this changes nothing")
     ap.add_argument("--local", action="store_true",
                     help="the legacy per-iteration loop "
                          "(ElasticTrainer.run) with the simulated market")
@@ -112,8 +118,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="apply the elastic SGD update with the fused "
                          "CUDA kernel (requires --megabatch)")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
-                    help="shard the grid over N devices (not ported: "
-                         "raises)")
+                    help="shard the batched grid's scenario axis over N "
+                         "devices via simulate_sharded (requires "
+                         "--batched; bit for bit the unsharded run; on the "
+                         "CPU, N host devices from "
+                         "REPRO_TORCH_HOST_DEVICES)")
+    ap.add_argument("--mesh-replica", type=int, default=None, metavar="M",
+                    help="also shard the seed axis over M devices (2-D "
+                         "N x M scenario x replica mesh; requires --mesh)")
     ap.add_argument("--supervise", action="store_true",
                     help="run durable batched training under the "
                          "self-healing supervisor (subprocess worker, "
@@ -165,14 +177,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         ap.error("--fused-update requires --megabatch")
     if args.megabatch and not args.batched:
         ap.error("--megabatch requires --batched")
+    if args.mesh_replica and args.mesh is None:
+        ap.error("--mesh-replica requires --mesh")
     if args.mesh is not None and not args.batched:
         ap.error("--mesh requires --batched")
     if args.batched:
         args.local = True
     if not args.local:
-        ap.error("the dry run (no --local, --batched or --supervise) "
-                 "lowers for a mesh, which comes with the mesh slice of "
-                 "the port")
+        ap.error(str(engine.not_ported(
+            "the dry run (no --local, --batched or --supervise)",
+            "model_parallel")))
     return args
 
 
@@ -234,7 +248,6 @@ def supervise(args: argparse.Namespace) -> Dict:
                       reduce_depth=args.reduce_depth,
                       param_dtype=args.param_dtype,
                       zoo=args.zoo)
-    sup_mod.check_spec(spec)
     os.makedirs(args.run_dir, exist_ok=True)
     spec.save(os.path.join(args.run_dir, sup_mod.SPEC_NAME))
     if args.fault_plan:
@@ -252,9 +265,8 @@ def run(args: argparse.Namespace) -> Tuple[object, Dict]:
     """Train as the flags say; returns (the ``BatchResult`` of a batched
     run, else None; the summary the CLI prints)."""
     if args.jit_cache is not None:
-        raise engine.not_ported("--jit-cache", "jitcache")
-    if args.mesh is not None:
-        raise engine.not_ported("--mesh", "mesh")
+        from repro_torch.launch.jitcache import enable_persistent_cache
+        enable_persistent_cache(args.jit_cache or None)
     if args.supervise:
         return None, supervise(args)
     trainer = build_trainer(args)
@@ -262,14 +274,22 @@ def run(args: argparse.Namespace) -> Tuple[object, Dict]:
         summary = trainer.run(iterations=args.iterations)
         del summary["log"]
         return None, summary
+    mesh = None
+    if args.mesh is not None:
+        from repro_torch.launch.mesh import (make_scenario_mesh,
+                                             make_scenario_replica_mesh)
+        mesh = (make_scenario_replica_mesh(args.mesh, args.mesh_replica,
+                                           device=args.device)
+                if args.mesh_replica else
+                make_scenario_mesh(args.mesh, device=args.device))
     res = trainer.run_batched(seeds=args.seeds, iterations=args.iterations,
                               megabatch=args.megabatch,
-                              use_fused_update=args.fused_update)
+                              use_fused_update=args.fused_update, mesh=mesh)
     out = {name: res.run(name).summary for name in res.names}
     out["_engine"] = {"replicas": len(res.names) * res.n_seeds,
                       "megabatch": args.megabatch,
                       "fused_update": args.fused_update,
-                      "mesh": None}
+                      "mesh": None if mesh is None else mesh.shape}
     return res, out
 
 

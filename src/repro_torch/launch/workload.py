@@ -31,10 +31,13 @@ class WorkerSpec:
 
     ``bids`` is one per-worker bid vector per scenario (each of length
     ``n_workers``), tiled over ``iterations`` SGD steps. ``mesh`` > 1
-    (sharding the scenario axis over devices) waits for the port's mesh
-    slice: the worker raises on it. ``jit_cache`` is read and has no
-    effect: the port builds its kernels once into ``_build/`` and has no
-    compilation cache to warm.
+    shards the scenario axis over ``min(mesh, visible devices)`` devices
+    (0/1 = the unsharded path): the worker clamps to whatever devices the
+    restarted process sees — the first cards of ``CUDA_VISIBLE_DEVICES``,
+    or the CPU's host devices (``launch.mesh.HOST_DEVICES_ENV``) — which
+    is how a supervised run degrades onto fewer devices after a shrink.
+    ``jit_cache`` goes through ``launch.jitcache`` and changes nothing:
+    the port builds its kernels once into ``_build/``.
 
     Real-model workloads: ``reduce_depth=N`` starts from the arch's FULL
     config (real widths/vocab) at N layers instead of the CPU-smoke

@@ -11,7 +11,7 @@ scatter-added back to their tokens deterministically.
 
 The reference's expert-parallel routes over a mesh (its psum route with
 experts sharded over the model axis, and its all-to-all route) come with
-the mesh slice of the port."""
+the model-parallel slice of the port."""
 from __future__ import annotations
 
 import math

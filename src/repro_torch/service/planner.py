@@ -13,7 +13,9 @@ The whole slate (all jobs × all candidates × seeds) is then scored in ONE
 engine call: each candidate becomes a scenario replaying i.i.d. draws from
 the posterior quantile grid (``PriceSpec.empirical``), the batch is
 simulated with ``sim.engine.simulate_program`` on ``device`` (``cuda``
-unless asked for the CPU; ``mesh=`` comes with the mesh slice), and the
+unless asked for the CPU), or sharded over a ``launch.mesh`` device mesh
+with ``sim.engine.simulate_sharded`` when ``mesh=`` is given — bit for
+bit either way — and the
 committed plan is the argmin realized mean cost among candidates that
 complete within θ_left and satisfy the paper's error constraint. The slate
 length and every scenario shape are constant across horizons.
@@ -251,15 +253,15 @@ def score_requests(requests: Sequence[PlanRequest], *, alpha: float,
                    min_complete: Optional[int] = None,
                    mesh=None, device=None) -> np.ndarray:
     """Score every job's whole slate in one batched engine call on
-    ``device`` (default ``cuda``).
+    ``device`` (default ``cuda``), or on ``mesh``'s devices.
 
     Returns (n_jobs, C) realized mean total cost per candidate; +inf where
     the candidate failed to finish its remaining iterations within
     ``score_ticks`` posterior ticks / θ_left wall-clock on at least
-    ``min_complete`` of the seeds. ``mesh=`` raises until the mesh slice.
+    ``min_complete`` of the seeds. ``mesh=`` routes the very same grid
+    through `engine.simulate_sharded` (candidates over the mesh's
+    ``data`` axis), bit for bit the unsharded scores.
     """
-    if mesh is not None:
-        raise engine.not_ported("score_requests(mesh=...)", "mesh")
     sizes = {len(r.candidates) for r in requests}
     if len(sizes) != 1:
         raise ValueError(f"ragged candidate slates: {sorted(sizes)}")
@@ -269,10 +271,14 @@ def score_requests(requests: Sequence[PlanRequest], *, alpha: float,
                             idle_step=idle_step,
                             on_demand_price=on_demand_price)
         for req in requests for cand in req.candidates]
-    stacked = engine.stack_scenarios(scenarios, device=device)
     cfg = engine.SimConfig(n_ticks=int(score_ticks), batch=batch, grad=grad)
-    res = engine.simulate_program(stacked, program, model0, data,
-                                  list(seeds), cfg, device=device)
+    if mesh is not None:
+        res = engine.simulate_sharded(scenarios, program, model0, data,
+                                      list(seeds), cfg, mesh=mesh)
+    else:
+        res = engine.simulate_program(
+            engine.stack_scenarios(scenarios, device=device), program,
+            model0, data, list(seeds), cfg, device=device)
 
     n_seeds = len(list(seeds))
     need = n_seeds if min_complete is None else int(min_complete)

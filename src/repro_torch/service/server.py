@@ -28,8 +28,9 @@ pins. With a fixed seed the whole run is bit-reproducible: all engine RNG
 folds (seed, absolute tick) and the feed replay is deterministic.
 
 Every engine call runs on the server's ``device`` (``cuda`` unless asked
-for the CPU); the carry stays there between windows. ``mesh=`` comes with
-the mesh slice.
+for the CPU); the carry stays there between windows. ``mesh=`` (a
+``launch.mesh`` device mesh) shards candidate scoring over its devices —
+the decisions bit for bit those of the unsharded server.
 """
 from __future__ import annotations
 
@@ -92,8 +93,6 @@ class BidServer:
                  prob: conv.SGDProblem, quad, w0, alpha: float,
                  rt_true: RuntimeModel, cfg: ServeConfig = ServeConfig(),
                  mesh=None, device=None):
-        if mesh is not None:
-            raise engine.not_ported("BidServer(mesh=...)", "mesh")
         if not jobs:
             raise ValueError("need at least one job")
         for job in jobs:
@@ -105,6 +104,7 @@ class BidServer:
         self.prob = prob
         self.quad = quad
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.data = engine.torch_quadratic(quad, self.device)
         self.w0 = np.asarray(w0, np.float32)
         self.alpha = float(alpha)
@@ -290,7 +290,8 @@ class BidServer:
                 seeds=[1000 + cfg.seed + r for r in range(cfg.score_seeds)],
                 score_ticks=self.score_ticks, grad=cfg.grad, batch=cfg.batch,
                 idle_step=cfg.idle_step,
-                on_demand_price=cfg.on_demand_price, device=self.device)
+                on_demand_price=cfg.on_demand_price, mesh=self.mesh,
+                device=self.device)
             picks = pl.choose(requests, scores)
             for i, (idx, cand) in enumerate(picks):
                 if not requests[i].done:

@@ -35,14 +35,18 @@ steps the quadratic per cell; here it is blocked, with the same
 arithmetic per cell. ``SimConfig.snapshot_every`` stacks the whole carry
 every k ticks (``snapshot_state``), and ``simulate_program(init_state=,
 tick0=)`` resumes from it bit for bit: every draw is keyed by the absolute
-tick. ``simulate_sharded`` raises ``NotImplementedError`` naming the mesh
-slice.
+tick. ``simulate_sharded`` runs the grid in shards over a
+``launch.mesh.Mesh`` (scenarios over ``data``, seeds over ``replica``),
+bit for bit the unsharded run.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -60,10 +64,10 @@ PRICE_UNIFORM, PRICE_TRUNC_GAUSS, PRICE_TRACE, PRICE_EMPIRICAL = 0, 1, 2, 3
 PRICE_TRACE_TICK = 4
 
 _LATER = {
-    "mesh": "the mesh slice",
-    "jitcache": "the mesh slice's launch/jitcache.py (a persistent "
-                "compilation cache; the port builds its kernels once into "
-                "_build/)",
+    "model_parallel": "the model-parallel slice (a model sharded over "
+                      "several cards: logical sharding, expert "
+                      "parallelism, the roofline accounting and the "
+                      "launcher's dry run)",
 }
 
 
@@ -428,7 +432,14 @@ class TorchQuadratic(NamedTuple):
     """Device-side view of data.synthetic.QuadraticProblem (the reference's
     ``JaxQuadratic``). The quadratic is exact, so error = G(w) − G* =
     ½ (w−w*)ᵀ H (w−w*). Every method takes iterates with any leading
-    axes, ``w`` (..., d)."""
+    axes, ``w`` (..., d).
+
+    Every contraction is an elementwise product summed over one axis,
+    never a matrix product: a matrix product over the grid folds the cells
+    into its rows, and BLAS picks its kernel, and so its order of
+    summation, by the number of rows. Summed this way a cell's bits do not
+    depend on how many cells share the call, so a grid run in shards
+    (`simulate_sharded`) is bit for bit the grid run whole."""
 
     A: torch.Tensor          # (n_samples, d, d) f32
     b: torch.Tensor          # (n_samples, d)
@@ -444,19 +455,18 @@ class TorchQuadratic(NamedTuple):
 
     def error(self, w: torch.Tensor) -> torch.Tensor:
         d = w - self.w_star
-        return 0.5 * (d * (d @ self.H.T)).sum(-1)
+        return 0.5 * (d * _matvec(self.H, d)).sum(-1)
 
     def full_grad(self, w: torch.Tensor) -> torch.Tensor:
-        return (w - self.w_star) @ self.H.T
+        return _matvec(self.H, w - self.w_star)
 
     def minibatch_grads_at(self, idx: torch.Tensor,
                            w: torch.Tensor) -> torch.Tensor:
         """Per-worker minibatch gradients on explicit sample indices
         ``idx`` (..., n_workers, batch) -> (..., n_workers, d)."""
         a = self.A[idx]                                  # (..., n, b, d, d)
-        r = (a @ w[..., None, None, :, None])[..., 0] - self.b[idx]
-        return (a.transpose(-1, -2) @ r[..., None])[..., 0].sum(-2) \
-            / idx.shape[-1]
+        r = _matvec(a, w[..., None, None, :]) - self.b[idx]
+        return (a * r[..., :, None]).sum(-2).sum(-2) / idx.shape[-1]
 
     def minibatch_grads(self, key: torch.Tensor, w: torch.Tensor,
                         n_workers: int, batch: int) -> torch.Tensor:
@@ -464,6 +474,12 @@ class TorchQuadratic(NamedTuple):
         indices `minibatch_indices` draws from ``key`` (...)."""
         return self.minibatch_grads_at(
             minibatch_indices(key, n_workers, batch, self.n_samples), w)
+
+
+def _matvec(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """m (..., d, d) @ x (..., d) -> (..., d), cell by cell (see
+    `TorchQuadratic`)."""
+    return (m * x[..., None, :]).sum(-1)
 
 
 def torch_quadratic(quad, device=None) -> TorchQuadratic:
@@ -1013,8 +1029,194 @@ def simulate(scenarios, quad, w0, seeds, cfg: SimConfig, *,
         cfg, device=device)
 
 
-def simulate_sharded(*args, **kwargs) -> EngineResult:
-    raise not_ported("simulate_sharded", "mesh")
+# --------------------------------------------------------------------------
+# Mesh execution: the (S, R) grid in shards over devices
+# --------------------------------------------------------------------------
+
+
+def _shard_bounds(n: int, shards: int) -> List[Tuple[int, int]]:
+    """[lo, hi) row ranges of ``n`` rows over ``shards`` shards, in order,
+    sizes differing by at most one (empty when n < shards)."""
+    q, r = divmod(n, shards)
+    bounds, lo = [], 0
+    for i in range(shards):
+        hi = lo + q + (i < r)
+        bounds.append((lo, hi))
+        lo = hi
+    return bounds
+
+
+def _data_on(data, device):
+    """The program's ``data`` (None, a tensor, a `TorchQuadratic`, or a
+    dict of them) on ``device``; no copy where it is there already."""
+    if data is None:
+        return None
+    if isinstance(data, dict):
+        return {k: _data_on(v, device) for k, v in data.items()}
+    return data.to(device)
+
+
+def _run_by_device(jobs: Sequence[Tuple[torch.device, Callable]]) -> list:
+    """Run ``fn()`` for every (device, fn), returning the results in order.
+    Jobs on one device run in turn; jobs on different devices run at once,
+    one host thread per device (the tick loop is host-bound, so in one
+    thread they would run in series)."""
+    by_dev: Dict[torch.device, List[int]] = {}
+    for i, (dev, _) in enumerate(jobs):
+        by_dev.setdefault(dev, []).append(i)
+    out: list = [None] * len(jobs)
+
+    def run_device(dev, idxs):
+        ctx = (torch.cuda.device(dev) if dev.type == "cuda"
+               else contextlib.nullcontext())
+        with ctx:
+            for i in idxs:
+                out[i] = jobs[i][1]()
+
+    if len(by_dev) == 1:
+        run_device(*next(iter(by_dev.items())))
+        return out
+    with ThreadPoolExecutor(max_workers=len(by_dev)) as pool:
+        for fut in [pool.submit(run_device, dev, idxs)
+                    for dev, idxs in by_dev.items()]:
+            fut.result()
+    return out
+
+
+def _gather(bounds, parts, grid, device) -> torch.Tensor:
+    """Shards' leaves (rows ``bounds[i]`` = (s0, s1, r0, r1) of the grid)
+    -> one (S, R, ...) tensor on ``device``."""
+    out = torch.empty(grid + tuple(parts[0].shape[2:]),
+                      dtype=parts[0].dtype, device=device)
+    for (s0, s1, r0, r1), part in zip(bounds, parts):
+        out[s0:s1, r0:r1].copy_(part)
+    return out
+
+
+def _join_leaf(full: torch.Tensor, bounds, inputs, finals,
+               grid) -> torch.Tensor:
+    """One carry leaf of the whole grid from its shards' final leaves.
+
+    Shard i covers rows ``bounds[i]`` and ran from ``inputs[i]`` to
+    ``finals[i]``. A leaf every shard's step updated in place (the final
+    leaf IS its input) stays the caller's ``full`` leaf, as in the
+    unsharded run: shards that ran on a copy (on another device, or rows
+    that were not contiguous) are copied back into their rows. A leaf the
+    steps replaced is gathered into a new tensor on ``full``'s device."""
+    if not all(fin is inp for inp, fin in zip(inputs, finals)):
+        return _gather(bounds, finals, grid, full.device)
+    for (s0, s1, r0, r1), fin in zip(bounds, finals):
+        dst = full[s0:s1, r0:r1]
+        if fin.data_ptr() != dst.data_ptr():
+            dst.copy_(fin)
+    return full
+
+
+def simulate_sharded(scenarios, program: ModelProgram, model0, data, seeds,
+                     cfg: SimConfig, *, mesh=None, donate: bool = False,
+                     init_state: Optional[SimState] = None, tick0: int = 0,
+                     device=None) -> EngineResult:
+    """`simulate_program` over a device mesh: the scenario axis of the
+    stacked grid is split over the mesh's ``data`` axis and the seed axis
+    over its ``replica`` axis (when present), and each shard — its rows
+    of the stacked batch, of the carry and of the seeds — runs through
+    `simulate_program` on the device at its place in the mesh. Shards on
+    one device run in turn, shards on different devices at once (one host
+    thread per device). The finals and snapshots are joined into one
+    `EngineResult` on the mesh's first device, with the unsharded run's
+    shapes.
+
+    Bit-exactness: every draw is keyed by the seed value, the absolute
+    tick, the stream and the worker lane — never by a device or a shard
+    position — and the scenarios are stacked ONCE, so every shard keeps
+    the grid's padded widths (workers, plan rows, trace length) that the
+    draws are shaped by. Shards are contiguous row blocks whose sizes
+    differ by at most one; a mesh axis longer than the grid leaves some
+    devices idle (no padding: per cell the port's arithmetic does not
+    depend on how many cells share a call). A sharded run is then bit for
+    bit the unsharded one, snapshots included, wherever the program's
+    step keeps each cell's arithmetic independent of its neighbours (the
+    engine's market and accounting, the quadratic oracle and the per-cell
+    layout do; the megabatch step's batched products are held on each
+    device by its tests).
+
+    ``mesh``: a `launch.mesh.Mesh` whose axes are ``data`` and/or
+    ``replica``; default `launch.mesh.make_scenario_mesh` over every
+    visible device of ``device`` (default ``cuda``), which is otherwise
+    unused. ``init_state``/``tick0`` resume as in `simulate_program`, from
+    a carry of any mesh's run or none (checkpoints record no mesh); the
+    carry is updated in place where the step updates it in place. The
+    port has no ``donate``: it is accepted and ignored.
+    """
+    from repro_torch.launch.mesh import make_scenario_mesh
+
+    del donate
+    if mesh is None:
+        mesh = make_scenario_mesh(device=device)
+    bad = [a for a in mesh.axis_names if a not in ("data", "replica")]
+    if bad:
+        raise ValueError(
+            f"mesh axes {bad} are not understood by the engine: the "
+            "scenario grid shards over axes named 'data' (scenarios) "
+            "and/or 'replica' (seeds) — build the mesh with "
+            "repro_torch.launch.mesh.make_scenario_mesh / "
+            "make_scenario_replica_mesh")
+    tick0 = int(tick0)
+    _check_run_window(cfg, tick0)
+    # the devices as a (data, replica) grid, whichever axes the mesh has
+    present = [a for a in ("data", "replica") if a in mesh.axis_names]
+    devs = np.transpose(mesh.devices, [mesh.axis_names.index(a)
+                                       for a in present]).reshape(
+        mesh.shape.get("data", 1), mesh.shape.get("replica", 1))
+    home = devs[0, 0]
+    if isinstance(scenarios, ScenarioBatch):
+        batch = scenarios.to(home)
+    else:
+        batch = stack_scenarios(scenarios, device=home)
+    if np.isscalar(seeds):
+        seeds = np.arange(int(seeds))
+    seeds = np.asarray(seeds, np.int64)
+    grid = (batch.n_scenarios, len(seeds))
+    if init_state is None:
+        init_state = initial_state(batch, model0, len(seeds), device=home)
+    elif tuple(init_state.t.shape) != grid:
+        raise ValueError(f"init_state grid {tuple(init_state.t.shape)} is "
+                         f"not the run's (S, R) = {grid}")
+
+    def rows(x, s0, s1, r0, r1, dev):
+        # a view where it can be (the step updates it in place), a copy
+        # on another device or where the rows are not contiguous
+        return x[s0:s1, r0:r1].to(dev).contiguous()
+
+    shards, jobs = [], []
+    for i, (s0, s1) in enumerate(_shard_bounds(grid[0], devs.shape[0])):
+        for k, (r0, r1) in enumerate(_shard_bounds(grid[1],
+                                                   devs.shape[1])):
+            if s0 == s1 or r0 == r1:
+                continue
+            dev = devs[i, k]
+            state = _map_state(functools.partial(
+                rows, s0=s0, s1=s1, r0=r0, r1=r1, dev=dev), init_state)
+            part = ScenarioBatch(*(x[s0:s1] for x in batch)).to(dev)
+            shards.append(((s0, s1, r0, r1), state))
+            jobs.append((dev, functools.partial(
+                simulate_program, part, program, None, _data_on(data, dev),
+                seeds[r0:r1], cfg, init_state=state, tick0=tick0,
+                device=dev)))
+    results = _run_by_device(jobs)
+
+    n = len(shards)
+    bounds = [b for b, _ in shards]
+    final = _map_state(
+        lambda full, *xs: _join_leaf(full, bounds, xs[:n], xs[n:], grid),
+        init_state, *[st for _, st in shards],
+        *[res.final_state for res in results])
+    snaps = None
+    if results[0].snapshots is not None:
+        snaps = _map_state(lambda *parts: _gather(bounds, parts, grid, home),
+                           *[res.snapshots for res in results])
+    return _engine_result(final, snaps, batch, cfg, tick0,
+                          cfg.n_ticks - tick0)
 
 
 def snapshot_state(result: EngineResult, index: int = -1):

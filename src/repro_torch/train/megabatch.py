@@ -436,20 +436,21 @@ def make_megabatch_step(cfg: ModelConfig, job: JobConfig,
     Eq.-(5) batch loss Σw·nll / max(Σw, 1e-6) (0 where Σw = 0). The update
     is gated on ``running`` element-for-element, so the engine needs no
     gating pass for this program. The step owns one (R, P) gradient
-    buffer, allocated at its first call and reused."""
+    buffer per device, allocated at its first call there and reused while
+    R stays the same (shards on different cards run the step at once)."""
     reason = supports_megabatch(cfg, job)
     if reason:
         raise NotImplementedError(f"megabatch path unsupported: {reason}")
     lr_fn = lr_fn or constant_lr(job.learning_rate)
     mu = float(job.momentum)
-    grad_buf: Dict[str, torch.Tensor] = {}
+    grad_buf: Dict[torch.device, torch.Tensor] = {}
 
     def step(model, tokens, labels, masks, j, running, label_mask=None):
         p_flat, v_flat = model["p"], model["v"]
-        g = grad_buf.get("g")
-        if g is None or g.shape != p_flat.shape or g.device != p_flat.device:
-            grad_buf.clear()
-            g = grad_buf["g"] = torch.empty_like(p_flat)
+        g = grad_buf.get(p_flat.device)
+        if g is None or g.shape != p_flat.shape:
+            grad_buf.pop(p_flat.device, None)      # freed before the new one
+            g = grad_buf[p_flat.device] = torch.empty_like(p_flat)
         g, nll_r, w_r = sum_form_grads(p_flat, cfg, tokens, labels, masks,
                                        label_mask, out=g)
         with torch.no_grad():

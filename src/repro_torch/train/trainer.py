@@ -21,8 +21,14 @@ ticks, `save_batched` / `restore_batched` persist it through
 `train.checkpoint`, and `train_batched_durable` (``train_zoo(
 checkpoint_path=, save_every=)``) runs in chunks, saving after each, so a
 killed process resumes bit for bit. The carry is updated in place, so the
-durable loop's rollback point is a copy (`_rollback_point`). The mesh
-raises ``NotImplementedError`` naming its slice.
+durable loop's rollback point is a copy (`_rollback_point`).
+
+Mesh: ``mesh=`` (a `launch.mesh.Mesh`) runs the grid, or each durable
+chunk, through `engine.simulate_sharded`: scenarios split over the mesh's
+``data`` axis and seeds over its ``replica`` axis, bit for bit the
+unsharded run wherever the step's arithmetic is per cell. Checkpoints
+record no mesh, so a run saved on one mesh shape resumes on another, or
+unsharded.
 """
 from __future__ import annotations
 
@@ -172,7 +178,9 @@ class ElasticTrainer:
         ticks; with a ``checkpoint_path`` the latest snapshot is saved
         there when the run returns, and `resume_batched` restarts the grid
         from it bit for bit. To survive a kill at any moment use
-        `train_batched_durable`, which saves every chunk as it runs."""
+        `train_batched_durable`, which saves every chunk as it runs.
+        ``mesh`` shards the grid over a `launch.mesh.Mesh` (see
+        `train_batched`)."""
         from repro_torch.sim.evaluate import BatchResult
 
         strategies = strategies or {self.strategy.name: self.strategy}
@@ -406,6 +414,14 @@ def train_batched(job: JobConfig,
     bit. The run updates ``init_state`` in place. See `save_batched` /
     `restore_batched`.
 
+    ``mesh`` (a `launch.mesh.Mesh`) runs the grid through
+    `engine.simulate_sharded`: the scenarios shard over the mesh's
+    ``data`` axis and the seeds over its ``replica`` axis, each shard on
+    its own device (shards sharing a device in turn), the carry made once
+    on ``device`` and each shard stepping its own rows of it. The
+    scenarios are stacked once, so every shard keeps the grid's padded
+    widths that the draws are shaped by.
+
     Returns an EngineResult whose ``errors``/``losses`` trajectory holds
     the per-iteration batch loss and whose ``final_model`` holds the
     grid's carry ((S, R, ...) leaves); for the megabatch program the flat
@@ -413,8 +429,6 @@ def train_batched(job: JobConfig,
     if program is not None and model0 is None and init_state is None:
         raise ValueError("train_batched(program=...) needs the matching "
                          "model0= carry")
-    if mesh is not None:
-        raise engine.not_ported("train_batched(mesh=...)", "mesh")
     device = resolve_device(device)
     exact_float32()
     scenarios, program, data, n_ticks = _prepare_batched(
@@ -425,10 +439,22 @@ def train_batched(job: JobConfig,
         init_state = batched_init_state(job, scenarios, seeds,
                                         megabatch=megabatch, model0=model0,
                                         device=device)
-    return engine.simulate_program(
-        scenarios, program, None, data, seeds,
-        engine.SimConfig(n_ticks=n_ticks, snapshot_every=snapshot_every),
-        init_state=init_state, tick0=tick0, device=device)
+    return _simulate(scenarios, program, data, seeds,
+                     engine.SimConfig(n_ticks=n_ticks,
+                                      snapshot_every=snapshot_every),
+                     init_state, tick0, mesh, device)
+
+
+def _simulate(scenarios, program, data, seeds, cfg: engine.SimConfig,
+              init_state, tick0: int, mesh, device) -> engine.EngineResult:
+    """One engine call of the trainers, sharded over ``mesh`` if given."""
+    if mesh is not None:
+        return engine.simulate_sharded(scenarios, program, None, data, seeds,
+                                       cfg, mesh=mesh, init_state=init_state,
+                                       tick0=tick0)
+    return engine.simulate_program(scenarios, program, None, data, seeds,
+                                   cfg, init_state=init_state, tick0=tick0,
+                                   device=device)
 
 
 def _prepare_batched(job: JobConfig, scenarios, *, n_ticks, n_batches,
@@ -592,7 +618,9 @@ def train_batched_durable(job: JobConfig,
 
     Every draw is keyed by the absolute tick, so the chunked run is bit for
     bit the single-call ``train_batched(job, scenarios, seeds,
-    n_ticks=n_ticks)``, whose result it returns.
+    n_ticks=n_ticks)``, whose result it returns. ``mesh`` runs each chunk
+    through `engine.simulate_sharded`, as `train_batched` does; the files
+    it writes restore on any mesh shape, or unsharded.
 
     ``save_shards=n`` writes each checkpoint as n per-shard files +
     manifest (`checkpoint.save_sharded`) instead of one flat .npz;
@@ -624,8 +652,6 @@ def train_batched_durable(job: JobConfig,
         raise ValueError(f"save_every={save_every} must be ≥ 1")
     if keep_last is not None and keep_last < 1:
         raise ValueError(f"keep_last={keep_last} must be ≥ 1")
-    if mesh is not None:
-        raise engine.not_ported("train_batched_durable(mesh=...)", "mesh")
     device = resolve_device(device)
     exact_float32()
     scenarios, program, data, n_ticks = _prepare_batched(
@@ -658,10 +684,9 @@ def train_batched_durable(job: JobConfig,
     hook("on_resume", tick, resumed_from)
 
     def run_chunk(end, state, tick):
-        return engine.simulate_program(
-            scenarios, program, None, data, seeds,
-            engine.SimConfig(n_ticks=end), init_state=state, tick0=tick,
-            device=device)
+        return _simulate(scenarios, program, data, seeds,
+                         engine.SimConfig(n_ticks=end), state, tick, mesh,
+                         device)
 
     def save(state, tick):
         # sync writes get the same transient-OSError retry the async

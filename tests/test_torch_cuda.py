@@ -1346,3 +1346,92 @@ def test_remat_gradients_bit_equal_with_kernels_on_the_path(
     else:
         assert runs["full"][3] == runs["dots"][3] == 2 * base[3] == \
             2 * cfg.num_layers
+
+
+# ------------------------------------------------------------------ mesh
+
+
+def _card_mesh(layout):
+    """Shards on the one card: ``layout`` is the mesh's (axes, shape)."""
+    from repro_torch.launch.mesh import Mesh
+
+    axes, shape = layout
+    return Mesh(np.full(shape, "cuda:0", dtype=object), axes)
+
+
+@pytest.mark.parametrize("layout", [(("data",), (2,)), (("data",), (3,)),
+                                    (("data", "replica"), (2, 2))])
+def test_quadratic_grid_in_shards_on_one_card_is_bitexact(cuda_device,
+                                                          layout):
+    """The quadratic grid (minibatch gradients, drawn prices, exp runtimes,
+    preemptions; 5 scenarios × 4 seeds, never an even split) in two or
+    three shards on the card, or 2 × 2: every trajectory, the final
+    iterates and the snapshots bit for bit the unsharded run."""
+    quad, w0, free, drawn = _quad_grid()
+    scenarios = engine.stack_scenarios(free + drawn, device="cuda")
+    data = engine.torch_quadratic(quad, "cuda")
+    program = engine.quadratic_program("minibatch", 16)
+    model0 = torch.as_tensor(w0, dtype=torch.float32, device="cuda")
+    cfg = engine.SimConfig(n_ticks=120, snapshot_every=40)
+    seeds = [0, 1, 2, 9]
+    straight = engine.simulate_program(scenarios, program, model0, data,
+                                       seeds, cfg, device="cuda")
+    sharded = engine.simulate_sharded(scenarios, program, model0, data,
+                                      seeds, cfg, mesh=_card_mesh(layout))
+    for f in ("errors", "costs", "times", "ys", "iterations", "total_time",
+              "total_cost", "total_idle"):
+        np.testing.assert_array_equal(getattr(sharded, f),
+                                      getattr(straight, f), err_msg=f)
+    assert sharded.final_model.is_cuda
+    _assert_same_bits(tuple(sharded.final_state), tuple(straight.final_state))
+    _assert_same_bits(tuple(sharded.snapshots), tuple(straight.snapshots))
+
+
+@pytest.mark.parametrize("layout", [(("replica",), (2,)),
+                                    (("replica",), (3,))])
+def test_megabatch_grid_in_shards_on_one_card(cuda_device, layout):
+    """The megabatch grid through K1, its 3 seeds in two or three shards
+    on the card: K1 runs once per shard and tick, the market trajectories
+    are bit for bit the unsharded run's, and a second sharded run repeats
+    the first bit for bit. The losses and the final carry are held at
+    tests/test_torch_megabatch.py's tolerance, not bit for bit: cuBLAS
+    forms a shard's products over one or two replicas with other kernels
+    than over three, and the last bits move (ROADMAP queue 3)."""
+    job = _job()
+    kw = dict(megabatch=True, use_fused_update=True, device=cuda_device,
+              n_ticks=24)
+    ops.reset_launch_counts()
+    straight = train_batched(job, _stochastic_scenarios(), [0, 5, 7], **kw)
+    assert ops.launch_counts()["elastic_sgd_update"] == 24
+    ops.reset_launch_counts()
+    sharded = train_batched(job, _stochastic_scenarios(), [0, 5, 7],
+                            mesh=_card_mesh(layout), **kw)
+    assert ops.launch_counts()["elastic_sgd_update"] == 24 * layout[1][0]
+    again = train_batched(job, _stochastic_scenarios(), [0, 5, 7],
+                          mesh=_card_mesh(layout), **kw)
+    _assert_same_bits(again.final_model, sharded.final_model)
+    np.testing.assert_array_equal(again.errors, sharded.errors)
+    for f in ("costs", "times", "ys", "iterations", "total_time",
+              "total_cost", "total_idle"):
+        np.testing.assert_array_equal(getattr(sharded, f),
+                                      getattr(straight, f), err_msg=f)
+    rtol, atol = 5e-4, 1e-5          # tests/test_torch_megabatch.py's
+    np.testing.assert_allclose(sharded.errors, straight.errors, rtol=rtol,
+                               atol=atol)
+    for k in ("p", "v"):
+        torch.testing.assert_close(sharded.final_model[k],
+                                   straight.final_model[k], rtol=rtol,
+                                   atol=atol)
+
+
+def test_scenario_mesh_takes_the_visible_cards(cuda_device):
+    """``make_scenario_mesh`` spans the visible cards, each once, and
+    refuses more than ``torch.cuda.device_count()``."""
+    from repro_torch.launch.mesh import make_scenario_mesh
+
+    n = torch.cuda.device_count()
+    mesh = make_scenario_mesh()
+    assert [str(d) for d in mesh.devices.flat] == \
+        [f"cuda:{i}" for i in range(n)]
+    with pytest.raises(ValueError, match=f"needs {n + 1} devices but only"):
+        make_scenario_mesh(n + 1)

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from repro.sim import engine as jax_engine
+from repro_torch.launch.mesh import Mesh
 from repro_torch.sim import engine
 
 J = 12
@@ -193,8 +194,9 @@ def test_hash_is_murmur_finalizer_in_exact_integer_arithmetic():
 
 def test_unported_layouts_raise():
     """The per-cell layout runs (each cell's step, gated on its tick
-    running), and so do the quadratic oracle and snapshots; the mesh still
-    raises naming its slice."""
+    running), and so do the quadratic oracle, snapshots and the mesh: the
+    per-cell grid in shards over three host devices is the grid run
+    whole, carry and trajectories."""
     sc = _stat_scenarios(engine, np.ones(4, np.float32))
 
     def count(model, data, key, mask, j, alpha):
@@ -208,8 +210,14 @@ def test_unported_layouts_raise():
                                   res.iterations)
     quad = engine.quadratic_program("full", 4)
     assert quad.blocked and quad is engine.quadratic_program("full", 4)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        engine.simulate_sharded()
+    sharded = engine.simulate_sharded(
+        sc, cells, {"w": torch.zeros(1)}, None, 2,
+        engine.SimConfig(n_ticks=4), mesh=Mesh(["cpu"] * 3, ("data",)))
+    np.testing.assert_array_equal(sharded.final_model["w"].numpy(),
+                                  res.final_model["w"].numpy())
+    for field in ("iterations", "errors", "costs", "total_time"):
+        np.testing.assert_array_equal(getattr(sharded, field),
+                                      getattr(res, field))
     snap = engine.simulate_program(sc, PROGRAM, {"w": torch.zeros(1)}, None,
                                    2, engine.SimConfig(n_ticks=4,
                                                        snapshot_every=2),

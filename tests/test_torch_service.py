@@ -32,6 +32,7 @@ from repro.service.server import demo_problem as jax_demo_problem
 from repro.sim import engine as jax_engine
 from repro.sim.traces import PriceTrace as JaxPriceTrace
 from repro_torch.core.cost_model import RuntimeModel
+from repro_torch.launch.mesh import make_scenario_mesh
 from repro_torch.service import (BidServer, FeedExhaustedError,
                                  FeedMonotonicityError, JobSpec, PriceFeed,
                                  ServeConfig, feed_from_traces,
@@ -230,10 +231,16 @@ def test_score_requests_matches_reference_on_rng_free_request():
                            theirs)
     assert [(i, c.kind, c.bids) for i, c in picks] == \
         [(i, c.kind, c.bids) for i, c in jpicks]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        pl.score_requests(
-            _requests(pl, engine, RuntimeModel()), model0=w0, data=None,
-            program=engine.quadratic_program("full", 4), mesh=object(), **kw)
+    # the same slates over a mesh of two and of three host devices (the
+    # 3 × 4 candidates split unevenly): the scores bit for bit
+    for n in (2, 3):
+        sharded = pl.score_requests(
+            _requests(pl, engine, RuntimeModel(kind="det", r_const=1.0)),
+            model0=torch.as_tensor(w0, dtype=torch.float32),
+            data=engine.torch_quadratic(quad, "cpu"),
+            program=engine.quadratic_program("full", 4),
+            mesh=make_scenario_mesh(n, device="cpu", host_devices=n), **kw)
+        np.testing.assert_array_equal(sharded, ours)
 
 
 def test_choose_all_inf_falls_back_to_no_interrupt():
@@ -261,7 +268,7 @@ def _regime_shift_feed() -> PriceFeed:
     return PriceFeed(np.concatenate([lo, hi]), step=1.0)
 
 
-def _run_service(out_dir=None) -> dict:
+def _run_service(out_dir=None, mesh=None) -> dict:
     quad, w0, prob = demo_problem(seed=0)
     jobs = [JobSpec(name="a", market=0, eps=0.5, theta=70.0, n_workers=4),
             JobSpec(name="b", market=1, eps=0.5, theta=70.0, n_workers=4)]
@@ -272,7 +279,7 @@ def _run_service(out_dir=None) -> dict:
         _regime_shift_feed(), jobs, prob=prob, quad=quad, w0=w0,
         alpha=prob.alpha,
         rt_true=RuntimeModel(kind="exp", lam=2.0, delta=0.05),
-        cfg=cfg, device="cpu").run()
+        cfg=cfg, mesh=mesh, device="cpu").run()
 
 
 @pytest.fixture(scope="module")
@@ -354,13 +361,18 @@ def test_fixed_seed_bit_reproducible(report):
         json.dumps(_strip(again), sort_keys=True)
 
 
-def test_server_refuses_mesh_and_a_missing_card():
+def test_server_refuses_mesh_and_a_missing_card(report):
+    """Scoring over a mesh of four host devices leaves every decision and
+    the summary as the unsharded server's; without a card the server's
+    default device raises."""
+    sharded = _run_service(
+        mesh=make_scenario_mesh(4, device="cpu", host_devices=4))
+    assert json.dumps(_strip(sharded), sort_keys=True) == \
+        json.dumps(_strip(report), sort_keys=True)
     quad, w0, prob = demo_problem(seed=0)
     kw = dict(prob=prob, quad=quad, w0=w0, alpha=prob.alpha,
               rt_true=RuntimeModel(kind="exp", lam=2.0, delta=0.05))
     jobs = [JobSpec(name="a")]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        BidServer(_regime_shift_feed(), jobs, mesh=object(), **kw)
     if torch.cuda.is_available():
         assert BidServer(_regime_shift_feed(), jobs,
                          **kw).data.A.device.type == "cuda"
@@ -391,13 +403,31 @@ def test_bidserve_cli_on_the_cpu(tmp_path):
     assert len(lines) == summary["decisions"] + 1
 
 
-@pytest.mark.parametrize("flags,slice_name", [
-    (("--mesh", "2"), "mesh"), (("--devices", "2"), "mesh"),
-    (("--jit-cache",), "launch")])
-def test_bidserve_refuses_unported_flags(flags, slice_name):
+@pytest.mark.parametrize("flags", [
+    ("--mesh", "2", "--devices", "2"), ("--devices", "2"),
+    ("--jit-cache",)])
+def test_bidserve_refuses_unported_flags(flags, monkeypatch):
+    """``--mesh``/``--devices`` and ``--jit-cache`` run: the summary is the
+    default run's bit for bit. ``--mesh`` beyond the visible host devices,
+    and ``--devices`` on the card, are refused; the default device is the
+    card."""
     from repro_torch.launch import bidserve
+    from repro_torch.launch.mesh import HOST_DEVICES_ENV
 
-    args = bidserve.build_parser().parse_args(["--device", "cpu", *flags])
-    with pytest.raises(NotImplementedError, match=slice_name):
-        bidserve.run(args)
+    monkeypatch.delenv(HOST_DEVICES_ENV, raising=False)
+    base = ["--device", "cpu", "--ticks", "96", "--jobs", "1"]
+
+    def summary(*extra):
+        rep = bidserve.run(bidserve.build_parser().parse_args(
+            base + list(extra)))
+        return _strip(rep)
+
+    assert json.dumps(summary(*flags), sort_keys=True) == \
+        json.dumps(summary(), sort_keys=True)
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        bidserve.run(bidserve.build_parser().parse_args(
+            base + ["--mesh", "2"]))
+    with pytest.raises(ValueError, match="--devices"):
+        bidserve.run(bidserve.build_parser().parse_args(
+            ["--devices", "2"]))
     assert bidserve.build_parser().parse_args([]).device == "cuda"

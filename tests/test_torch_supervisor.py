@@ -23,6 +23,7 @@ import torch
 from repro_torch.chaos import (Fault, FaultInjector, FaultLedger, FaultPlan,
                                poison_model)
 from repro_torch.launch import supervisor as sup
+from repro_torch.launch.mesh import HOST_DEVICES_ENV
 from repro_torch.launch.workload import WorkerSpec, build_workload
 from repro_torch.train import checkpoint as ck
 from repro_torch.train import trainer
@@ -158,7 +159,8 @@ def test_no_progress_failures_degrade_devices(tmp_path):
 
 def test_child_env_shows_the_first_cards(tmp_path, monkeypatch):
     """``devices`` N makes the worker see the first N cards of those this
-    process may use; 0 leaves the environment's choice alone."""
+    process may use, or N host devices when it trains on the CPU; 0
+    leaves the environment's choice alone."""
     s = sup.Supervisor(str(tmp_path), sup.SupervisorConfig())
     monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
     assert s._child_env(devices=4)["CUDA_VISIBLE_DEVICES"] == "0,1,2,3"
@@ -169,6 +171,10 @@ def test_child_env_shows_the_first_cards(tmp_path, monkeypatch):
     assert any(p.endswith("src") for p in
                env["PYTHONPATH"].split(os.pathsep))
     assert s._child_env(devices=0)["CUDA_VISIBLE_DEVICES"] == "3,5,6,7"
+    assert HOST_DEVICES_ENV not in s._child_env(devices=2)
+    cpu = sup.Supervisor(str(tmp_path), sup.SupervisorConfig(device="cpu"))
+    assert cpu._child_env(devices=4)[HOST_DEVICES_ENV] == "4"
+    assert cpu._child_env(devices=4)["CUDA_VISIBLE_DEVICES"] == "3,5,6,7"
 
 
 def test_shrink_faults_fire_once_per_ledger(tmp_path):
@@ -184,12 +190,28 @@ def test_shrink_faults_fire_once_per_ledger(tmp_path):
 
 
 def test_mesh_specs_and_missing_cards_are_refused(tmp_path, monkeypatch):
-    """A spec sharded over a mesh raises naming the mesh slice, before any
-    worker starts; a worker asked for the card raises without one."""
+    """A spec sharded over a mesh runs: the worker shards over the host
+    devices it sees (min(mesh, visible) = 3 of them), reports them, and
+    its newest checkpoint is bit for bit the unsharded run's final carry.
+    A worker asked for the card raises without one."""
     d = str(tmp_path)
-    _tiny_spec(mesh=8).save(os.path.join(d, sup.SPEC_NAME))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        sup.main(["--run-dir", d, "--device", "cpu"])
+    spec = _tiny_spec(mesh=8, n_ticks=SAVE_EVERY, save_shards=2)
+    spec.save(os.path.join(d, sup.SPEC_NAME))
+    monkeypatch.setenv(HOST_DEVICES_ENV, "3")
+    assert sup.worker_main(d, "cpu") == 0
+    result = json.load(open(os.path.join(d, sup.RESULT_NAME)))
+    assert result["mesh_devices"] == 3
+    job, scenarios, seeds = build_workload(spec)
+    state, tick, _ = ck.restore_newest(
+        os.path.join(d, sup.CKPT_DIRNAME),
+        trainer.batched_init_state(job, scenarios, seeds, device="cpu"))
+    ref = trainer.train_batched(job, scenarios, seeds, n_ticks=SAVE_EVERY,
+                                device="cpu")
+    assert tick == SAVE_EVERY
+    for a, b in zip(tree_leaves(tuple(state)),
+                    tree_leaves(tuple(ref.final_state))):
+        assert _bits(a) == _bits(b)
+    os.remove(os.path.join(d, sup.RESULT_NAME))
     _tiny_spec().save(os.path.join(d, sup.SPEC_NAME))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):

@@ -27,6 +27,7 @@ from repro_torch.configs import ARCHS
 from repro_torch.configs.base import InputShape, JobConfig
 from repro_torch.core import bidding, strategies as strat
 from repro_torch.core.cost_model import RuntimeModel
+from repro_torch.launch.mesh import make_scenario_replica_mesh
 from repro_torch.sim import engine
 from repro_torch.sim.cluster import VolatileCluster
 from repro_torch.sim.spot_market import SpotMarket, TickPrices
@@ -139,17 +140,27 @@ def test_run_batched_trains_and_builds_no_model_up_front():
     assert abs(losses[0, 0] - np.log(64)) < 1.0
 
 
-def test_unported_paths_raise_naming_their_slice():
-    """Only the mesh is left unported on the trainer's paths; the legacy
-    loop, the per-cell program and snapshots run (their parity lives in
+def test_unported_paths_raise_naming_their_slice(tmp_path):
+    """Every path of the trainer runs: the mesh (the megabatch grid and the
+    durable loop over two host devices, bit for bit unsharded; the mesh
+    tests live in tests/test_torch_sharded.py), the legacy loop, the
+    per-cell program and snapshots (their parity lives in
     tests/test_torch_durable.py)."""
     tr = _trainer(device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tr.run_batched(seeds=1, iterations=2, megabatch=True, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        trainer.train_batched_durable(
-            tr.job, [tr._scenario(tr.strategy, 2, "s")], 1, mesh=object(),
-            checkpoint_path="unused.npz", save_every=1, device="cpu")
+    two = make_scenario_replica_mesh(1, 2, device="cpu", host_devices=2)
+    plain = tr.run_batched(seeds=2, iterations=2, megabatch=True).result
+    sharded = tr.run_batched(seeds=2, iterations=2, megabatch=True,
+                             mesh=two).result
+    np.testing.assert_array_equal(sharded.errors, plain.errors)
+    for k in ("p", "v"):
+        assert torch.equal(sharded.final_model[k], plain.final_model[k])
+    sc = [tr._scenario(tr.strategy, 2, "s")]
+    durable = trainer.train_batched_durable(
+        tr.job, sc, 2, mesh=two, checkpoint_path=str(tmp_path / "c.npz"),
+        save_every=3, device="cpu")
+    straight = train_batched(tr.job, sc, 2, device="cpu")
+    np.testing.assert_array_equal(durable.errors, straight.errors)
+    np.testing.assert_array_equal(durable.total_cost, straight.total_cost)
     res = tr.run_batched(seeds=1, iterations=2, megabatch=True,
                          snapshot_every=2)
     assert res.result.snapshot_ticks[0] == 2
@@ -192,18 +203,32 @@ def test_launcher_cpu_run_prints_summary_without_jax():
     assert summary["optimal-two-bids"]["reps"] == 1
 
 
-def test_launcher_refuses_unported_modes():
+def test_launcher_refuses_unported_modes(monkeypatch, capsys):
+    """Malformed flag sets and the dry run (the model-parallel slice) stop
+    at parsing; ``--batched --mesh 2`` runs over two host devices, bit for
+    bit the unsharded summary, and ``--jit-cache`` runs and changes
+    nothing."""
+    from repro_torch.launch.mesh import HOST_DEVICES_ENV
     from repro_torch.launch.train import parse_args, run
 
     for argv in (["--megabatch"], [], ["--fused-update", "--batched"],
                  ["--batched", "--megabatch", "--param-dtype", "bfloat16"],
-                 ["--supervise"]):
+                 ["--supervise"], ["--mesh", "2"],
+                 ["--batched", "--mesh-replica", "2"]):
         with pytest.raises(SystemExit):
             parse_args(argv)
-    for argv, slice_ in ((["--batched", "--mesh", "2"], "mesh"),
-                         (["--local", "--jit-cache"], "launch/jitcache")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            run(parse_args(argv + ["--device", "cpu"]))
+    assert "model-parallel slice" in capsys.readouterr().err
+    small = ["--device", "cpu", "--seeds", "1", "--iterations", "2",
+             "--workers", "4", "--batch", "8", "--seq", "16"]
+    monkeypatch.setenv(HOST_DEVICES_ENV, "2")
+    _, sharded = run(parse_args(["--batched", "--mesh", "2"] + small))
+    _, plain = run(parse_args(["--batched", "--jit-cache"] + small))
+    assert sharded.pop("_engine")["mesh"] == {"data": 2}
+    assert plain.pop("_engine")["mesh"] is None
+    assert json.dumps(sharded, sort_keys=True, default=float) == \
+        json.dumps(plain, sort_keys=True, default=float)
+    _, local = run(parse_args(["--local", "--jit-cache"] + small))
+    assert local["iterations"] == 2
 
 
 def _imports(path):

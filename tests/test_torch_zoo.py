@@ -30,6 +30,7 @@ from repro_torch import convert
 from repro_torch import device as device_mod
 from repro_torch.configs import ARCHS
 from repro_torch.configs.base import InputShape, JobConfig
+from repro_torch.launch.mesh import make_scenario_replica_mesh
 from repro_torch.models import model_zoo
 from repro_torch.sim import engine
 from repro_torch.train import trainer
@@ -374,10 +375,21 @@ def test_zoo_without_cuda_raises(monkeypatch):
         device_mod.resolve_device()
 
 
-def test_unported_zoo_paths_raise_naming_their_slice():
+def test_unported_zoo_paths_raise_naming_their_slice(tmp_path):
+    """``train_zoo(mesh=)`` runs, in one call and through the durable
+    loop: two seeds over a two-device replica mesh, bit for bit the
+    unsharded run."""
     job, _ = _jobs()
-    for kw in ({}, dict(checkpoint_path="ckpt.npz", save_every=2)):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            trainer.train_zoo(job, [_trace_scenario(engine)], seeds=[0],
-                              mesh=object(), device="cpu", **kw)
+    mesh = make_scenario_replica_mesh(1, 2, device="cpu", host_devices=2)
+    ref = trainer.train_zoo(job, [_trace_scenario(engine)], seeds=[0, 1],
+                            n_ticks=6, device="cpu")
+    for kw in ({}, dict(checkpoint_path=str(tmp_path / "ckpt.npz"),
+                        save_every=2)):
+        res = trainer.train_zoo(job, [_trace_scenario(engine)],
+                                seeds=[0, 1], n_ticks=6, mesh=mesh,
+                                device="cpu", **kw)
+        np.testing.assert_array_equal(res.errors, ref.errors)
+        for a, b in zip(tree_leaves(res.final_model),
+                        tree_leaves(ref.final_model)):
+            assert torch.equal(a, b)
 
