@@ -158,7 +158,23 @@ Phases, each printing one JSON line and raising on failure:
    four jobs' slates over two shards, bit for bit unsharded; the reduced
    megabatch grid through ``train_batched_durable(mesh=, save_shards=2)``
    killed before a save, restored and resumed unsharded, bit for bit the
-   straight run.
+   straight run;
+13. slice 13's model parallelism (``phase_model_parallel``, 90 s budget,
+   its seconds printed): Qwen2-MoE-A2.7B at full width, depth cut to 4,
+   float32, batch 2 × 2048, through ``model_zoo.forward`` with no mesh
+   and under a (data 1, model 4) mesh listing cuda:0 four times by the
+   psum and the all-to-all route (no kernel lies on this path; the counts
+   must stay 0): the psum route routes and drops as no mesh does and its
+   logits lie within 1e-4 of the largest, its aux within 1e-5; at capacity
+   factor 16 (no drops) the all-to-all route within 1e-4 of the psum
+   route; each route's bits repeat; per route the device ms a forward,
+   peak memory and drop shares. Qwen2-7B at full width, depth 1, bf16,
+   its heads padded for tp 8 (32 query heads over 4 KV heads), one
+   ``make_loss_grad`` step through K2 (each of its four tensor-core
+   kernels once) and K2 at that shape against its plain versions, its
+   rows added to the kernel line. ``python -m repro_torch.launch.dryrun
+   --all`` and ``--all --multi-pod`` on the card's peaks: 40 records
+   each, and three pairs' terms and bound.
 
 Then the ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout,
@@ -193,13 +209,6 @@ ZOO_ARGV = ["--config", "qwen2_7b", "--reduce-depth", "2",
             "--param-dtype", "bfloat16", "--workers", "8", "--batch", "8",
             "--seq", "1024", "--seeds", "2", "--iterations", "3",
             "--device", "cuda"]
-
-#: peak rates by card (NVIDIA data sheets; dense, no sparsity): HBM bytes/s,
-#: float32 FLOP/s outside the tensor cores, bf16 and TF32 tensor-core FLOP/s
-PEAKS = [("H200", 4.8e12, 67e12, 989e12, 495e12, "H200 SXM"),
-         ("NVL", 3.9e12, 60e12, 835e12, 418e12, "H100 NVL"),
-         ("PCIe", 2.0e12, 51e12, 756e12, 378e12, "H100 PCIe"),
-         ("H100", 3.35e12, 67e12, 989e12, 495e12, "H100 SXM")]
 
 K2_SOURCE = ("src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:88")
@@ -388,11 +397,11 @@ def emit(obj) -> None:
 
 def card_peaks(name: str):
     """(HBM bytes/s, float32 FLOP/s, bf16 FLOP/s, TF32 FLOP/s, label) of the
-    card."""
-    for key, *rates, label in PEAKS:
-        if key in name:
-            return (*rates, label)
-    return PEAKS[-1][1:5] + ("H100 SXM (card not recognised)",)
+    card: `repro_torch.roofline.analysis.card_peaks`, from NVIDIA's data
+    sheets (dense, no sparsity)."""
+    from repro_torch.roofline.analysis import card_peaks as peaks
+
+    return peaks(name)
 
 
 def timed(fn, n: int, torch):
@@ -3761,6 +3770,282 @@ def phase_mesh(torch, smi, main, resumed):
         raise AssertionError("mesh: " + "; ".join(bad))
 
 
+# ------------------------------------------------------------------ slice 13
+
+#: slice 13's expert parallelism: Qwen2-MoE-A2.7B at full width (60
+#: experts padded to 64, top-4, expert d_ff 1408, one shared expert of
+#: d_ff 5632), depth cut 24 -> 4, float32, batch 2 × 2048 tokens, its
+#: ranks on a (data 1, model 4) mesh that lists cuda:0 four times
+EP = {"arch": "qwen2-moe-a2.7b", "layers": 4, "batch": 2, "seq": 2048,
+      "tp": 4, "seed": 0, "timed": 3, "no_drop_capacity_factor": 16.0}
+#: the psum route against no mesh at the config's capacity factor (data
+#: 1, so each rank routes every token as the block does alone: the same
+#: routing and drops; the ranks' partial sums add in another order): the
+#: logits within 1e-4 of the largest logit, aux within 1e-5 relative. The
+#: all-to-all route against the psum route at a capacity factor that
+#: drops nothing: the reference's own 1e-4 absolute
+#: (tests/test_moe_parallelism.py)
+EP_TOL = {"psum_vs_none_logits_rel": 1e-4, "psum_vs_none_aux_rel": 1e-5,
+          "a2a_vs_psum_abs": 1e-4}
+#: slice 13's padded heads: Qwen2-7B at full width and depth 1, bf16, K2,
+#: its definitions laid out at tp 8 (28 query heads padded to 32 over 4
+#: KV heads: a GQA group of 8), one loss-and-gradient step at batch 4 ×
+#: 1024 tokens
+PADDED = {"arch": "qwen2-7b", "tp": 8, "batch": 4, "seq": 1024, "seed": 0}
+K2_PADDED_SHAPE = (4, 1024, 1024, 32, 4, 128, True, None, 0)
+#: the dry run's records printed in full
+DRY_PAIRS = (("qwen2-7b", "train_4k"), ("deepseek-v2-lite-16b", "decode_32k"),
+             ("mistral-large-123b", "prefill_32k"))
+
+
+@contextlib.contextmanager
+def recorded_drops(record: list):
+    """Within the block, every `moe._dispatch_tables` call appends (kept
+    assignments, assignments, capacity) to ``record``."""
+    from repro_torch.models import moe
+
+    tables = moe._dispatch_tables
+
+    def recording(topi, topv, e, capacity):
+        out = tables(topi, topv, e, capacity)
+        record.append((int(out[2].sum()), topi.numel(), capacity))
+        return out
+
+    moe._dispatch_tables = recording
+    try:
+        yield
+    finally:
+        moe._dispatch_tables = tables
+
+
+def phase_expert_parallel(torch, smi):
+    """``model_zoo.forward`` of the cut Qwen2-MoE-A2.7B with no mesh, and
+    under a (1, 4) mesh of cuda:0 through the psum and the all-to-all
+    route: each run's routing and drops recorded, twice for its bits, then
+    timed; the psum route held against no mesh, and at a capacity factor
+    that drops nothing the all-to-all route against the psum route."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import init_params, mesh_context
+    from repro_torch.tree import tree_leaves
+
+    base = ARCHS[EP["arch"]].with_(num_layers=EP["layers"], dtype="float32",
+                                   param_dtype="float32")
+    params = init_params(model_zoo.param_defs(base), EP["seed"],
+                         torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(EP["seed"])
+    tokens = torch.randint(0, base.vocab_size, (EP["batch"], EP["seq"]),
+                           device="cuda", generator=gen)
+    mesh = Mesh([[torch.device("cuda", 0)] * EP["tp"]], ("data", "model"))
+
+    def cfg_of(route, cf=None):
+        m = dataclasses.replace(base.moe, parallelism=route)
+        if cf is not None:
+            m = dataclasses.replace(m, capacity_factor=cf)
+        return base.with_(moe=m)
+
+    def forward(cfg, on):
+        with torch.no_grad(), mesh_context(on):
+            return model_zoo.forward(params, cfg, {"tokens": tokens},
+                                     remat="none")
+
+    reset_counts()
+    runs, outs = {}, {}
+    for name, cfg, on in (("none", cfg_of("psum"), None),
+                          ("psum", cfg_of("psum"), mesh),
+                          ("alltoall", cfg_of("alltoall"), mesh)):
+        routes, drops = [], []
+        free(torch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with recorded_routes(routes), recorded_drops(drops):
+            logits, aux = forward(cfg, on)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        again = forward(cfg, on)
+        bits = torch.equal(logits, again[0]) and torch.equal(aux, again[1])
+        del again
+        ms = timed(lambda: forward(cfg, on), EP["timed"], torch)
+        kept = sum(k for k, _, _ in drops)
+        assigned = sum(n for _, n, _ in drops)
+        runs[name] = {"ms_per_forward": ms, "peak_mem_bytes": peak,
+                      "dropped_share": 1 - kept / assigned,
+                      "capacities": sorted({c for _, _, c in drops}),
+                      "dispatch_calls": len(drops), "aux": float(aux),
+                      "bits_repeat": bits}
+        outs[name] = (logits, aux, routes, drops)
+    counts = read_counts()
+    none, psum = outs["none"], outs["psum"]
+    tp = EP["tp"]
+    # each psum rank routes every token: rank r's record is every tp-th
+    same_routes = all(torch.equal(none[2][layer], psum[2][layer * tp + r])
+                      for layer in range(EP["layers"]) for r in range(tp))
+    same_drops = [d for d in none[3]] == psum[3][::tp]
+    scale = float(none[0].abs().max())
+    psum_err = float((psum[0] - none[0]).abs().max())
+    aux_rel = abs(float(psum[1]) - float(none[1])) / abs(float(none[1]))
+    del outs
+    free(torch)
+    no_drop = {}
+    for name in ("psum", "alltoall"):
+        drops = []
+        with recorded_drops(drops):
+            no_drop[name] = forward(cfg_of(
+                name, EP["no_drop_capacity_factor"]), mesh)[0]
+        runs[name]["no_drop_dropped_share"] = 1 - sum(
+            k for k, _, _ in drops) / sum(n for _, n, _ in drops)
+    a2a_err = float((no_drop["alltoall"] - no_drop["psum"]).abs().max())
+    a2a_scale = float(no_drop["psum"].abs().max())
+    del no_drop
+    rec = {"phase": "expert_parallel",
+           "entry": "model_zoo.forward under mesh_context(Mesh((1, 4)))",
+           "config": EP, "params": sum(x.numel()
+                                       for x in tree_leaves(params)),
+           "runs": runs, "launches": counts,
+           "psum_vs_none": {"same_routing": same_routes,
+                            "same_drops": same_drops,
+                            "logits_max_abs_diff": psum_err,
+                            "logits_rel_to_largest": psum_err / scale,
+                            "aux_rel": aux_rel},
+           "alltoall_vs_psum_no_drops": {
+               "logits_max_abs_diff": a2a_err,
+               "logits_rel_to_largest": a2a_err / a2a_scale},
+           "tolerance": EP_TOL, "card": smi}
+    emit(rec)
+    del params
+    free(torch)
+    bad = []
+    if set(counts.values()) - {0}:
+        bad.append(f"a kernel launched on a path that runs none: {counts}")
+    if not (same_routes and same_drops):
+        bad.append("psum route routes or drops otherwise than no mesh")
+    if not psum_err <= EP_TOL["psum_vs_none_logits_rel"] * scale \
+            or not aux_rel <= EP_TOL["psum_vs_none_aux_rel"]:
+        bad.append(f"psum vs no mesh: {rec['psum_vs_none']}")
+    if not a2a_err <= EP_TOL["a2a_vs_psum_abs"]:
+        bad.append(f"all-to-all vs psum: {a2a_err}")
+    for name, r in runs.items():
+        if not r["bits_repeat"]:
+            bad.append(f"{name}: bits differ run to run")
+        if name != "none" and r.get("no_drop_dropped_share", 0) != 0:
+            bad.append(f"{name}: drops at capacity factor "
+                       f"{EP['no_drop_capacity_factor']}")
+    if bad:
+        raise AssertionError("expert_parallel: " + "; ".join(bad))
+
+
+def phase_padded_heads(torch, smi):
+    """Qwen2-7B's definitions laid out at tp 8 (32 query heads), one
+    ``make_loss_grad`` step through K2 with the counts set to 0 before it
+    (after one step that pays every first use), then K2 at that step's
+    shape against its plain versions."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import InputShape, JobConfig
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import init_params, mesh_context
+    from repro_torch.train.train_step import make_loss_grad
+
+    cfg = ARCHS[PADDED["arch"]].with_(num_layers=1, dtype="bfloat16",
+                                      param_dtype="bfloat16",
+                                      use_flash_attention=True)
+    mesh = Mesh([[torch.device("cuda", 0)] * PADDED["tp"]],
+                ("data", "model"))
+    with mesh_context(mesh):
+        defs = model_zoo.param_defs(cfg)
+    wq = defs["layers"]["attn"]["wq"].shape
+    heads = wq[-1] // cfg.resolved_head_dim
+    params = init_params(defs, PADDED["seed"], torch.bfloat16, device="cuda")
+    b, s = PADDED["batch"], PADDED["seq"]
+    gen = torch.Generator(device="cuda").manual_seed(PADDED["seed"])
+    tokens = torch.randint(0, cfg.vocab_size, (b, s + 1), device="cuda",
+                           generator=gen)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    job = JobConfig(model=cfg, shape=InputShape("padded", s, b, "train"),
+                    n_workers=4)
+    step = make_loss_grad(cfg, job, remat="none")
+    mask = torch.ones(4, device="cuda")
+    with mesh_context(mesh):
+        step(params, batch, mask)          # first use: K2's build, if any
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with mesh_context(mesh):
+        _, loss, _ = step(params, batch, mask)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    counts = read_counts()
+    want = designed(**k2_sites(1, 1))
+    emit({"phase": "padded_heads", "entry": "train_step.make_loss_grad",
+          "config": PADDED, "wq": list(wq), "query_heads": heads,
+          "kv_heads": cfg.num_kv_heads, "loss": float(loss),
+          "ln_V": math.log(cfg.vocab_size), "step_ms": step_ms,
+          "counts": counts, "designed": want, "card": smi})
+    del params
+    free(torch)
+    if heads != 32 or counts != want or not math.isfinite(float(loss)):
+        raise AssertionError(f"padded_heads: {heads} heads, counts {counts} "
+                             f"(designed {want}), loss {float(loss)}")
+    return phase_k2_at_path_shape(torch, smi, counts, step_ms, 1,
+                                  shape=K2_PADDED_SHAPE,
+                                  phase="k2_at_padded_heads_shape",
+                                  cuda_core=False)
+
+
+def phase_dry_run(torch, smi):
+    """``python -m repro_torch.launch.dryrun --all`` and ``--all
+    --multi-pod`` (its ``main``) on the card's peaks: every record, the
+    counts, and the terms and bound of `DRY_PAIRS`."""
+    import io
+
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline.analysis import step_time_bound
+
+    out = {}
+    for tag, extra in (("16x16", []), ("2x16x16", ["--multi-pod"])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = dryrun.main(["--all"] + extra)
+        records = [json.loads(ln) for ln in buf.getvalue().splitlines()
+                   if ln.startswith("{")]
+        out[tag] = {
+            "rc": rc, "ok": len(records),
+            "failed": buf.getvalue().count("  FAIL "),
+            "seconds": time.perf_counter() - t0,
+            "pairs": {f"{r['arch']} {r['shape']}": {
+                k: r[k] for k in ("t_compute_s", "t_memory_s", "dominant",
+                                  "arg_bytes_per_device",
+                                  "model_flops_global", "card")}
+                | {"bound_s": step_time_bound(r)}
+                for r in records if (r["arch"], r["shape"]) in DRY_PAIRS}}
+    emit({"phase": "dry_run", "entry": "python -m repro_torch.launch.dryrun "
+          "--all [--multi-pod]", "card_name": torch.cuda.get_device_name(0),
+          "meshes": out, "card": smi})
+    bad = {k: v for k, v in out.items()
+           if v["rc"] != 0 or v["ok"] != 40 or v["failed"]
+           or len(v["pairs"]) != len(DRY_PAIRS)}
+    if bad:
+        raise AssertionError(f"dry_run: {bad}")
+
+
+def phase_model_parallel(torch, smi):
+    """Slice 13's paths: expert parallelism, padded heads through K2 and
+    the dry run; returns the K2 rows at the padded heads' shape."""
+    t0 = time.perf_counter()
+    phase_expert_parallel(torch, smi)
+    t_ep = time.perf_counter() - t0
+    rows = phase_padded_heads(torch, smi)
+    free(torch)
+    t_ph = time.perf_counter() - t0 - t_ep
+    phase_dry_run(torch, smi)
+    emit({"phase": "model_parallel", "phase_s": time.perf_counter() - t0,
+          "expert_parallel_s": t_ep, "padded_heads_s": t_ph,
+          "dry_run_s": time.perf_counter() - t0 - t_ep - t_ph})
+    return rows
+
+
 def free(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -3827,10 +4112,14 @@ def main() -> int:
     free(torch)
     t12 = time.perf_counter()
     phase_mesh(torch, smi, main_run, resumed)
+    free(torch)
+    t13 = time.perf_counter()
+    k2_padded = phase_model_parallel(torch, smi)
     emit({"phase": "total", "seconds": time.perf_counter() - t_main,
-          "slice_11_seconds": t12 - t11,
-          "slice_12_seconds": time.perf_counter() - t12})
-    emit({"kernels": [k1] + k2 + k3 + k3_hybrid + k2_hybrid + k2_whisper})
+          "slice_11_seconds": t12 - t11, "slice_12_seconds": t13 - t12,
+          "slice_13_seconds": time.perf_counter() - t13})
+    emit({"kernels": [k1] + k2 + k3 + k3_hybrid + k2_hybrid + k2_whisper
+          + k2_padded})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,10 @@ The constructors never repeat a card. A `Mesh` built directly may list a
 device more than once (two shards on one card): the shards that share a
 device then run in turn, and shards on different devices at once.
 
+An `AbstractMesh` has axis names and sizes and no devices: the dry run
+lays a model out over the production mesh's 256 or 512 devices with it,
+where none exists (`make_production_mesh(abstract=True)`).
+
 Constructors are functions, so importing this module touches no device.
 """
 from __future__ import annotations
@@ -66,6 +70,32 @@ class Mesh:
                 f"{[str(d) for d in self.devices.flat]})")
 
 
+class AbstractMesh:
+    """Named axes and their sizes, without devices: what the logical
+    layout (`models.common.resolve_spec`) reads of a mesh."""
+
+    def __init__(self, axis_sizes: Sequence[int],
+                 axis_names: Sequence[str]):
+        axis_sizes = tuple(int(n) for n in axis_sizes)
+        axis_names = tuple(axis_names)
+        if len(axis_sizes) != len(axis_names) or not axis_sizes \
+                or min(axis_sizes) < 1:
+            raise ValueError(f"an abstract mesh needs one size ≥ 1 per axis, "
+                             f"got sizes {axis_sizes} for {axis_names}")
+        if len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"repeated mesh axis in {axis_names}")
+        self.axis_sizes = axis_sizes
+        self.axis_names = axis_names
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Axis name -> size, in axis order."""
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
+
+
 def host_device_count(host_devices: Optional[int] = None) -> int:
     """Host devices a CPU mesh sees: ``host_devices``, else
     `HOST_DEVICES_ENV`, else 1."""
@@ -100,13 +130,25 @@ def _make_mesh(shape: Sequence[int], axes: Sequence[str], device,
     return Mesh(grid.reshape(tuple(shape)), axes)
 
 
+def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device=None,
+              host_devices: Optional[int] = None) -> Mesh:
+    """A mesh of ``shape`` over the first visible devices, axes ``axes``
+    (the counterpart of ``jax.make_mesh``). Raises unless that many
+    devices are visible."""
+    return _make_mesh(tuple(shape), tuple(axes), device, host_devices)
+
+
 def make_production_mesh(*, multi_pod: bool = False, device=None,
-                         host_devices: Optional[int] = None) -> Mesh:
+                         host_devices: Optional[int] = None,
+                         abstract: bool = False):
     """16×16 = 256 devices per pod; ``multi_pod`` adds a leading 2-pod
     axis (512). Axes ("data", "model") / ("pod", "data", "model"). Raises
-    unless that many devices are visible, as ``jax.make_mesh`` does."""
+    unless that many devices are visible, as ``jax.make_mesh`` does; with
+    ``abstract`` it is an `AbstractMesh` of those axes and needs none."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if abstract:
+        return AbstractMesh(shape, axes)
     return _make_mesh(shape, axes, device, host_devices)
 
 
@@ -144,5 +186,5 @@ def make_scenario_replica_mesh(n_scenario: Optional[int] = None,
 
 def data_parallel_workers(mesh) -> int:
     """Number of elastic worker slices = product of the batch axes."""
-    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    sizes = mesh.shape
     return sizes.get("pod", 1) * sizes.get("data", 1)

@@ -13,14 +13,17 @@ Modes:
   (``launch/supervisor.py``): a worker subprocess, a heartbeat watchdog,
   restarts from the newest valid checkpoint. ``--param-dtype bfloat16``
   selects the zoo's mixed-precision program there.
+* with none of these, the dry run: the roofline record of one step of
+  ``--arch`` at ``--shape`` over the production mesh
+  (``launch.dryrun.dry_run_one``), timed on ``--card``'s peaks (default:
+  the visible card's).
 
 ``--batched --mesh N [--mesh-replica M]`` shards the grid over N devices
 (an N × M scenario × replica mesh with ``--mesh-replica``) through
 ``engine.simulate_sharded``: the first cards, or on the CPU the host
 devices of ``launch.mesh.HOST_DEVICES_ENV``. The result JSON reports the
 mesh's axis sizes. ``--jit-cache`` is accepted and changes nothing (the
-kernels build once into ``_build/``). The reference's dry run lowers for a
-TPU pod and is not ported.
+kernels build once into ``_build/``).
 
 Example (one H100, full-width Qwen2-7B at two layers):
   PYTHONPATH=src python -m repro_torch.launch.train --config qwen2_7b \\
@@ -35,13 +38,12 @@ import os
 import sys
 from typing import Dict, Optional, Sequence, Tuple
 
-from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs import ARCHS, SHAPES, get_config
 from repro_torch.configs.base import InputShape, JobConfig
 from repro_torch.core import convergence as conv
 from repro_torch.core import strategies as strat
 from repro_torch.core.cost_model import (RuntimeModel, TruncGaussianPrice,
                                          UniformPrice)
-from repro_torch.sim import engine
 from repro_torch.sim.cluster import VolatileCluster
 from repro_torch.sim.spot_market import (IIDPrices, SpotMarket, TracePrices,
                                          synthetic_history)
@@ -71,6 +73,11 @@ def build_strategy(name, prob, eps, theta, n, dist, rt):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", choices=sorted(ARCHS), default="qwen2-7b")
+    ap.add_argument("--shape", choices=sorted(SHAPES), default="train_4k",
+                    help="the dry run's input shape")
+    ap.add_argument("--card", default=None, metavar="NAME",
+                    help="the dry run's card, whose peaks time its terms "
+                         "(default: the visible card's name)")
     ap.add_argument("--config", default=None, metavar="NAME",
                     help="alias for --arch accepting underscore spelling "
                          "(qwen2_7b == qwen2-7b)")
@@ -183,10 +190,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         ap.error("--mesh requires --batched")
     if args.batched:
         args.local = True
-    if not args.local:
-        ap.error(str(engine.not_ported(
-            "the dry run (no --local, --batched or --supervise)",
-            "model_parallel")))
     return args
 
 
@@ -269,6 +272,9 @@ def run(args: argparse.Namespace) -> Tuple[object, Dict]:
         enable_persistent_cache(args.jit_cache or None)
     if args.supervise:
         return None, supervise(args)
+    if not args.local:
+        from repro_torch.launch.dryrun import dry_run_one
+        return None, dry_run_one(args.arch, args.shape, card=args.card)
     trainer = build_trainer(args)
     if not args.batched:
         summary = trainer.run(iterations=args.iterations)

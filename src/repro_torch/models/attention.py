@@ -13,7 +13,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import ParamSpec, dense_spec, rope
+from repro_torch.models.common import (ParamSpec, dense_spec, padded_heads,
+                                       rope)
 
 NEG_INF = -1e30
 
@@ -23,12 +24,15 @@ _Q_CHUNK = 512
 
 
 def attn_defs(cfg, cross: bool = False):
-    """ParamSpecs for one attention block. The port runs on one device, so
-    query heads are never padded for a tensor-parallel axis (the
-    reference's ``padded_heads`` is the identity without a mesh)."""
+    """ParamSpecs for one attention block. Under a mesh context the query
+    heads are padded to a multiple of the tp degree (`padded_heads`; the
+    pad heads are initialized as the others and reach the output through
+    ``wo``'s padded rows); the forward reads the head count from ``wq``.
+    With ``cfg.attn_seq_shard`` the query sequence is sharded instead and
+    no padding happens."""
     del cross
     d, dh = cfg.d_model, cfg.resolved_head_dim
-    hq = cfg.num_heads
+    hq = cfg.num_heads if cfg.attn_seq_shard else padded_heads(cfg.num_heads)
     hkv = cfg.num_kv_heads
     defs = {
         "wq": dense_spec(d, hq * dh),
@@ -173,16 +177,22 @@ def attention_block(p, cfg, x, qpos, *, kv_src=None, kv_pos=None, cache=None,
 def self_cache_defs(cfg, batch: int, seq_len: int):
     """ParamSpecs of one layer's decode KV cache: keys and values (zeros)
     and their positions (−1: unwritten). A sliding window keeps a ring of
-    ``min(seq_len, window)`` slots."""
+    ``min(seq_len, window)`` slots. ``cfg.kv_cache_shard`` picks the
+    logical layout: "heads" puts tp on the KV heads, else on the head_dim
+    where the heads do not divide; "seq" on the cache's positions; "none"
+    on neither."""
     dh = cfg.resolved_head_dim
     hkv = cfg.num_kv_heads
     W = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
-    kv = ParamSpec((batch, W, hkv, dh), ("batch", None, "tp", None),
+    mode = cfg.kv_cache_shard
+    tp = ("tp", None) if mode == "heads" else None
+    seq = ("tp", None) if mode == "seq" else None
+    kv = ParamSpec((batch, W, hkv, dh), ("batch", seq, tp, tp),
                    init="zeros")
     return {
         "k": kv,
         "v": kv,
-        "pos": ParamSpec((batch, W), ("batch", None), init="neg_ones",
+        "pos": ParamSpec((batch, W), ("batch", seq), init="neg_ones",
                          dtype=torch.int32),
     }
 
@@ -193,8 +203,8 @@ def cross_cache_defs(cfg, batch: int, src_len: int):
     ``encdec.build_cross_cache`` fills them)."""
     dh = cfg.resolved_head_dim
     hkv = cfg.num_kv_heads
-    kv = ParamSpec((batch, src_len, hkv, dh), ("batch", None, "tp", None),
-                   init="zeros")
+    kv = ParamSpec((batch, src_len, hkv, dh),
+                   ("batch", None, ("tp", None), ("tp", None)), init="zeros")
     return {
         "k": kv,
         "v": kv,

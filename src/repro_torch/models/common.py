@@ -1,24 +1,178 @@
-"""Shared model infrastructure: the declarative ``ParamSpec`` and its
-materialization, and the numerics helpers (RMSNorm, RoPE, SwiGLU, the
-sinusoidal positions).
+"""Shared model infrastructure: the logical-axis mesh context, the
+declarative ``ParamSpec`` and its materialization, and the numerics
+helpers (RMSNorm, RoPE, SwiGLU, the sinusoidal positions).
 
-``ParamSpec`` is the single source of truth for every parameter: shape,
-dtype, logical sharding tokens (kept as data so the definitions read as in
-the reference), initializer. ``init_params`` materializes a nested dict of
-specs into tensors on a given device, each leaf drawn from its own seeded
-``torch.Generator``. The values differ from the reference's threefry draws;
-tests hand both packages the same weights instead (``convert``)."""
+* ``mesh_context`` / ``resolve_spec`` / ``shard`` — logical sharding: a
+  logical token ("batch", "fsdp", "tp", ...) maps to mesh axes through
+  the rules, and is dropped where the dimension does not divide (14 heads
+  over a 16-way model axis). ``resolve_spec`` reads only the mesh's axis
+  names and sizes, so it takes a `launch.mesh.Mesh` or an
+  `launch.mesh.AbstractMesh` (the dry run's 256 and 512 devices).
+* ``ParamSpec`` is the single source of truth for every parameter: shape,
+  dtype, logical sharding tokens, initializer. It is materialized three
+  ways: ``init_params`` (tensors on a device, each leaf drawn from its own
+  seeded ``torch.Generator``; the values differ from the reference's
+  threefry draws, so tests hand both packages the same weights through
+  ``convert``), ``abstract_params`` (tensors on the ``meta`` device, the
+  counterpart of ``jax.ShapeDtypeStruct``) and ``param_shardings``
+  (a `NamedSharding` per leaf)."""
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 import zlib
+from contextlib import contextmanager
 from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import resolve_dtype
+from repro_torch.tree import tree_leaves
+
+# --------------------------------------------------------------------------
+# Mesh / logical-axis context
+# --------------------------------------------------------------------------
+
+#: logical token -> tuple of mesh axis names. ``fsdp`` carries ZeRO-3 param
+#: sharding, ``batch`` the (elastic) data-parallel batch, ``tp`` tensor/expert
+#: parallelism.
+DEFAULT_RULES = {
+    "batch": ("data",),
+    "fsdp": ("data",),
+    "tp": ("model",),
+}
+
+MULTI_POD_RULES = {
+    # batch over pod+data; params FSDP within a pod only (cross-pod traffic
+    # is the gradient all-reduce alone)
+    "batch": ("pod", "data"),
+    "fsdp": ("data",),
+    "tp": ("model",),
+}
+
+
+class PartitionSpec(tuple):
+    """The counterpart of ``jax.sharding.PartitionSpec``: one entry per
+    leading dimension — a mesh axis name, a tuple of names (the dimension
+    split over their product, the first major), or None (replicated).
+    Trailing dimensions left out are replicated."""
+
+    def __new__(cls, *dims):
+        return super().__new__(cls, dims)
+
+    def __repr__(self) -> str:
+        return "PartitionSpec(" + ", ".join(map(repr, self)) + ")"
+
+
+P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A leaf's layout: its `PartitionSpec` over ``mesh``'s axes (the
+    counterpart of ``jax.sharding.NamedSharding``)."""
+
+    mesh: Any
+    spec: PartitionSpec
+
+    def shard_shape(self, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        """The shape of one device's shard: each split dimension divided
+        by the product of its axes' sizes, rounded up."""
+        sizes = self.mesh.shape
+        out = list(shape)
+        for i, dim in enumerate(self.spec):
+            if dim is None:
+                continue
+            axes = dim if isinstance(dim, tuple) else (dim,)
+            n = math.prod(sizes[a] for a in axes)
+            out[i] = -(-shape[i] // n)
+        return tuple(out)
+
+
+@dataclasses.dataclass
+class MeshContext:
+    mesh: Any
+    rules: dict
+
+
+_TLS = threading.local()
+
+
+def current_ctx() -> MeshContext:
+    ctx = getattr(_TLS, "ctx", None)
+    return ctx if ctx is not None else MeshContext(None, dict(DEFAULT_RULES))
+
+
+@contextmanager
+def mesh_context(mesh, rules: Optional[dict] = None):
+    """Install a mesh + logical-axis rules for this thread (parameter
+    layout, and the MoE block's expert parallelism); the previous context
+    comes back on exit."""
+    old = getattr(_TLS, "ctx", None)
+    _TLS.ctx = MeshContext(mesh, dict(rules if rules is not None
+                                      else DEFAULT_RULES))
+    try:
+        yield _TLS.ctx
+    finally:
+        _TLS.ctx = old
+
+
+def axis_size(token: str) -> int:
+    """Product of mesh-axis sizes behind a logical token (1 with no mesh)."""
+    ctx = current_ctx()
+    if ctx.mesh is None:
+        return 1
+    sizes = ctx.mesh.shape
+    return math.prod(sizes[a] for a in ctx.rules.get(token, ()))
+
+
+def resolve_spec(shape: Tuple[int, ...], tokens, rules, mesh) -> PartitionSpec:
+    """Map logical tokens to a PartitionSpec, dropping non-divisible dims.
+
+    A token may be a tuple of candidate tokens: the first divisible
+    candidate wins (e.g. ``("tp", None)`` — shard over the model axis if it
+    divides, else leave replicated). A mesh axis is used at most once."""
+    sizes = mesh.shape
+    dims = []
+    used = set()
+    for i, tok in enumerate(tokens):
+        cands = tok if isinstance(tok, tuple) else (tok,)
+        picked = None
+        for cand in cands:
+            if cand is None:
+                continue
+            axes = tuple(a for a in rules.get(cand, ()) if a in sizes)
+            n = math.prod(sizes[a] for a in axes) if axes else 1
+            if (axes and n > 1 and shape[i] % n == 0
+                    and not (set(axes) & used)):
+                picked = axes if len(axes) > 1 else axes[0]
+                used.update(axes)
+                break
+        dims.append(picked)
+    while dims and dims[-1] is None:
+        dims.pop()
+    return PartitionSpec(*dims)
+
+
+def shard(x: torch.Tensor, *tokens) -> torch.Tensor:
+    """A logical sharding constraint. With a mesh installed it resolves
+    the spec and checks the rank, as the reference does; it then returns
+    ``x`` itself. The reference's ``with_sharding_constraint`` changes
+    where a value lives, never the value, and the port keeps activations
+    whole on the device that computes them, so the values agree."""
+    ctx = current_ctx()
+    if ctx.mesh is None:
+        return x
+    assert len(tokens) == x.dim(), (tokens, tuple(x.shape))
+    resolve_spec(tuple(x.shape), tokens, ctx.rules, ctx.mesh)
+    return x
+
+
+def data_axis_names() -> Tuple[str, ...]:
+    """Mesh axes carrying the batch (the elastic worker axes)."""
+    return tuple(current_ctx().rules.get("batch", ("data",)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,12 +199,21 @@ def dense_spec(d_in: int, d_out: int, logical=("fsdp", "tp"), scale=None,
                      dtype=dtype)
 
 
+def is_spec_leaf(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
 def map_specs(fn, defs, path: str = ""):
     """Apply ``fn(path, spec)`` to every ParamSpec of a nested dict; the
     path is spelled as the reference's key paths are (``['a']['b']``)."""
     if isinstance(defs, ParamSpec):
         return fn(path, defs)
     return {k: map_specs(fn, v, f"{path}[{k!r}]") for k, v in defs.items()}
+
+
+def tree_map_specs(fn, defs):
+    """Apply ``fn(spec)`` to every ParamSpec of a nested dict."""
+    return map_specs(lambda _, s: fn(s), defs)
 
 
 def stack_specs(defs, n: int, logical0: Optional[str] = None):
@@ -89,6 +252,51 @@ def init_params(defs, seed: int, param_dtype=torch.float32, *,
         return x.mul_(spec.scale).to(dtype)
 
     return map_specs(make, defs)
+
+
+def abstract_params(defs, param_dtype=torch.bfloat16):
+    """Tensors on the ``meta`` device (shape and dtype, no storage): the
+    counterpart of the reference's ``ShapeDtypeStruct`` tree for the dry
+    run. ``param_dtype`` accepts config dtype strings (see
+    `init_params`)."""
+    param_dtype = resolve_dtype(param_dtype, where="abstract_params")
+    return map_specs(lambda path, s: torch.empty(
+        s.shape, device="meta",
+        dtype=resolve_dtype(s.dtype, where=f"ParamSpec{path}")
+        if s.dtype is not None else param_dtype), defs)
+
+
+def _layout_rules(rules, fsdp: bool) -> dict:
+    rules = dict(rules if rules is not None else DEFAULT_RULES)
+    if not fsdp:
+        rules["fsdp"] = ()
+    return rules
+
+
+def param_pspecs(defs, mesh, rules=None, fsdp: bool = True):
+    """PartitionSpec nested dict for a ParamSpec nested dict."""
+    rules = _layout_rules(rules, fsdp)
+    return tree_map_specs(
+        lambda spec: resolve_spec(spec.shape, spec.logical, rules, mesh),
+        defs)
+
+
+def param_shardings(defs, mesh, rules=None, fsdp: bool = True):
+    """A `NamedSharding` per leaf of a ParamSpec nested dict."""
+    rules = _layout_rules(rules, fsdp)
+    return tree_map_specs(lambda spec: NamedSharding(mesh, resolve_spec(
+        spec.shape, spec.logical, rules, mesh)), defs)
+
+
+def param_count(defs) -> int:
+    """Parameters of a ParamSpec nested dict."""
+    return sum(math.prod(s.shape) for s in tree_leaves(defs))
+
+
+def shard_bytes(shape: Tuple[int, ...], dtype: torch.dtype,
+                sharding: NamedSharding) -> int:
+    """Bytes of one device's shard of a ``shape`` leaf of ``dtype``."""
+    return math.prod(sharding.shard_shape(tuple(shape))) * dtype.itemsize
 
 
 def spec_dtypes(defs, param_dtype):
@@ -156,3 +364,15 @@ def sinusoidal_positions(length: int, d: int, *, device=None) -> torch.Tensor:
 def swiglu(gate_up: torch.Tensor) -> torch.Tensor:
     gate, up = gate_up.chunk(2, dim=-1)
     return F.silu(gate) * up
+
+
+def ceil_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def padded_heads(num_heads: int) -> int:
+    """Pad the query-head count so it shards over the tp axes (the pad
+    heads are initialized as any other; their compute is waste the
+    roofline's model FLOPs leave out)."""
+    tp = axis_size("tp")
+    return ceil_to(num_heads, tp) if tp > 1 else num_heads

@@ -97,14 +97,18 @@ def mla_block(p, cfg, x, qpos, *, cache=None, cache_pos=None):
 def mla_cache_defs(cfg, batch: int, seq_len: int):
     """ParamSpecs of one layer's latent cache: the normalized latent
     (B, W, kv_lora_rank), the rotated rope key (B, W, dr) and positions
-    (−1: unwritten)."""
+    (−1: unwritten). ``cfg.kv_cache_shard`` "heads" puts tp on the latent,
+    "seq" on the positions."""
     m = cfg.mla
     W = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+    mode = cfg.kv_cache_shard
+    latent = ("tp", None) if mode == "heads" else None
+    seq = ("tp", None) if mode == "seq" else None
     return {
-        "ckv": ParamSpec((batch, W, m.kv_lora_rank), ("batch", None, "tp"),
+        "ckv": ParamSpec((batch, W, m.kv_lora_rank), ("batch", seq, latent),
                          init="zeros"),
         "krope": ParamSpec((batch, W, m.qk_rope_head_dim),
-                           ("batch", None, None), init="zeros"),
-        "pos": ParamSpec((batch, W), ("batch", None), init="neg_ones",
+                           ("batch", seq, None), init="zeros"),
+        "pos": ParamSpec((batch, W), ("batch", seq), init="neg_ones",
                          dtype=torch.int32),
     }

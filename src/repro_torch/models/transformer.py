@@ -16,8 +16,8 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.common import (ParamSpec, dense_spec, rms_norm,
-                                       stack_specs)
+from repro_torch.models.common import (ParamSpec, current_ctx, dense_spec,
+                                       mesh_context, rms_norm, stack_specs)
 from repro_torch.tree import tree_index, tree_leaves, tree_map
 
 
@@ -106,13 +106,27 @@ def _remat(fn, mode: str):
     if mode == "none":
         return fn
     if mode == "full":
-        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
-    if mode == "dots":
-        return functools.partial(
-            ckpt.checkpoint, fn, use_reentrant=False,
-            context_fn=functools.partial(
-                ckpt.create_selective_checkpoint_contexts, _dots_policy))
-    raise ValueError(f"remat must be 'none', 'dots' or 'full', got {mode!r}")
+        kw = {}
+    elif mode == "dots":
+        kw = {"context_fn": functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)}
+    else:
+        raise ValueError(
+            f"remat must be 'none', 'dots' or 'full', got {mode!r}")
+
+    def run(*args):
+        # the recompute runs in the backward, which autograd may run on
+        # another thread: carry the forward's mesh context to it
+        ctx = current_ctx()
+        return ckpt.checkpoint(functools.partial(_in_ctx, ctx, fn), *args,
+                               use_reentrant=False, **kw)
+
+    return run
+
+
+def _in_ctx(ctx, fn, *args):
+    with mesh_context(ctx.mesh, ctx.rules):
+        return fn(*args)
 
 
 def scan_decoder(layers_p, cfg, x, qpos, *, caches=None, cache_pos=None,

@@ -63,20 +63,6 @@ SPOT, PREEMPTIBLE = 0, 1
 PRICE_UNIFORM, PRICE_TRUNC_GAUSS, PRICE_TRACE, PRICE_EMPIRICAL = 0, 1, 2, 3
 PRICE_TRACE_TICK = 4
 
-_LATER = {
-    "model_parallel": "the model-parallel slice (a model sharded over "
-                      "several cards: logical sharding, expert "
-                      "parallelism, the roofline accounting and the "
-                      "launcher's dry run)",
-}
-
-
-def not_ported(what: str, slice_key: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: it comes with "
-        f"{_LATER[slice_key]}")
-
-
 # --------------------------------------------------------------------------
 # Scenario specification
 # --------------------------------------------------------------------------

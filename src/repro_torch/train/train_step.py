@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.configs.base import JobConfig, ModelConfig
 from repro_torch.models import model_zoo
-from repro_torch.models.common import init_params
+from repro_torch.models.common import init_params, shard
 from repro_torch.optim.sgd import constant_lr, get_optimizer
 from repro_torch.train.loss import (elastic_token_weights, next_token_loss,
                                     token_nll)
@@ -39,7 +39,8 @@ def make_loss_grad(cfg: ModelConfig, job: JobConfig, remat: str = "full"):
             logits = logits[:, cfg.vision.num_patches:]
         labels = batch["labels"]
         w = elastic_token_weights(active_mask, b, labels.shape[1],
-                                  batch.get("label_mask")).to(torch.float32)
+                                  batch.get("label_mask"))
+        w = shard(w, "batch", None).to(torch.float32)
         nll_sum = (token_nll(logits, labels) * w).sum()
         return nll_sum, w.sum(), aux
 

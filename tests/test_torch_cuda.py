@@ -14,7 +14,9 @@ training: a megabatch snapshot/save/restore/resume and a bf16 durable
 of tensors on the card; then the rest of the zoo: K3 at the hybrid's
 serving shape, K2 non-causal at Whisper's encoder shape, the SSD's
 training route against the CPU, and remat's gradients bit for bit with
-the kernels on the path.
+the kernels on the path; and expert parallelism: the MoE block's psum and
+all-to-all routes with their ranks on one card against the same routes on
+the CPU, and their bits from run to run.
 
 Every test here needs an NVIDIA GPU and skips itself elsewhere. The file
 imports neither ``jax`` nor the reference, so it runs on a machine that
@@ -161,6 +163,8 @@ K2_SHAPES = [
     (1, 70, 199, 7, 1, 128, True, 48, 129),
     (1, 64, 190, 4, 2, 128, False, None, 0),
     (1, 150, 150, 7, 1, 64, False, 50, 0),
+    # Qwen2-7B's heads padded for tp 8: 32 query heads over 4 KV heads
+    (1, 96, 96, 32, 4, 128, True, None, 0),
 ]
 
 #: max |kernel - plain| / max |plain|. float32: both sum in float32 in
@@ -1435,3 +1439,64 @@ def test_scenario_mesh_takes_the_visible_cards(cuda_device):
         [f"cuda:{i}" for i in range(n)]
     with pytest.raises(ValueError, match=f"needs {n + 1} devices but only"):
         make_scenario_mesh(n + 1)
+
+
+def _ep_case(route, device, cf=1.25):
+    """The reduced Qwen2-MoE block (8 experts, 6 real, one shared) on
+    ``device``: (cfg, params, x, dx) in float32."""
+    import dataclasses
+
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params
+
+    cfg = ARCHS["qwen2-moe-a2.7b"].reduced()
+    cfg = cfg.with_(moe=dataclasses.replace(
+        cfg.moe, num_experts=8, num_experts_unpadded=6, parallelism=route,
+        capacity_factor=cf))
+    p = init_params(moe.moe_defs(cfg), 0, device="cpu")
+    g = torch.Generator(device="cpu").manual_seed(1)
+    x = torch.randn(4, 64, cfg.d_model, generator=g)
+    dy = torch.randn(4, 64, cfg.d_model, generator=g)
+    return cfg, {k: v.to(device) for k, v in p.items()}, x.to(device), \
+        dy.to(device)
+
+
+def _ep_run(cfg, p, x, dy, mesh):
+    """The block under ``mesh`` with the gradient of <y, dy> + aux with
+    respect to x and every weight."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import mesh_context
+
+    leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+    xl = x.clone().requires_grad_()
+    with mesh_context(mesh):
+        y, aux = moe.moe_block(leaves, cfg, xl)
+    names = sorted(leaves)
+    grads = torch.autograd.grad((y * dy).sum() + aux,
+                                [xl] + [leaves[k] for k in names])
+    return y.detach(), aux.detach(), dict(zip(["x"] + names, grads))
+
+
+@pytest.mark.parametrize("route", ["psum", "alltoall"])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_expert_parallel_routes_on_one_card_match_the_cpu(cuda_device, tp,
+                                                          route):
+    """The ranks of a (1, tp) mesh that lists cuda:0 tp times run in turn
+    on the card: output, aux and every gradient against the same route on
+    a CPU mesh, float32 at 1e-4 of each tensor's largest entry (cuBLAS and
+    the CPU's BLAS sum in other orders), and bit for bit run to run."""
+    from repro_torch.launch.mesh import Mesh
+
+    cfg, p, x, dy = _ep_case(route, cuda_device)
+    card = Mesh([[cuda_device] * tp], ("data", "model"))
+    host = Mesh([[torch.device("cpu")] * tp], ("data", "model"))
+    y, aux, g = _ep_run(cfg, p, x, dy, card)
+    y2, aux2, g2 = _ep_run(cfg, p, x, dy, card)
+    cfg_c, p_c, x_c, dy_c = _ep_case(route, "cpu")
+    yc, auxc, gc = _ep_run(cfg_c, p_c, x_c, dy_c, host)
+    assert y.device.type == "cuda" and torch.isfinite(y).all()
+    assert torch.equal(y, y2) and torch.equal(aux, aux2)
+    assert all(torch.equal(g[k], g2[k]) for k in g)
+    torch.testing.assert_close(aux.cpu(), auxc, rtol=1e-5, atol=0)
+    for name, a, b in [("y", y, yc)] + [(k, g[k], gc[k]) for k in g]:
+        assert rel_err(a.cpu(), b) <= 1e-4, name

@@ -204,20 +204,29 @@ def test_launcher_cpu_run_prints_summary_without_jax():
 
 
 def test_launcher_refuses_unported_modes(monkeypatch, capsys):
-    """Malformed flag sets and the dry run (the model-parallel slice) stop
-    at parsing; ``--batched --mesh 2`` runs over two host devices, bit for
-    bit the unsharded summary, and ``--jit-cache`` runs and changes
-    nothing."""
+    """Malformed flag sets stop at parsing; with no mode the launcher runs
+    the dry run and returns its roofline record; ``--batched --mesh 2``
+    runs over two host devices, bit for bit the unsharded summary, and
+    ``--jit-cache`` runs and changes nothing."""
     from repro_torch.launch.mesh import HOST_DEVICES_ENV
     from repro_torch.launch.train import parse_args, run
 
-    for argv in (["--megabatch"], [], ["--fused-update", "--batched"],
+    for argv in (["--megabatch"], ["--fused-update", "--batched"],
                  ["--batched", "--megabatch", "--param-dtype", "bfloat16"],
                  ["--supervise"], ["--mesh", "2"],
                  ["--batched", "--mesh-replica", "2"]):
         with pytest.raises(SystemExit):
             parse_args(argv)
-    assert "model-parallel slice" in capsys.readouterr().err
+    dry = parse_args([])
+    assert not dry.local and not dry.supervise
+    _, record = run(parse_args(["--card", "NVIDIA H100 80GB HBM3"]))
+    printed = capsys.readouterr().out
+    assert (record["arch"], record["shape"], record["mesh"]) == \
+        ("qwen2-7b", "train_4k", "16x16")
+    assert record["arg_bytes_per_device"] > 0 and record["dominant"] in (
+        "compute", "memory")
+    assert json.loads(printed.splitlines()[-1]) == json.loads(
+        json.dumps(record, default=str))
     small = ["--device", "cpu", "--seeds", "1", "--iterations", "2",
              "--workers", "4", "--batch", "8", "--seq", "16"]
     monkeypatch.setenv(HOST_DEVICES_ENV, "2")
