@@ -170,11 +170,31 @@ Phases, each printing one JSON line and raising on failure:
    route; each route's bits repeat; per route the device ms a forward,
    peak memory and drop shares. Qwen2-7B at full width, depth 1, bf16,
    its heads padded for tp 8 (32 query heads over 4 KV heads), one
-   ``make_loss_grad`` step through K2 (each of its four tensor-core
-   kernels once) and K2 at that shape against its plain versions, its
-   rows added to the kernel line. ``python -m repro_torch.launch.dryrun
-   --all`` and ``--all --multi-pod`` on the card's peaks: 40 records
-   each, and three pairs' terms and bound.
+   ``make_loss_grad`` step under that mesh through K2 (its attention
+   split over the 8 ranks since slice 14: each of its four tensor-core
+   kernels once a rank) and K2 at a rank's shape against its plain
+   versions, its rows added to the kernel line. ``python -m
+   repro_torch.launch.dryrun --all`` and ``--all --multi-pod`` on the
+   card's peaks: 40 records each, and three pairs' terms and bound;
+14. slice 14's dense tensor parallelism and serving under a mesh
+   (``phase_slice_14``, its seconds printed): Qwen2-7B at full width,
+   depth cut to 2, bf16 (weights cast from float32 masters), K2, batch 4
+   × 1024, through ``make_loss_grad`` (remat "full") and ``prefill`` + 16
+   decode steps with no mesh and under a (data 1, model 4) mesh listing
+   cuda:0 four times, whose attention and MLP split over the ranks (7
+   query heads and 1 KV head, d_ff 4736 a rank): K2's launches held to
+   the design (once a rank, layer and forward, again for remat's
+   recompute, and its backward once a rank and layer), the loss and the
+   logits held to the all-bf16 parity rule, ms and peak memory of each,
+   then K2 at a rank's shape against its plain versions (rows added to
+   the kernel line); DeepSeek-V2-Lite at full width, depth cut to 2,
+   float32, batch 8, a 512-token prompt and 16 greedy decode steps, no
+   mesh against the same mesh (MLA's heads split, the MoE by the psum
+   route): the same routing, drops and tokens, the logits within 1e-5 of
+   the largest; then the six ``examples/*_torch.py`` at their defaults
+   (spot_bidding at one repetition, train_grid at 20 steps) in child
+   processes on the card, at once, each required to exit 0, their
+   seconds and kernel launches printed.
 
 Then the ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout,
@@ -1138,9 +1158,9 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers,
     fwd_bwd_ms = timed(lambda: fwd_bwd(lambda a, b_, c: ops.flash_mha(
         a, b_, c, **mask)), n, torch)
 
-    # the plain version (autograd through ref.mha_reference) and the
-    # library call, split the same way: forward; grads of k and v; grad
-    # of q — each backward on a graph kept across the repeats
+    # the plain version (autograd through ref.mha_reference) split as the
+    # kernels split the work: forward; grads of k and v; grad of q — each
+    # backward on a graph kept across the repeats
     def split_times(attend, reps):
         with torch.no_grad():
             f_ms = timed(lambda: attend(qt, kt, vt), reps, torch)
@@ -1160,10 +1180,28 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers,
         a, b_, c, **mask), 3)
     plain_ms["flash_attention_bwd_delta"] = timed(
         lambda: ref.mha_delta_reference(out, dopt), n, torch)
-    library_ms = split_times(lambda a, b_, c: F.scaled_dot_product_attention(
-        a, b_, c, is_causal=causal, enable_gqa=True), n)
-    # no one PyTorch call forms rowsum(dO∘O) in float32 from bf16 inputs
-    library_ms["flash_attention_bwd_delta"] = None
+
+    # the library call: SDPA's forward, and its one backward, which forms
+    # dq, dk and dv together, against the sum of K2's D_i, dK/dV and dQ
+    # kernels. No one PyTorch call computes dK/dV, dQ or D_i alone, so
+    # those rows carry none.
+    def sdpa(a, b_, c):
+        return F.scaled_dot_product_attention(a, b_, c, is_causal=causal,
+                                              enable_gqa=True)
+
+    with torch.no_grad():
+        lib_fwd_ms = timed(lambda: sdpa(qt, kt, vt), n, torch)
+    leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
+    lib_o = sdpa(*leaves)
+    lib_bwd_ms = timed(lambda: torch.autograd.grad(
+        lib_o, leaves, dot, retain_graph=True), n, torch)
+    del lib_o, leaves
+    library_ms = {kk: None for kk in K2_KERNELS}
+    library_ms["flash_attention_fwd"] = lib_fwd_ms
+    library_ms["flash_attention_fwd_tc"] = lib_fwd_ms
+    k2_bwd_ms = sum(ms[kk] for kk in ("flash_attention_bwd_delta",
+                                      "flash_attention_bwd_dkdv_tc",
+                                      "flash_attention_bwd_dq_tc"))
 
     name = torch.cuda.get_device_name(0)
     hbm, _, bf16, _, label = card_peaks(name)
@@ -1223,7 +1261,9 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers,
         "plain_fwd_bwd_ms": sum(plain_ms[kk] for kk in (
             "flash_attention_fwd_tc", "flash_attention_bwd_dkdv_tc",
             "flash_attention_bwd_dq_tc")),
-        "library_fwd_ms": library_ms["flash_attention_fwd"],
+        "library_fwd_ms": lib_fwd_ms, "library_bwd_ms": lib_bwd_ms,
+        "k2_bwd_ms": k2_bwd_ms, "k2_bwd_over_library_bwd":
+        k2_bwd_ms / lib_bwd_ms,
         "share_of_zoo_cell_step": fwd_bwd_ms * n_layers / step_ms,
         "card": smi}
     if cuda_core:
@@ -3775,7 +3815,9 @@ def phase_mesh(torch, smi, main, resumed):
 #: slice 13's expert parallelism: Qwen2-MoE-A2.7B at full width (60
 #: experts padded to 64, top-4, expert d_ff 1408, one shared expert of
 #: d_ff 5632), depth cut 24 -> 4, float32, batch 2 × 2048 tokens, its
-#: ranks on a (data 1, model 4) mesh that lists cuda:0 four times
+#: ranks on a (data 1, model 4) mesh that lists cuda:0 four times, its
+#: attention whole (with the attention split, its rounding reaches the
+#: router, and a near-tie among the experts can route otherwise)
 EP = {"arch": "qwen2-moe-a2.7b", "layers": 4, "batch": 2, "seq": 2048,
       "tp": 4, "seed": 0, "timed": 3, "no_drop_capacity_factor": 16.0}
 #: the psum route against no mesh at the config's capacity factor (data
@@ -3790,9 +3832,11 @@ EP_TOL = {"psum_vs_none_logits_rel": 1e-4, "psum_vs_none_aux_rel": 1e-5,
 #: slice 13's padded heads: Qwen2-7B at full width and depth 1, bf16, K2,
 #: its definitions laid out at tp 8 (28 query heads padded to 32 over 4
 #: KV heads: a GQA group of 8), one loss-and-gradient step at batch 4 ×
-#: 1024 tokens
+#: 1024 tokens under that mesh, whose attention splits over the 8 ranks
+#: (slice 14): 4 query heads a rank, all reading one KV head, so K2 runs
+#: once a rank at the rank's heads
 PADDED = {"arch": "qwen2-7b", "tp": 8, "batch": 4, "seq": 1024, "seed": 0}
-K2_PADDED_SHAPE = (4, 1024, 1024, 32, 4, 128, True, None, 0)
+K2_PADDED_SHAPE = (4, 1024, 1024, 4, 1, 128, True, None, 0)
 #: the dry run's records printed in full
 DRY_PAIRS = (("qwen2-7b", "train_4k"), ("deepseek-v2-lite-16b", "decode_32k"),
              ("mistral-large-123b", "prefill_32k"))
@@ -3830,8 +3874,13 @@ def phase_expert_parallel(torch, smi):
     from repro_torch.models.common import init_params, mesh_context
     from repro_torch.tree import tree_leaves
 
+    # attention computed whole under the mesh (``attn_seq_shard``: the
+    # port splits no query sequence), so that each MoE block receives no
+    # mesh's input bit for bit and its routing holds exactly; the dense
+    # split has phases of its own (slice 14)
     base = ARCHS[EP["arch"]].with_(num_layers=EP["layers"], dtype="float32",
-                                   param_dtype="float32")
+                                   param_dtype="float32",
+                                   attn_seq_shard=True)
     params = init_params(model_zoo.param_defs(base), EP["seed"],
                          torch.float32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(EP["seed"])
@@ -3937,9 +3986,9 @@ def phase_expert_parallel(torch, smi):
 
 def phase_padded_heads(torch, smi):
     """Qwen2-7B's definitions laid out at tp 8 (32 query heads), one
-    ``make_loss_grad`` step through K2 with the counts set to 0 before it
-    (after one step that pays every first use), then K2 at that step's
-    shape against its plain versions."""
+    ``make_loss_grad`` step under that mesh through K2, once a rank, with
+    the counts set to 0 before it (after one step that pays every first
+    use), then K2 at a rank's shape against its plain versions."""
     from repro_torch.configs import ARCHS
     from repro_torch.configs.base import InputShape, JobConfig
     from repro_torch.launch.mesh import Mesh
@@ -3976,7 +4025,7 @@ def phase_padded_heads(torch, smi):
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0)
     counts = read_counts()
-    want = designed(**k2_sites(1, 1))
+    want = designed(**k2_sites(PADDED["tp"], PADDED["tp"]))
     emit({"phase": "padded_heads", "entry": "train_step.make_loss_grad",
           "config": PADDED, "wq": list(wq), "query_heads": heads,
           "kv_heads": cfg.num_kv_heads, "loss": float(loss),
@@ -4043,6 +4092,403 @@ def phase_model_parallel(torch, smi):
     emit({"phase": "model_parallel", "phase_s": time.perf_counter() - t0,
           "expert_parallel_s": t_ep, "padded_heads_s": t_ph,
           "dry_run_s": time.perf_counter() - t0 - t_ep - t_ph})
+    return rows
+
+
+#: slice 14's dense tensor parallelism: Qwen2-7B at full width (d 3584, 28
+#: query heads over 4 KV heads, d_ff 18944, vocab 152064), depth cut 28 ->
+#: 2, bf16 weights cast from float32 masters drawn from the seed, bf16
+#: activations, K2, batch 4 x 1024, remat "full", on a (data 1, model 4)
+#: mesh that lists cuda:0 four times (7 query heads and 1 KV head a rank,
+#: d_ff 4736 a rank), against no mesh: one loss-and-gradient step, then a
+#: prefill of a 1024-token prompt and 16 decode steps
+TP = {"arch": "qwen2-7b", "layers": 2, "batch": 4, "seq": 1024, "gen": 16,
+      "tp": 4, "seed": 0, "timed": 2}
+#: the mesh against no mesh, all-bf16 parity (tests/test_torch_decode.py's
+#: rule): the ranks' partial sums are bf16 products added in rank order
+#: where no mesh forms each product whole, so the two round at other
+#: places; logits within 3e-2 of the largest logit, the loss within 1e-2
+#: relative
+TP_TOL = {"logits_rel_to_largest": 3e-2, "loss_rel": 1e-2}
+#: the shape a rank gives K2 on that path
+K2_TP_SHAPE = (4, 1024, 1024, 7, 1, 128, True, None, 0)
+#: slice 14's serving under a mesh: DeepSeek-V2-Lite at full width, depth
+#: cut 27 -> 2, float32, batch 8, a 512-token prompt and 16 greedy decode
+#: steps, on the same (1, 4) mesh against no mesh: MLA's 16 heads split 4
+#: a rank, the latent cache whole, the MoE by the psum route (data 1: each
+#: rank routes every token, as the block does alone)
+SERVE_MESH = {"arch": "deepseek-v2-lite-16b", "layers": 2, "batch": 8,
+              "prompt": 512, "gen": 16, "tp": 4, "seed": 0}
+#: the same routing and drops, the same greedy tokens, and every logit
+#: within 1e-5 of the largest (float32 partial sums added in rank order;
+#: slice 13 measured 3.6e-6 for the MoE forward alone)
+SERVE_MESH_TOL = {"logits_rel_to_largest": 1e-5}
+#: the six examples, each in a child process on the card at its defaults,
+#: all at once, but two cuts: spot_bidding's legacy loop is numpy on the
+#: host and takes about a minute a repetition, so it runs one repetition
+#: of its five; train_grid's host-bound tick loop took 99 s at its 40
+#: steps (96 ticks and a 76-tick resume), so it runs 20 (56 ticks)
+EXAMPLES = {"quickstart": [], "scenario_sweep": [],
+            "spot_bidding": ["--reps", "1"], "elastic_training_e2e": [],
+            "train_grid": ["--steps", "20"], "serve_batched": []}
+EXAMPLE_TIMEOUT_S = 300
+#: runs one example as ``__main__`` and prints the port's kernel launch
+#: counts at exit
+EXAMPLE_WRAPPER = r"""
+import atexit, json, runpy, sys
+sys.path.insert(0, sys.argv[1])
+
+def report():
+    from repro_torch.kernels import ops
+    print("LAUNCHES " + json.dumps(ops.launch_counts()), flush=True)
+
+atexit.register(report)
+sys.argv = sys.argv[2:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+
+
+def rel_to_largest(a, b) -> float:
+    """max |a - b| over max |b|, in float32."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def phase_tensor_parallel(torch, smi):
+    """Cut Qwen2-7B at full width through ``make_loss_grad`` (remat
+    "full", K2) and ``prefill`` + ``decode_step`` with no mesh and under
+    the (1, 4) mesh, whose attention and MLP split over the four ranks:
+    K2's launches held to the design (per rank, per layer, forward and
+    remat's recompute, and the backward), the loss and logits held to the
+    all-bf16 parity rule (the prefill's logits at every position and each
+    decode step's); ms and peak memory of each. The mesh's decode is fed
+    no mesh's greedy tokens, so each step's logits compare. Returns K2's
+    rows at a rank's shape."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import InputShape, JobConfig
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import init_params, mesh_context
+    from repro_torch.train.train_step import make_loss_grad
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = ARCHS[TP["arch"]].with_(num_layers=TP["layers"], dtype="bfloat16",
+                                  param_dtype="bfloat16",
+                                  use_flash_attention=True)
+    tp, n_layers = TP["tp"], TP["layers"]
+    mesh = Mesh([[torch.device("cuda", 0)] * tp], ("data", "model"))
+    masters = init_params(model_zoo.param_defs(cfg), TP["seed"],
+                          torch.float32, device="cuda")
+    params = tree_map(lambda m: m.to(torch.bfloat16), masters)
+    n_params = sum(x.numel() for x in tree_leaves(masters))
+    del masters
+    free(torch)
+    b, s, gen_n = TP["batch"], TP["seq"], TP["gen"]
+    gen = torch.Generator(device="cuda").manual_seed(TP["seed"])
+    tokens = torch.randint(0, cfg.vocab_size, (b, s + 1), device="cuda",
+                           generator=gen)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    job = JobConfig(model=cfg, shape=InputShape("tp", s, b, "train"),
+                    n_workers=4)
+    step = make_loss_grad(cfg, job, remat="full")
+    mask = torch.ones(4, device="cuda")
+    meshes = {"none": None, "mesh": mesh}
+    want = {"none": designed(**k2_sites(2 * n_layers, n_layers)),
+            "mesh": designed(**k2_sites(2 * tp * n_layers, tp * n_layers))}
+    runs, grads = {}, {}
+    for name, on in meshes.items():
+        with mesh_context(on):
+            step(params, batch, mask)          # first use
+        free(torch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with mesh_context(on):
+            g, loss, _ = step(params, batch, mask)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        grads[name] = {k: g["layers"][blk][k] for blk, k in (
+            ("attn", "wq"), ("attn", "wk"), ("attn", "wo"),
+            ("mlp", "w_gate"), ("mlp", "w_down"))}
+        del g
+        with mesh_context(on):
+            ms = timed(lambda: step(params, batch, mask), TP["timed"], torch)
+        runs[name] = {"loss": float(loss), "step_ms": ms,
+                      "step_peak_mem_bytes": peak, "counts": counts,
+                      "designed": want[name]}
+        free(torch)
+    grad_rel = {k: rel_to_largest(grads["mesh"][k], grads["none"][k])
+                for k in grads["none"]}
+    del grads
+    free(torch)
+
+    def fresh():
+        return init_params(model_zoo.cache_defs(cfg, b, s + gen_n),
+                           TP["seed"], torch.bfloat16, device="cuda")
+
+    prompt = tokens[:, :s]
+    logits, fed = {}, None
+    for name, on in meshes.items():
+        with torch.no_grad(), mesh_context(on):
+            model_zoo.prefill(params, cfg, {"tokens": prompt}, fresh())
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            y, caches = model_zoo.prefill(params, cfg, {"tokens": prompt},
+                                          fresh())
+            torch.cuda.synchronize()
+            prefill_ms = 1e3 * (time.perf_counter() - t0)
+            outs, toks = [y], []
+            nxt = torch.argmax(y[:, -1:], dim=-1)
+            t0 = time.perf_counter()
+            for i in range(gen_n):
+                if fed is not None:
+                    nxt = fed[i]
+                toks.append(nxt)
+                y, caches = model_zoo.decode_step(params, cfg, nxt, caches,
+                                                  s + i)
+                outs.append(y)
+                nxt = torch.argmax(y, dim=-1)
+            torch.cuda.synchronize()
+            decode_ms = 1e3 * (time.perf_counter() - t0) / gen_n
+        runs[name].update(prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
+                          serve_counts=read_counts())
+        logits[name] = (outs, toks)
+        fed = toks
+        del caches, y
+        free(torch)
+    (mo, mt), (no, nt) = logits["mesh"], logits["none"]
+    logit_rel = max(rel_to_largest(a, c) for a, c in zip(mo, no))
+    agree = float(torch.cat([(torch.argmax(a, dim=-1)
+                              == torch.argmax(c, dim=-1)).flatten()
+                             for a, c in zip(mo, no)]).float().mean())
+    loss_rel = abs(runs["mesh"]["loss"] - runs["none"]["loss"]) \
+        / abs(runs["none"]["loss"])
+    emit({"phase": "tensor_parallel", "entry": "train_step.make_loss_grad, "
+          "model_zoo.prefill and decode_step under mesh_context(Mesh((1, 4)))",
+          "config": TP, "params": n_params, "runs": runs,
+          "mesh_vs_none": {"loss_rel": loss_rel,
+                           "logits_rel_to_largest": logit_rel,
+                           "argmax_agreement": agree,
+                           "grad_rel_to_largest": grad_rel},
+          "step_ms_mesh_over_none": runs["mesh"]["step_ms"]
+          / runs["none"]["step_ms"], "tolerance": TP_TOL,
+          "ln_V": math.log(cfg.vocab_size), "card": smi})
+    del logits, mo, no
+    free(torch)
+    bad = []
+    for name, r in runs.items():
+        if r["counts"] != r["designed"]:
+            bad.append(f"{name}: K2 counts {r['counts']}, designed "
+                       f"{r['designed']}")
+        if set(r["serve_counts"].values()) - {0}:
+            bad.append(f"{name}: a kernel launched while serving: "
+                       f"{r['serve_counts']}")
+        if not math.isfinite(r["loss"]) or \
+                abs(r["loss"] - math.log(cfg.vocab_size)) > 3.0:
+            bad.append(f"{name}: loss {r['loss']}")
+    if not loss_rel <= TP_TOL["loss_rel"]:
+        bad.append(f"loss: mesh vs none {loss_rel}")
+    if not logit_rel <= TP_TOL["logits_rel_to_largest"]:
+        bad.append(f"logits: mesh vs none {logit_rel}")
+    if bad:
+        raise AssertionError("tensor_parallel: " + "; ".join(bad))
+    rows = phase_k2_at_path_shape(
+        torch, smi, runs["mesh"]["counts"], runs["mesh"]["step_ms"],
+        2 * tp * n_layers, shape=K2_TP_SHAPE,
+        phase="k2_at_tensor_parallel_shape", cuda_core=False)
+    del params
+    free(torch)
+    return rows
+
+
+def phase_serve_mesh(torch, smi):
+    """Cut DeepSeek-V2-Lite at full width served through ``prefill`` and
+    greedy ``decode_step``s with no mesh and under the (1, 4) mesh (MLA's
+    heads split, the MoE by the psum route): routing and drops recorded
+    and held equal, the greedy tokens equal, the logits within
+    `SERVE_MESH_TOL`; ms and peak memory of each; no kernel lies on this
+    path."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import init_params, mesh_context
+    from repro_torch.tree import tree_leaves
+
+    cfg = ARCHS[SERVE_MESH["arch"]].with_(num_layers=SERVE_MESH["layers"],
+                                          dtype="float32",
+                                          param_dtype="float32")
+    tp = SERVE_MESH["tp"]
+    b, s, gen_n = (SERVE_MESH[k] for k in ("batch", "prompt", "gen"))
+    mesh = Mesh([[torch.device("cuda", 0)] * tp], ("data", "model"))
+    params = init_params(model_zoo.param_defs(cfg), SERVE_MESH["seed"],
+                         torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_MESH["seed"])
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                           generator=gen)
+
+    def serve(on, routes=None, drops=None):
+        caches = init_params(model_zoo.cache_defs(cfg, b, s + gen_n),
+                             SERVE_MESH["seed"], torch.float32,
+                             device="cuda")
+        with contextlib.ExitStack() as st:
+            st.enter_context(torch.no_grad())
+            st.enter_context(mesh_context(on))
+            if routes is not None:
+                st.enter_context(recorded_routes(routes))
+                st.enter_context(recorded_drops(drops))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, caches = model_zoo.prefill(params, cfg, {"tokens": prompt},
+                                          caches)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            outs, toks = [y], []
+            nxt = torch.argmax(y[:, -1:], dim=-1)
+            for i in range(gen_n):
+                toks.append(nxt)
+                y, caches = model_zoo.decode_step(params, cfg, nxt, caches,
+                                                  s + i)
+                outs.append(y)
+                nxt = torch.argmax(y, dim=-1)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        return (outs, torch.cat(toks, dim=1), caches,
+                {"prefill_ms": 1e3 * (t1 - t0),
+                 "decode_ms_per_step": 1e3 * (t2 - t1) / gen_n})
+
+    runs, outs = {}, {}
+    for name, on in (("none", None), ("mesh", mesh)):
+        serve(on)                               # first use
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        routes, drops = [], []
+        reset_counts()
+        o, toks, caches, times = serve(on, routes, drops)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        again = serve(on)
+        bits = all(torch.equal(a, c) for a, c in zip(o, again[0]))
+        del again
+        kept = sum(k for k, _, _ in drops)
+        assigned = sum(n for _, n, _ in drops)
+        runs[name] = {**times, "peak_mem_bytes": peak, "counts": counts,
+                      "bits_repeat": bits,
+                      "dropped_share": 1 - kept / assigned,
+                      "route_calls": len(routes),
+                      "cache_bytes": tree_bytes(caches)}
+        outs[name] = (o, toks, routes, drops, caches)
+        del caches
+        free(torch)
+    (mo, mt, mr_, md, mc), (no, nt, nr, nd, nc) = outs["mesh"], outs["none"]
+    same_routes = len(mr_) == tp * len(nr) and all(
+        torch.equal(nr[i], mr_[i * tp + r])
+        for i in range(len(nr)) for r in range(tp))
+    same_drops = md[::tp] == nd and len(md) == tp * len(nd)
+    logit_rel = max(rel_to_largest(a, c) for a, c in zip(mo, no))
+    same_tokens = torch.equal(mt, nt)
+    cache_rel = {k: rel_to_largest(mc[k], nc[k]) for k in ("ckv", "krope")}
+    same_pos = torch.equal(mc["pos"], nc["pos"])
+    emit({"phase": "serve_mesh", "entry": "model_zoo.prefill and decode_step "
+          "under mesh_context(Mesh((1, 4)))", "config": SERVE_MESH,
+          "params": sum(x.numel() for x in tree_leaves(params)),
+          "runs": runs,
+          "mesh_vs_none": {"same_routing": same_routes,
+                           "same_drops": same_drops,
+                           "same_tokens": same_tokens,
+                           "logits_rel_to_largest": logit_rel,
+                           "latent_cache_rel_to_largest": cache_rel,
+                           "same_positions": same_pos},
+          "decode_ms_mesh_over_none": runs["mesh"]["decode_ms_per_step"]
+          / runs["none"]["decode_ms_per_step"],
+          "tolerance": SERVE_MESH_TOL, "card": smi})
+    del outs, mo, no, mc, nc, params
+    free(torch)
+    bad = []
+    for name, r in runs.items():
+        if set(r["counts"].values()) - {0}:
+            bad.append(f"{name}: a kernel launched on a path that runs none:"
+                       f" {r['counts']}")
+        if not r["bits_repeat"]:
+            bad.append(f"{name}: bits differ run to run")
+    if not (same_routes and same_drops and same_tokens and same_pos):
+        bad.append(f"routing {same_routes}, drops {same_drops}, tokens "
+                   f"{same_tokens}, positions {same_pos}")
+    if not logit_rel <= SERVE_MESH_TOL["logits_rel_to_largest"]:
+        bad.append(f"logits: mesh vs none {logit_rel}")
+    if bad:
+        raise AssertionError("serve_mesh: " + "; ".join(bad))
+
+
+def phase_examples(torch, smi):
+    """The six ``examples/*_torch.py``, each at its defaults (but
+    `EXAMPLES`' arguments) in a child process on the card with a time
+    limit, all at once: each must exit 0; its seconds, its last lines and
+    the kernels it launched are printed."""
+    import tempfile
+
+    del torch
+    env = dict(os.environ, PYTHONPATH=SRC)
+    procs = {}
+    t0 = time.perf_counter()
+    for name, args in EXAMPLES.items():
+        path = os.path.join(ROOT, "examples", f"{name}_torch.py")
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-c", EXAMPLE_WRAPPER, SRC, path, *args],
+            env=env, cwd=ROOT, stdout=out, stderr=err, text=True), out, err)
+    seconds = {}
+    while len(seconds) < len(procs):
+        now = time.perf_counter() - t0
+        for name, (proc, _, _) in procs.items():
+            if name in seconds:
+                continue
+            if proc.poll() is not None:
+                seconds[name] = now
+            elif now > EXAMPLE_TIMEOUT_S:
+                proc.kill()
+                proc.wait()
+                seconds[name] = now
+        time.sleep(0.1)
+    result, bad = {}, []
+    for name, (proc, out, err) in procs.items():
+        out.seek(0)
+        err.seek(0)
+        lines, stderr = out.read().splitlines(), err.read()
+        out.close()
+        err.close()
+        launches = [json.loads(ln[len("LAUNCHES "):]) for ln in lines
+                    if ln.startswith("LAUNCHES ")]
+        result[name] = {"args": EXAMPLES[name], "rc": proc.returncode,
+                        "seconds": seconds[name],
+                        "launches": {k: v for k, v in (
+                            launches[-1] if launches else {}).items() if v},
+                        "tail": [ln for ln in lines
+                                 if not ln.startswith("LAUNCHES ")][-3:]}
+        if proc.returncode != 0:
+            bad.append(f"{name}: exit {proc.returncode} after "
+                       f"{seconds[name]:.0f} s (limit {EXAMPLE_TIMEOUT_S}):"
+                       f" {stderr[-1500:]}")
+    emit({"phase": "examples", "examples": result,
+          "wall_s": time.perf_counter() - t0, "card": smi})
+    if bad:
+        raise AssertionError("examples: " + "; ".join(bad))
+
+
+def phase_slice_14(torch, smi):
+    """Slice 14's paths: dense tensor parallelism, serving under a mesh and
+    the examples; returns K2's rows at a tensor-parallel rank's shape."""
+    t0 = time.perf_counter()
+    rows = phase_tensor_parallel(torch, smi)
+    t_tp = time.perf_counter() - t0
+    phase_serve_mesh(torch, smi)
+    free(torch)
+    t_sm = time.perf_counter() - t0 - t_tp
+    phase_examples(torch, smi)
+    emit({"phase": "slice_14", "phase_s": time.perf_counter() - t0,
+          "tensor_parallel_s": t_tp, "serve_mesh_s": t_sm,
+          "examples_s": time.perf_counter() - t0 - t_tp - t_sm})
     return rows
 
 
@@ -4115,11 +4561,15 @@ def main() -> int:
     free(torch)
     t13 = time.perf_counter()
     k2_padded = phase_model_parallel(torch, smi)
+    free(torch)
+    t14 = time.perf_counter()
+    k2_tp = phase_slice_14(torch, smi)
     emit({"phase": "total", "seconds": time.perf_counter() - t_main,
           "slice_11_seconds": t12 - t11, "slice_12_seconds": t13 - t12,
-          "slice_13_seconds": time.perf_counter() - t13})
+          "slice_13_seconds": t14 - t13,
+          "slice_14_seconds": time.perf_counter() - t14})
     emit({"kernels": [k1] + k2 + k3 + k3_hybrid + k2_hybrid + k2_whisper
-          + k2_padded})
+          + k2_padded + k2_tp})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,7 @@ re-laid-out on preemption events.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -47,3 +48,26 @@ def weighted_mean(values: torch.Tensor,
     mean = (values * weights).sum() / torch.where(pos, w_sum,
                                                   torch.ones_like(w_sum))
     return torch.where(pos, mean, torch.zeros_like(mean))
+
+
+def active_fraction(active_mask: torch.Tensor) -> torch.Tensor:
+    """The share of workers active this step (the mask's mean)."""
+    return active_mask.mean()
+
+
+def worker_of_example(batch_size: int, n_workers: int) -> np.ndarray:
+    """The worker slice each example of the global batch belongs to."""
+    return np.arange(batch_size) // (batch_size // n_workers)
+
+
+def mask_from_active_count(n_workers: int, y: int) -> np.ndarray:
+    """First-y-active mask (used by simulators that only track counts)."""
+    m = np.zeros(n_workers, np.float32)
+    m[:y] = 1.0
+    return m
+
+
+def mask_from_bids(bids: np.ndarray, price: float) -> np.ndarray:
+    """Spot semantics: a worker is active iff its bid ≥ the prevailing
+    price."""
+    return (np.asarray(bids) >= price).astype(np.float32)

@@ -5,7 +5,8 @@ encoder's states, or from a precomputed cross cache when decoding).
 Causal and sliding-window masks; with ``cfg.use_flash_attention`` the
 cache-free self-attention core is `kernels.ops.flash_mha` (K2 on the
 card), else, and always against a cache or across, the plain core
-`_attend`, as in the reference."""
+`_attend`, as in the reference. Under a mesh context the query heads
+split over the model axis (`_attention_split`)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -13,8 +14,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models import spmd
 from repro_torch.models.common import (ParamSpec, dense_spec, padded_heads,
-                                       rope)
+                                       rope, tp_ranks, tp_slice)
 
 NEG_INF = -1e30
 
@@ -120,12 +122,33 @@ def attention_block(p, cfg, x, qpos, *, kv_src=None, kv_pos=None, cache=None,
       attends over all of it; unwritten slots carry position −1. With
       ``cross_cached`` the cache holds the precomputed cross keys and
       values, is attended as it is and comes back unchanged.
-    Returns (y, new_cache); new_cache is None without a cache."""
+    Returns (y, new_cache); new_cache is None without a cache.
+
+    Under a mesh context whose model axis divides the query heads (and
+    without ``cfg.attn_seq_shard``) the heads split over the tp ranks
+    (`_attention_split`); else the block computes whole."""
+    dh = cfg.resolved_head_dim
+    hq = p["wq"].shape[1] // dh
+    assert hq % cfg.num_kv_heads == 0, (hq, cfg.num_kv_heads)
+    kw = dict(kv_src=kv_src, kv_pos=kv_pos, cache=cache, cache_pos=cache_pos,
+              causal=causal, cross_cached=cross_cached)
+    tpr = tp_ranks()
+    if tpr is None or cfg.attn_seq_shard or hq % tpr.size:
+        return _attention_heads(p, cfg, x, qpos, **kw)
+    return _attention_split(p, cfg, x, qpos, tpr, hq, **kw)
+
+
+def _attention_heads(p, cfg, x, qpos, *, kv_src=None, kv_pos=None,
+                     cache=None, cache_pos=None, causal=True,
+                     cross_cached=False, kv_index=None):
+    """The block over the heads ``p`` holds: ``wq``'s query heads, ``wk``
+    and ``wv``'s KV heads (the cache's), ``wo``'s rows. Query head h reads
+    KV head h // (query heads / KV heads), or ``kv_index[h]`` when given
+    (a rank whose query heads straddle KV groups)."""
     B, S, _ = x.shape
     dh = cfg.resolved_head_dim
     hq = p["wq"].shape[1] // dh
-    hkv = cfg.num_kv_heads
-    assert hq % hkv == 0, (hq, hkv)
+    hkv = p["wk"].shape[1] // dh
     window = cfg.sliding_window
 
     q = x @ p["wq"]
@@ -160,6 +183,9 @@ def attention_block(p, cfg, x, qpos, *, kv_src=None, kv_pos=None, cache=None,
             v = cache_write(cache["v"], v, slot)
             kpos = cache_write(cache["pos"], kpos, slot)
             new_cache = {"k": k, "v": v, "pos": kpos}
+    if kv_index is not None:
+        k = k.index_select(2, kv_index)
+        v = v.index_select(2, kv_index)
 
     is_cross = kv_src is not None or cross_cached
     if (cfg.use_flash_attention and cache is None and not is_cross
@@ -172,6 +198,107 @@ def attention_block(p, cfg, x, qpos, *, kv_src=None, kv_pos=None, cache=None,
                       window=None if is_cross else window)
     ctx = ctx.reshape(B, S, hq * dh)
     return ctx @ p["wo"], new_cache
+
+
+def rank_heads(hq: int, hkv: int, tp: int, r: int):
+    """Rank r's query heads [a, b) of ``hq`` split ``tp`` ways, the KV
+    heads [lo, hi) they read (a contiguous run), and the index of the KV
+    head each query head reads within that run, or None where the heads
+    keep GQA's grouping (query heads a whole number of KV groups, or all
+    in one group)."""
+    g = hq // hkv
+    per = hq // tp
+    a, b = r * per, (r + 1) * per
+    lo, hi = a // g, (b - 1) // g + 1
+    aligned = (a % g == 0 and per % g == 0) or hi - lo == 1
+    index = None if aligned else [h // g - lo for h in range(a, b)]
+    return (a, b), (lo, hi), index
+
+
+def _rank_attn_params(p, cfg, heads, kv, r, tp, dev):
+    """Rank r's weights on ``dev``: its query heads' columns of wq (and
+    bq) and rows of wo, cut by `tp_slice` from the head-level spec, and
+    the columns of wk, wv (bk, bv) of the KV heads it reads."""
+    dh = cfg.resolved_head_dim
+    d = p["wq"].shape[0]
+    hq = p["wq"].shape[1] // dh
+    (lo, hi) = kv
+    out = {"wq": tp_slice(p["wq"].reshape(d, hq, dh), (None, "tp", None),
+                          r).reshape(d, -1),
+           "wo": tp_slice(p["wo"].reshape(hq, dh, -1), ("tp", None, None),
+                          r).reshape(-1, p["wo"].shape[1]),
+           "wk": p["wk"][:, lo * dh:hi * dh],
+           "wv": p["wv"][:, lo * dh:hi * dh]}
+    if "bq" in p:
+        out["bq"] = tp_slice(p["bq"].reshape(hq, dh), ("tp", None),
+                             r).reshape(-1)
+    for k in ("bk", "bv"):
+        if k in p:
+            out[k] = p[k][lo * dh:hi * dh]
+    assert out["wq"].shape[1] == (heads[1] - heads[0]) * dh
+    return {k: v.to(dev) for k, v in out.items()}
+
+
+def _join_kv(parts, runs):
+    """The whole KV-head axis (2) from the ranks' runs [lo, hi): each head
+    taken from the first rank that holds it."""
+    pieces, done = [], 0
+    for t, (lo, hi) in zip(parts, runs):
+        if hi > done:
+            pieces.append(t[:, :, done - lo:hi - lo].to(parts[0].device))
+            done = hi
+    return torch.cat(pieces, dim=2) if len(pieces) > 1 else pieces[0]
+
+
+def _attention_split(p, cfg, x, qpos, tpr, hq, *, kv_src, kv_pos, cache,
+                     cache_pos, causal, cross_cached):
+    """The block split over the model axis: rank r computes its query
+    heads, the KV heads those read (a rank's share of them where the KV
+    heads divide the axis, else whichever the rank's query heads read, so
+    every rank may hold them all), its rows of ``wo`` and its share of the
+    cache, on its device; a psum joins the ranks' outputs after ``wo``.
+    Batch groups over the data ranks as `models.common.TPRanks.groups`
+    gives them. The caller's cache keeps its shape and device: the ranks'
+    slices are cut from it, and the new cache is put back together from
+    theirs."""
+    tp = tpr.size
+    plan = [rank_heads(hq, cfg.num_kv_heads, tp, r) for r in range(tp)]
+    runs = [kv for _, kv, _ in plan]
+    ys, caches = [], []
+    for rows, devs in tpr.groups(x.shape[0]):
+        outs, rank_caches = [], []
+        for r, ((heads, (lo, hi), index), dev) in enumerate(zip(plan, devs)):
+            pr = _rank_attn_params(p, cfg, heads, (lo, hi), r, tp, dev)
+            rc = None
+            if cache is not None:
+                rc = {"k": cache["k"][rows, :, lo:hi].to(dev),
+                      "v": cache["v"][rows, :, lo:hi].to(dev),
+                      "pos": cache["pos"][rows].to(dev)}
+
+            def part(t):
+                return None if t is None else t[rows].to(dev)
+
+            y, nc = _attention_heads(
+                pr, cfg, x[rows].to(dev), qpos[rows].to(dev),
+                kv_src=part(kv_src), kv_pos=part(kv_pos), cache=rc,
+                cache_pos=cache_pos, causal=causal, cross_cached=cross_cached,
+                kv_index=None if index is None else torch.tensor(
+                    index, device=dev))
+            outs.append(y)
+            rank_caches.append(nc)
+        ys.append(spmd.psum(outs)[0].to(x.device))
+        if cache is not None and not cross_cached:
+            caches.append({
+                "k": _join_kv([c["k"] for c in rank_caches], runs),
+                "v": _join_kv([c["v"] for c in rank_caches], runs),
+                "pos": rank_caches[0]["pos"]})
+    y = torch.cat(ys, dim=0)
+    if cache is None:
+        return y, None
+    if cross_cached:
+        return y, cache
+    return y, {k: torch.cat([c[k].to(cache[k].device) for c in caches],
+                            dim=0) for k in ("k", "v", "pos")}
 
 
 def self_cache_defs(cfg, batch: int, seq_len: int):

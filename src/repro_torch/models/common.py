@@ -8,6 +8,10 @@ helpers (RMSNorm, RoPE, SwiGLU, the sinusoidal positions).
   over a 16-way model axis). ``resolve_spec`` reads only the mesh's axis
   names and sizes, so it takes a `launch.mesh.Mesh` or an
   `launch.mesh.AbstractMesh` (the dry run's 256 and 512 devices).
+* ``tp_ranks`` / ``tp_slice`` — the dense layers' tensor parallelism: the
+  installed mesh's model axis as ranks on their devices, with the batch
+  groups over the data ranks, and a leaf cut to one rank's slice by the
+  spec ``resolve_spec`` gives its tp token.
 * ``ParamSpec`` is the single source of truth for every parameter: shape,
   dtype, logical sharding tokens, initializer. It is materialized three
   ways: ``init_params`` (tensors on a device, each leaf drawn from its own
@@ -29,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import resolve_dtype
+from repro_torch.models import spmd
 from repro_torch.tree import tree_leaves
 
 # --------------------------------------------------------------------------
@@ -167,6 +172,63 @@ def shard(x: torch.Tensor, *tokens) -> torch.Tensor:
         return x
     assert len(tokens) == x.dim(), (tokens, tuple(x.shape))
     resolve_spec(tuple(x.shape), tokens, ctx.rules, ctx.mesh)
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class TPRanks:
+    """The installed mesh's model axis as ``size`` ranks, its devices as a
+    (data-parallel rank, tp rank) grid (`spmd.rank_devices`)."""
+
+    size: int
+    grid: Any
+
+    def groups(self, batch: int):
+        """The batch's groups over the data ranks, as `moe.moe_block`
+        splits it: one group a data rank where ``batch`` divides, else one
+        group of the whole batch (replicated over data). Returns a list of
+        (rows, the devices of the group's tp ranks in rank order)."""
+        n_dp = self.grid.shape[0]
+        n = n_dp if batch % n_dp == 0 else 1
+        rows = batch // n
+        return [(slice(g * rows, (g + 1) * rows), list(self.grid[g]))
+                for g in range(n)]
+
+
+def tp_ranks() -> Optional[TPRanks]:
+    """The model axis of the installed mesh as ranks, or None where the
+    dense layers compute whole: no mesh, no model axis among the rules'
+    ``tp`` axes, or one of size 1. Raises for a mesh without devices and
+    for a card that is not visible (`spmd.rank_devices`)."""
+    ctx = current_ctx()
+    if ctx.mesh is None:
+        return None
+    sizes = ctx.mesh.shape
+    tp_axes = [a for a in ctx.rules.get("tp", ()) if a in sizes]
+    if len(tp_axes) != 1 or sizes[tp_axes[0]] == 1:
+        return None
+    dp_axes = tuple(a for a in ctx.rules.get("batch", ()) if a in sizes)
+    grid, _ = spmd.rank_devices(ctx.mesh, dp_axes, tp_axes[0])
+    return TPRanks(sizes[tp_axes[0]], grid)
+
+
+def tp_slice(x: torch.Tensor, tokens, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s slice of the leaf ``x`` over the model axis: the
+    spec `resolve_spec` gives ``tokens`` under the installed rules, with
+    every token but ``tp`` left out (the other axes keep the leaf whole);
+    a dimension the spec splits over the model axis is cut into equal
+    parts and the rank keeps its part, and one that does not divide stays
+    whole, as the reference's rule drops it. A view of ``x``."""
+    ctx = current_ctx()
+    spec = resolve_spec(tuple(x.shape), tokens,
+                        {"tp": ctx.rules.get("tp", ())}, ctx.mesh)
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        n = math.prod(ctx.mesh.shape[a] for a in (
+            axes if isinstance(axes, tuple) else (axes,)))
+        part = x.shape[dim] // n
+        x = x.narrow(dim, rank * part, part)
     return x
 
 

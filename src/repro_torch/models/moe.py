@@ -28,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import spmd
-from repro_torch.models.common import ParamSpec, current_ctx, dense_spec
+from repro_torch.models.common import (ParamSpec, TPRanks, current_ctx,
+                                       dense_spec)
 
 
 def moe_defs(cfg):
@@ -246,30 +247,29 @@ def moe_block(p, cfg, x) -> Tuple[torch.Tensor, torch.Tensor]:
     use_a2a = m.parallelism == "alltoall" and S % tp == 0 and S > 1
     shared_split = bool(m.num_shared_experts) and \
         m.d_ff_shared % tp == 0 and not use_a2a
-    groups = n_dp if split_batch else 1
-    b_loc = B // groups
     s_loc = S // tp if use_a2a else S
 
+    groups = TPRanks(tp, grid).groups(B)
     ys, auxes = [], []
-    for g in range(groups):
-        xb = x[g * b_loc:(g + 1) * b_loc]
-        ps = [_rank_params(p, cfg, r, tp, shared_split, grid[g, r])
-              for r in range(tp)]
+    for rows, devs in groups:
+        xb = x[rows]
+        ps = [_rank_params(p, cfg, r, tp, shared_split, dev)
+              for r, dev in enumerate(devs)]
         if use_a2a:
             parts, aux_g = _moe_device_a2a(
-                [xb[:, r * s_loc:(r + 1) * s_loc].to(grid[g, r])
-                 for r in range(tp)], ps, cfg)
+                [xb[:, r * s_loc:(r + 1) * s_loc].to(dev)
+                 for r, dev in enumerate(devs)], ps, cfg)
             ys.append(torch.cat([y.to(x.device) for y in parts], dim=1))
         else:
-            outs = [_moe_device(xb.to(grid[g, r]), ps[r], cfg,
-                                r * e_local, e_local) for r in range(tp)]
+            outs = [_moe_device(xb.to(dev), ps[r], cfg, r * e_local,
+                                e_local) for r, dev in enumerate(devs)]
             ys.append(spmd.psum([y for y, _ in outs])[0].to(x.device))
             aux_g = [a for _, a in outs]
         auxes += aux_g
     y = torch.cat(ys, dim=0)
     # a batch that does not split is replicated over dp: every dp rank
     # holds the values computed above
-    aux = spmd.pmean(auxes * (n_dp // groups))[0].to(x.device)
+    aux = spmd.pmean(auxes * (n_dp // len(groups)))[0].to(x.device)
     if not split_batch and dp_axes:
         y = spmd.pmean([y] * n_dp)[0]
     if n_other > 1:

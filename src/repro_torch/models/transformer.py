@@ -16,8 +16,10 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import spmd
 from repro_torch.models.common import (ParamSpec, current_ctx, dense_spec,
-                                       mesh_context, rms_norm, stack_specs)
+                                       mesh_context, rms_norm, stack_specs,
+                                       tp_ranks, tp_slice)
 from repro_torch.tree import tree_index, tree_leaves, tree_map
 
 
@@ -30,9 +32,31 @@ def mlp_defs(cfg):
     }
 
 
-def mlp_block(p, x):
+def _mlp(p, x):
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
+
+
+def mlp_block(p, x):
+    """SwiGLU MLP. Under a mesh context whose model axis divides d_ff,
+    each tp rank computes its slice of d_ff (columns of ``w_gate`` and
+    ``w_up``, rows of ``w_down``) on its device, batch groups over the
+    data ranks as `models.common.TPRanks.groups` gives them, and a psum
+    joins the ranks after ``w_down``; else the block computes whole."""
+    tpr = tp_ranks()
+    if tpr is None or p["w_gate"].shape[1] % tpr.size:
+        return _mlp(p, x)
+    ys = []
+    for rows, devs in tpr.groups(x.shape[0]):
+        parts = []
+        for r, dev in enumerate(devs):
+            pr = {"w_gate": tp_slice(p["w_gate"], (None, "tp"), r),
+                  "w_up": tp_slice(p["w_up"], (None, "tp"), r),
+                  "w_down": tp_slice(p["w_down"], ("tp", None), r)}
+            parts.append(_mlp({k: v.to(dev) for k, v in pr.items()},
+                              x[rows].to(dev)))
+        ys.append(spmd.psum(parts)[0].to(x.device))
+    return torch.cat(ys, dim=0)
 
 
 def layer_defs(cfg):

@@ -1,11 +1,12 @@
 """Minimal optimizer library: SGD(+momentum), the paper's algorithm, and
-Adam, over nested dicts of tensors, with a constant learning rate.
-``update`` is functional: it returns new parameter and state trees and
+Adam, over nested dicts of tensors, with a constant or cosine learning
+rate. ``update`` is functional: it returns new parameter and state trees and
 leaves its inputs untouched (the engine gates the new trees into the carry
 in place)."""
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Tuple
 
 import torch
@@ -98,3 +99,55 @@ def constant_lr(lr: float) -> Callable[[torch.Tensor], torch.Tensor]:
                           device=step.device)
     return f
 
+
+
+#: glibc's cosf (the ARM optimized routines' sincosf): the cosine and sine
+#: polynomials in float64, c0..c4 and s1..s3
+_COS_POLY = tuple(float.fromhex(c) for c in (
+    "0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+    "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16"))
+_SIN_POLY = tuple(float.fromhex(c) for c in (
+    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
+    "-0x1.994eb3774cf24p-13"))
+_HALF_PI = float.fromhex("0x1.921FB54442D18p0")
+_TWO_OVER_PI = float.fromhex("0x1.45F306DC9C883p-1")
+
+
+def _cosf(y: torch.Tensor) -> torch.Tensor:
+    """The float32 cosine of float32 ``y`` (|y| < 120) bit for bit as
+    XLA's CPU backend computes it, which calls glibc's ``cosf``: ``y``
+    widened to float64, reduced by the nearest multiple n of π/2, a float64
+    polynomial for ±cos or ±sin of the rest by n mod 4, rounded once to
+    float32. torch's own float32 cosine differs from it by an ulp at some
+    inputs."""
+    x = y.to(torch.float64)
+    n = torch.round(x * _TWO_OVER_PI)
+    r = x - n * _HALF_PI
+    r2 = r * r
+    r4 = r2 * r2
+    c0, c1, c2, c3, c4 = _COS_POLY
+    cos = (c0 + r2 * c1 + r4 * c2) + r4 * r2 * (c3 + r2 * c4)
+    s1, s2, s3 = _SIN_POLY
+    r3 = r * r2
+    sin = (r + r3 * s1) + r3 * r2 * (s2 + r2 * s3)
+    quad = torch.remainder(n, 4)
+    out = torch.where(quad == 0, cos, torch.where(
+        quad == 1, -sin, torch.where(quad == 2, -cos, sin)))
+    out = torch.where(x.abs() < 2.0 ** -12, torch.ones_like(x), out)
+    return out.to(torch.float32)
+
+
+def cosine_lr(lr: float, total_steps: int, warmup: int = 0,
+              floor: float = 0.0) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``step -> lr`` as float32: a linear warm-up over ``warmup`` steps,
+    then a cosine decay from ``lr`` to ``floor · lr`` at ``total_steps``,
+    held there after. The reference's arithmetic, in float32 throughout,
+    with its cosine (`_cosf`)."""
+    def f(step):
+        step = torch.as_tensor(step).to(torch.float32)
+        warm = torch.clamp_max(step / max(warmup, 1), 1.0)
+        prog = torch.clamp((step - warmup) / max(total_steps - warmup, 1),
+                           0.0, 1.0)
+        cos = floor + (1 - floor) * 0.5 * (1 + _cosf(math.pi * prog))
+        return lr * torch.where(step < warmup, warm, cos)
+    return f

@@ -16,7 +16,8 @@ serving shape, K2 non-causal at Whisper's encoder shape, the SSD's
 training route against the CPU, and remat's gradients bit for bit with
 the kernels on the path; and expert parallelism: the MoE block's psum and
 all-to-all routes with their ranks on one card against the same routes on
-the CPU, and their bits from run to run.
+the CPU, and their bits from run to run; and dense tensor parallelism: the
+ranks' slices on their devices and K2 launched once a rank.
 
 Every test here needs an NVIDIA GPU and skips itself elsewhere. The file
 imports neither ``jax`` nor the reference, so it runs on a machine that
@@ -1500,3 +1501,87 @@ def test_expert_parallel_routes_on_one_card_match_the_cpu(cuda_device, tp,
     torch.testing.assert_close(aux.cpu(), auxc, rtol=1e-5, atol=0)
     for name, a, b in [("y", y, yc)] + [(k, g[k], gc[k]) for k in g]:
         assert rel_err(a.cpu(), b) <= 1e-4, name
+
+
+def _tp_case(device):
+    """Reduced Qwen2-7B (4 query heads over 2 KV heads, d_ff 512) in
+    float32 through K2, its weights and a batch on ``device``."""
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import init_params
+
+    cfg = ARCHS["qwen2-7b"].reduced().with_(use_flash_attention=True)
+    params = init_params(model_zoo.param_defs(cfg), 3, torch.float32,
+                         device=device)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 65), generator=g)
+    batch = {"tokens": tokens[:, :-1].to(device),
+             "labels": tokens[:, 1:].to(device)}
+    job = JobConfig(model=cfg, shape=InputShape("tp", 64, 4, "train"),
+                    n_workers=4)
+    return cfg, job, params, batch
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tensor_parallel_launches_k2_per_rank_on_rank_devices(cuda_device,
+                                                              tp):
+    """A (1, tp) mesh over the visible cards (cuda:0 repeated where there
+    are fewer): every rank multiplies by its slice of wq and w_gate on its
+    own device, K2 runs once per rank where the unmeshed step runs it once
+    (each of its kernels tp times as often), and the loss, its gradients
+    and the logits agree with the unmeshed step on the card to 1e-4 of each
+    tensor's largest entry."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import mesh_context
+    from repro_torch.train.train_step import make_loss_grad
+
+    class Products(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.mm.default:
+                self.seen.append((tuple(args[1].shape), args[1].device))
+            return func(*args, **(kwargs or {}))
+
+    n = torch.cuda.device_count()
+    devs = [torch.device("cuda", r % n) for r in range(tp)]
+    mesh = Mesh([devs], ("data", "model"))
+    cfg, job, params, batch = _tp_case(cuda_device)
+    step = make_loss_grad(cfg, job, "none")
+    mask = torch.ones(4, device=cuda_device)
+    runs, counts = {}, {}
+    for name, on in (("none", None), ("mesh", mesh)):
+        ops.reset_launch_counts()
+        with mesh_context(on):
+            runs[name] = step(params, batch, mask)
+        torch.cuda.synchronize()
+        counts[name] = ops.launch_counts()
+    flash = {k for k, v in counts["none"].items() if v}
+    assert flash and all(k.startswith("flash_attention") for k in flash)
+    assert {k: counts["mesh"][k] for k in counts["mesh"]} == \
+        {k: tp * v for k, v in counts["none"].items()}
+    rec = Products()
+    with mesh_context(mesh), torch.no_grad(), rec:
+        y, _ = model_zoo.forward(params, cfg, {"tokens": batch["tokens"]},
+                                 remat="none")
+    y0, _ = model_zoo.forward(params, cfg, {"tokens": batch["tokens"]},
+                              remat="none")
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    for shape in ((d, cfg.num_heads // tp * dh), (d, cfg.d_ff // tp)):
+        on = [dev for s, dev in rec.seen if s == shape]
+        assert len(on) >= tp * cfg.num_layers, shape
+        assert set(on) == set(devs), (shape, set(on))
+    assert y.device.type == "cuda"
+    assert rel_err(y, y0) <= 1e-4
+    (g1, l1, _), (g0, l0, _) = runs["mesh"], runs["none"]
+    torch.testing.assert_close(l1, l0, rtol=1e-5, atol=0)
+    for k in ("wq", "wk", "wo", "bq"):
+        assert rel_err(g1["layers"]["attn"][k], g0["layers"]["attn"][k]) \
+            <= 1e-4, k
+    for k in ("w_gate", "w_down"):
+        assert rel_err(g1["layers"]["mlp"][k], g0["layers"]["mlp"][k]) \
+            <= 1e-4, k

@@ -126,3 +126,70 @@ def test_lm_batch_matches_reference():
             jax_lm_batch(JAX_ARCHS["qwen2-7b"].reduced(), 8, 16, j, seed=3)
         for k in ref:
             np.testing.assert_array_equal(ours[k], ref[k])
+
+
+def test_active_fraction_matches_reference():
+    mask = np.array([1, 0, 1, 1, 0, 0, 1, 1], np.float32)
+    got = elastic.active_fraction(torch.from_numpy(mask))
+    assert isinstance(got, torch.Tensor)
+    assert float(got) == float(jax_elastic.active_fraction(jnp.asarray(mask)))
+
+
+@pytest.mark.parametrize("batch,n_workers", [(8, 4), (12, 3), (16, 16),
+                                             (10, 4)])
+def test_worker_of_example_matches_reference(batch, n_workers):
+    got = elastic.worker_of_example(batch, n_workers)
+    want = jax_elastic.worker_of_example(batch, n_workers)
+    assert isinstance(got, np.ndarray) and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n_workers,y", [(4, 0), (4, 3), (8, 8), (5, 7)])
+def test_mask_from_active_count_matches_reference(n_workers, y):
+    got = elastic.mask_from_active_count(n_workers, y)
+    want = jax_elastic.mask_from_active_count(n_workers, y)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("price", [0.0, 0.3, 0.5, 0.9, 1.5])
+def test_mask_from_bids_matches_reference(price):
+    bids = np.random.default_rng(3).uniform(0.2, 1.0, 12)
+    bids[4] = 0.5
+    for b in (bids, list(bids)):
+        got = elastic.mask_from_bids(b, price)
+        want = jax_elastic.mask_from_bids(b, price)
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("warmup,floor", [(0, 0.0), (0, 0.1), (5, 0.0),
+                                          (5, 0.25), (40, 0.0)])
+def test_cosine_lr_matches_reference_in_float32(warmup, floor):
+    from repro.optim import sgd as jax_sgd
+    from repro_torch.optim import sgd
+
+    total = 40
+    ours = sgd.cosine_lr(0.3, total, warmup=warmup, floor=floor)
+    theirs = jax_sgd.cosine_lr(0.3, total, warmup=warmup, floor=floor)
+    steps = np.arange(total + 3)
+    got = np.array([ours(int(s)).numpy() for s in steps])
+    assert got.dtype == np.float32
+    want = np.array([np.asarray(theirs(int(s))) for s in steps])
+    np.testing.assert_array_equal(got, want)
+    # a tensor of steps at once, as the engine's tick counter gives them
+    np.testing.assert_array_equal(
+        ours(torch.from_numpy(steps.astype(np.int32))).numpy(), want)
+
+
+def test_cosine_is_the_references_float32_cosine():
+    """`sgd._cosf` against ``jnp.cos`` on the CPU, bit for bit, over the
+    schedule's angles [0, π] and a wider range both signs."""
+    from repro_torch.optim import sgd
+
+    xs = np.concatenate([np.linspace(0.0, np.pi, 100001),
+                         np.linspace(-100.0, 100.0, 100001),
+                         [0.0, 2.0 ** -13, 2.0 ** -12, np.pi / 4]]
+                        ).astype(np.float32)
+    np.testing.assert_array_equal(sgd._cosf(torch.from_numpy(xs)).numpy(),
+                                  np.asarray(jnp.cos(jnp.asarray(xs))))
