@@ -104,8 +104,8 @@ Phases, each printing one JSON line and raising on failure:
    bf16 (parameters, activations and caches; no kernel of the repo lies
    on it, and each run's launch counts must stay 0): Qwen2-7B as
    published (``serve_dense``) and DeepSeek-V2-Lite as the repo's config
-   gives it (MLA's latent cache, 64 routed experts top-6 plus 2 shared;
-   ``serve_moe_mla``), each through ``prefill_prompt`` (batch 8, a
+   gives it, its depth cut 27 -> 14 since slice 15 (MLA's latent cache, 64
+   routed experts top-6 plus 2 shared; ``serve_moe_mla``), each through ``prefill_prompt`` (batch 8, a
    2048-token prompt) and ``greedy_decode`` (32 generated tokens), twice.
    Checks the tokens' range and their bit-equality across the two runs,
    finite caches whose positions hold 0..2078, finite prefill logits
@@ -162,8 +162,9 @@ Phases, each printing one JSON line and raising on failure:
 13. slice 13's model parallelism (``phase_model_parallel``, 90 s budget,
    its seconds printed): Qwen2-MoE-A2.7B at full width, depth cut to 4,
    float32, batch 2 × 2048, through ``model_zoo.forward`` with no mesh
-   and under a (data 1, model 4) mesh listing cuda:0 four times by the
-   psum and the all-to-all route (no kernel lies on this path; the counts
+   and under a (data 1, model 4) mesh listing cuda:0 four times (its
+   attention split over the query sequence since slice 15) by the psum
+   and the all-to-all route (no kernel lies on this path; the counts
    must stay 0): the psum route routes and drops as no mesh does and its
    logits lie within 1e-4 of the largest, its aux within 1e-5; at capacity
    factor 16 (no drops) the all-to-all route within 1e-4 of the psum
@@ -194,7 +195,27 @@ Phases, each printing one JSON line and raising on failure:
    the largest; then the six ``examples/*_torch.py`` at their defaults
    (spot_bidding at one repetition, train_grid at 20 steps) in child
    processes on the card, at once, each required to exit 0, their
-   seconds and kernel launches printed.
+   seconds and kernel launches printed;
+15. slice 15's SSM heads, vocab and query sequence over the model axis
+   (``phase_slice_15``, its seconds printed), each on the (data 1, model
+   4) mesh listing cuda:0 four times against no mesh: full-width
+   Mamba2-1.3B (48 layers, float32 parameters, bf16 activations, batch
+   8, a 2048-token prompt, 16 greedy tokens) through ``model_zoo.prefill``
+   and ``launch.serve.greedy_decode``, 16 SSD heads and 12570 vocab
+   columns a rank: K3 once a rank and layer in the prefill (192) and
+   never in decode, the logits within 1e-4 of the largest, the argmax
+   and greedy tokens' agreement, ms and peak memory; K3 at a rank's shape
+   (8, 2048, 16, 64, 1, 128, 256) against its plain version, timed beside
+   its bound, and each rank's launch bit for bit the whole launch's
+   heads; Zamba2-7B at full width, depth cut to 6, bf16, K2, batch 4 ×
+   1024, one ``make_loss_grad`` step under remat "full" (the SSD's
+   training route once a rank and layer, K2 once a rank, the loss
+   vocab-parallel): counts held, the loss to the all-bf16 rule,
+   gradients' distance and peak memory; slice 14's Qwen2-7B step with
+   ``attn_seq_shard``: K2 once a rank at q_offset 0, 256, 512 and 768
+   (recorded), the loss held, then K2 at the first and the last rank's
+   shapes against its plain versions and SDPA (rows added to the kernel
+   line).
 
 Then the ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout,
@@ -1184,10 +1205,20 @@ def phase_k2_at_path_shape(torch, smi, launches, step_ms, n_layers,
     # the library call: SDPA's forward, and its one backward, which forms
     # dq, dk and dv together, against the sum of K2's D_i, dK/dV and dQ
     # kernels. No one PyTorch call computes dK/dV, dQ or D_i alone, so
-    # those rows carry none.
+    # those rows carry none. SDPA's causal mask is aligned to the top left
+    # (K2's q_offset 0); a query block at the end of the keys (q_offset
+    # T - S) takes its bottom-right-aligned causal bias.
+    if causal and q_offset not in (0, t - s) or window is not None:
+        raise ValueError(f"no SDPA call computes K2 at {shape}")
+    if causal and q_offset:
+        from torch.nn.attention.bias import causal_lower_right
+        lib_mask = {"attn_mask": causal_lower_right(s, t)}
+    else:
+        lib_mask = {"is_causal": causal}
+
     def sdpa(a, b_, c):
-        return F.scaled_dot_product_attention(a, b_, c, is_causal=causal,
-                                              enable_gqa=True)
+        return F.scaled_dot_product_attention(a, b_, c, enable_gqa=True,
+                                              **lib_mask)
 
     with torch.no_grad():
         lib_fwd_ms = timed(lambda: sdpa(qt, kt, vt), n, torch)
@@ -2562,9 +2593,13 @@ def phase_durable(torch, smi):
 #: (configs/deepseek_v2_lite_16b.py, arXiv:2405.04434; 27 layers, d_model
 #: 2048, 16 heads, MLA with kv_lora_rank 512 and rope 64, 64 routed experts
 #: top-6 plus 2 shared), batch 8, a 2048-token prompt, 32 generated
-#: tokens, weights and prompt drawn from the seed
+#: tokens, weights and prompt drawn from the seed. DeepSeek-V2-Lite's depth
+#: is cut 27 -> 14 to keep the script inside its time limit (its phase took
+#: 92 s of a 996-s run, the most of any model path; runs of the whole
+#: script ranged 853-1101 s on the same card)
 SERVE_TF = {"archs": ("qwen2-7b", "deepseek-v2-lite-16b"), "batch": 8,
-            "prompt": 2048, "gen": 32, "seed": 0}
+            "prompt": 2048, "gen": 32, "seed": 0,
+            "layers": {"deepseek-v2-lite-16b": 14}}
 #: prefill-then-decode against one longer prefill (2048 + 32 against 2080
 #: positions): max |logit difference| over the largest |logit|. In bf16 at
 #: full depth the two run the same function through GEMMs of other shapes
@@ -2583,14 +2618,17 @@ TF_F32_DEPTH = 2
 
 
 def tf_serve_model(torch, arch):
-    """A served transformer: its full-width config, bf16 parameters on the
-    card (the router float32, as its spec says) and the prompt, both from
+    """A served transformer: its full-width config (at the depth
+    ``SERVE_TF["layers"]`` cuts it to), bf16 parameters on the card (the
+    router float32, as its spec says) and the prompt, both from
     ``SERVE_TF["seed"]``."""
     from repro_torch.configs import get_config
     from repro_torch.models import model_zoo
     from repro_torch.models.common import init_params
 
     cfg = get_config(arch)
+    if arch in SERVE_TF["layers"]:
+        cfg = cfg.with_(num_layers=SERVE_TF["layers"][arch])
     params = init_params(model_zoo.param_defs(cfg), SERVE_TF["seed"],
                          torch.bfloat16, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SERVE_TF["seed"])
@@ -2844,7 +2882,7 @@ def phase_serve_transformer(torch, arch, smi):
     del caches
     free(torch)
 
-    # prefill then decode against one longer prefill: bf16 at full depth,
+    # prefill then decode against one longer prefill: bf16 at its depth,
     # then float32 at full width and depth TF_F32_DEPTH
     bf16 = tf_decode_vs_longer_prefill(torch, cfg, params, prompt, tokens)
     del params
@@ -3816,8 +3854,9 @@ def phase_mesh(torch, smi, main, resumed):
 #: experts padded to 64, top-4, expert d_ff 1408, one shared expert of
 #: d_ff 5632), depth cut 24 -> 4, float32, batch 2 × 2048 tokens, its
 #: ranks on a (data 1, model 4) mesh that lists cuda:0 four times, its
-#: attention whole (with the attention split, its rounding reaches the
-#: router, and a near-tie among the experts can route otherwise)
+#: attention split over the query sequence (``attn_seq_shard``; split
+#: over the heads, its rounding reaches the router, and a near-tie among
+#: the experts can route otherwise)
 EP = {"arch": "qwen2-moe-a2.7b", "layers": 4, "batch": 2, "seq": 2048,
       "tp": 4, "seed": 0, "timed": 3, "no_drop_capacity_factor": 16.0}
 #: the psum route against no mesh at the config's capacity factor (data
@@ -3874,10 +3913,11 @@ def phase_expert_parallel(torch, smi):
     from repro_torch.models.common import init_params, mesh_context
     from repro_torch.tree import tree_leaves
 
-    # attention computed whole under the mesh (``attn_seq_shard``: the
-    # port splits no query sequence), so that each MoE block receives no
-    # mesh's input bit for bit and its routing holds exactly; the dense
-    # split has phases of its own (slice 14)
+    # attention split over the query sequence under the mesh
+    # (``attn_seq_shard``): each rank's rows of q, k and v are the whole
+    # run's, so each MoE block should receive no mesh's input bit for bit
+    # and its routing hold exactly; the head split has phases of its own
+    # (slice 14)
     base = ARCHS[EP["arch"]].with_(num_layers=EP["layers"], dtype="float32",
                                    param_dtype="float32",
                                    attn_seq_shard=True)
@@ -4492,6 +4532,394 @@ def phase_slice_14(torch, smi):
     return rows
 
 
+# ------------------------------------------------------------------ slice 15
+
+#: slice 15's SSM heads and vocab over the model axis: Mamba2-1.3B at full
+#: width and depth (64 SSD heads of one group, vocab 50280), float32
+#: parameters, bf16 activations, served as slice 3 serves it (batch 8, a
+#: 2048-token prompt, greedy decode) on a (data 1, model 4) mesh that
+#: lists cuda:0 four times against no mesh: 16 heads a rank, K3 once a
+#: rank and layer in the prefill, the LM head 12570 columns a rank
+SSM_TP = {"arch": "mamba2-1.3b", "gen": 16, "tp": 4}
+#: the shape a rank gives K3 on that path, and the whole launch's
+K3_RANK_SHAPE = (8, 2048, 16, 64, 1, 128, 256)
+#: the mesh against no mesh in float32 (the ranks' norm sums and outputs
+#: after ``wo`` add in rank order, the whole block reduces d_inner in one):
+#: the prefill's logits within 1e-4 of the largest
+SSM_TP_TOL = {"logits_rel_to_largest": 1e-4}
+#: slice 15's SSM training route per rank: Zamba2-7B at full width (112
+#: SSD heads, 28 a rank; the shared attention's 32 heads, 8 a rank; vocab
+#: 32000), depth cut 81 -> 6 (one super-group of six Mamba2 layers and the
+#: shared block), bf16 weights cast from float32 masters drawn from the
+#: seed, K2, batch 4 x 1024, remat "full": one loss-and-gradient step
+#: with no mesh and on the (1, 4) mesh
+HYBRID_TP = {"arch": "zamba2-7b", "layers": 6, "batch": 4, "seq": 1024,
+             "tp": 4, "seed": 0}
+#: slice 14's step of Qwen2-7B (`TP`) with the query sequence split over
+#: the ranks (``attn_seq_shard``): K2 once a rank at q_offset r * 256, its
+#: 28 query heads over 4 KV heads whole; the shapes of the first rank and
+#: the last
+K2_SEQ_SHAPES = ((4, 256, 1024, 28, 4, 128, True, None, 0),
+                 (4, 256, 1024, 28, 4, 128, True, None, 768))
+
+
+def k3_rank_bits(torch, tp):
+    """K3 once on the whole serving shape (64 heads) and once a rank on
+    each rank's 16 heads (the inputs made contiguous, as the model's rank
+    forms them; one group, so B and C whole): each rank's outputs against
+    the whole launch's heads, bit for bit, and the asynchronous copies'
+    verdict on a rank's inputs and on a strided narrow of the whole
+    ones."""
+    from repro_torch.kernels import ssd_scan
+
+    b, s, h, p, g, n, q = K3_RANK_SHAPE
+    whole_shape = (b, s, h * tp, p, g, n, q)
+    xh, dt, a_h, bm, cm = k3_inputs(torch, whole_shape, torch.float32,
+                                    seed=7)
+    whole = ssd_scan.ssd_chunk(xh, dt, a_h, bm, cm, chunk=q)
+    same, routes = [], {}
+    for r in range(tp):
+        heads = slice(r * h, (r + 1) * h)
+        narrow = xh[:, :, heads]
+        args = (narrow.contiguous(), dt[:, :, heads].contiguous(),
+                a_h[heads].contiguous(), bm, cm)
+        got = ssd_scan.ssd_chunk(*args, chunk=q)
+        same.append([torch.equal(a, w[:, :, heads])
+                     for a, w in zip(got, whole)])
+        routes[r] = {
+            "contiguous": ssd_scan.async_refusal(
+                tuple(args[0].shape), args[0].stride(), args[0].data_ptr(),
+                4) or "async",
+            "strided_narrow": ssd_scan.async_refusal(
+                tuple(narrow.shape), narrow.stride(), narrow.data_ptr(),
+                4) or "async"}
+    torch.cuda.synchronize()
+    return {"whole_shape": whole_shape, "bits_equal_per_rank": same,
+            "outputs": list(K3_OUTS), "routes": routes}
+
+
+def phase_ssm_mesh(torch, smi):
+    """Full-width Mamba2-1.3B through ``model_zoo.prefill`` (what
+    ``launch.serve.prefill_prompt`` calls; its logits kept) and
+    ``launch.serve.greedy_decode`` with no mesh and on the (1, 4) mesh:
+    K3 once a rank and layer in the prefill and never in decode, the
+    logits within `SSM_TP_TOL`, the argmax and greedy tokens' agreement,
+    ms and peak memory; then K3 at a rank's shape (time, bound, plain
+    version) and each rank's bits against the whole launch."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import mesh_context
+
+    cfg, params, prompt = serve_model(torch)
+    tp, gen_n = SSM_TP["tp"], SSM_TP["gen"]
+    bsz, plen = SERVE["batch"], SERVE["prompt"]
+    mesh = Mesh([[torch.device("cuda", 0)] * tp], ("data", "model"))
+    runs, outs = {}, {}
+    for name, on in (("none", None), ("mesh", mesh)):
+        free(torch)
+        caches = fresh_caches(torch, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with torch.no_grad(), mesh_context(on):
+            t0 = time.perf_counter()
+            logits, caches = model_zoo.prefill(params, cfg,
+                                               {"tokens": prompt}, caches)
+            nxt = torch.argmax(logits[:, -1:], dim=-1)
+            torch.cuda.synchronize()
+            prefill_ms = 1e3 * (time.perf_counter() - t0)
+            pre = read_counts()
+            reset_counts()
+            t0 = time.perf_counter()
+            tokens, caches = serve.greedy_decode(cfg, params, caches, nxt,
+                                                 plen, gen_n - 1)
+            torch.cuda.synchronize()
+            decode_ms = 1e3 * (time.perf_counter() - t0) / (gen_n - 1)
+        runs[name] = {"prefill_ms": prefill_ms, "decode_ms_per_step":
+                      decode_ms, "peak_mem_bytes":
+                      torch.cuda.max_memory_allocated(),
+                      "launches_prefill": pre, "launches_decode":
+                      read_counts()}
+        outs[name] = (logits, tokens)
+        del caches
+    (ml, mt), (nl, nt) = outs["mesh"], outs["none"]
+    logit_rel = rel_to_largest(ml, nl)
+    argmax_agree = float((ml.argmax(-1) == nl.argmax(-1)).float().mean())
+    same_prefix = int((mt == nt).all(dim=0).int().cumprod(0).sum())
+    token_agree = float((mt == nt).float().mean())
+    finite = bool(torch.isfinite(ml).all())
+    del outs, ml, nl, params
+    free(torch)
+    want = {"none": designed(ssd_chunk=cfg.num_layers),
+            "mesh": designed(ssd_chunk=tp * cfg.num_layers)}
+    bits = k3_rank_bits(torch, tp)
+    free(torch)
+    emit({"phase": "ssm_mesh", "entry": "model_zoo.prefill and "
+          "launch.serve.greedy_decode under mesh_context(Mesh((1, 4)))",
+          "config": dict(SERVE, **SSM_TP), "runs": runs,
+          "designed_prefill": want,
+          "mesh_vs_none": {"logits_rel_to_largest": logit_rel,
+                           "prefill_argmax_agreement": argmax_agree,
+                           "greedy_token_agreement": token_agree,
+                           "greedy_steps_identical": same_prefix,
+                           "logits_finite": finite},
+          "prefill_ms_mesh_over_none": runs["mesh"]["prefill_ms"]
+          / runs["none"]["prefill_ms"],
+          "decode_ms_mesh_over_none": runs["mesh"]["decode_ms_per_step"]
+          / runs["none"]["decode_ms_per_step"],
+          "k3_rank_vs_whole": bits, "tolerance": SSM_TP_TOL, "card": smi})
+    bad = []
+    for name, r in runs.items():
+        if r["launches_prefill"] != want[name]:
+            bad.append(f"{name}: prefill launches {r['launches_prefill']},"
+                       f" designed {want[name]}")
+        if set(r["launches_decode"].values()) - {0}:
+            bad.append(f"{name}: decode launched {r['launches_decode']}")
+    if not (finite and logit_rel <= SSM_TP_TOL["logits_rel_to_largest"]):
+        bad.append(f"logits: mesh vs none {logit_rel}, finite {finite}")
+    if not all(all(r) for r in bits["bits_equal_per_rank"]):
+        bad.append(f"K3 per rank vs the whole launch: {bits}")
+    if bad:
+        raise AssertionError("ssm_mesh: " + "; ".join(bad))
+    return phase_k3_at_path_shape(
+        torch, smi, runs["mesh"]["launches_prefill"],
+        runs["mesh"]["prefill_ms"], shape=K3_RANK_SHAPE,
+        phase="k3_at_ssm_rank_shape", cuda_core=False)
+
+
+def loss_grad_runs(torch, cfg, params, batch, meshes, grads_of):
+    """One ``make_loss_grad`` step (remat "full") per named mesh, after
+    one that pays every first use, with the counts set to 0 just before
+    it: loss, ms, peak memory, counts and ``grads_of(grads)``."""
+    from repro_torch.configs.base import InputShape, JobConfig
+    from repro_torch.models.common import mesh_context
+    from repro_torch.train.train_step import make_loss_grad
+
+    b, s = batch["tokens"].shape
+    job = JobConfig(model=cfg, shape=InputShape("tp", s, b, "train"),
+                    n_workers=4)
+    step = make_loss_grad(cfg, job, remat="full")
+    mask = torch.ones(4, device="cuda")
+    runs, grads = {}, {}
+    for name, on in meshes.items():
+        with mesh_context(on):
+            step(params, batch, mask)          # first use
+        free(torch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with mesh_context(on):
+            g, loss, _ = step(params, batch, mask)
+        torch.cuda.synchronize()
+        runs[name] = {"loss": float(loss),
+                      "step_ms": 1e3 * (time.perf_counter() - t0),
+                      "step_peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                      "counts": read_counts()}
+        grads[name] = grads_of(g)
+        del g
+        free(torch)
+    return runs, grads
+
+
+def bf16_model(torch, cfg, seed, b, s):
+    """bf16 weights cast from float32 masters drawn from ``seed``, and a
+    batch of ``b`` x ``s`` tokens with its next-token labels."""
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import init_params
+    from repro_torch.tree import tree_map
+
+    masters = init_params(model_zoo.param_defs(cfg), seed, torch.float32,
+                          device="cuda")
+    params = tree_map(lambda m: m.to(torch.bfloat16), masters)
+    del masters
+    free(torch)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s + 1), device="cuda",
+                           generator=gen)
+    return params, {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+
+def phase_hybrid_mesh(torch, smi):
+    """Cut Zamba2-7B at full width: one ``make_loss_grad`` step (remat
+    "full", K2) with no mesh and on the (1, 4) mesh, whose SSM layers take
+    the SSD's training route once a rank, whose shared attention runs K2
+    once a rank, and whose loss is vocab-parallel: counts held to the
+    design, the loss to the all-bf16 rule, gradients' distance and peak
+    memory reported."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import Mesh
+
+    hc = HYBRID_TP
+    cfg = ARCHS[hc["arch"]].with_(num_layers=hc["layers"], dtype="bfloat16",
+                                  param_dtype="bfloat16",
+                                  use_flash_attention=True)
+    tp = hc["tp"]
+    mesh = Mesh([[torch.device("cuda", 0)] * tp], ("data", "model"))
+    params, batch = bf16_model(torch, cfg, hc["seed"], hc["batch"],
+                               hc["seq"])
+
+    def grads_of(g):
+        layer = {k: g["groups"]["ssm"][k][0, 0]
+                 for k in ("wx", "wdt", "A_log", "norm_w", "wo")}
+        return {**{f"ssm.{k}": v for k, v in layer.items()},
+                "shared.attn.wq": g["shared"]["attn"]["wq"],
+                "lm_head": g["lm_head"]}
+
+    runs, grads = loss_grad_runs(torch, cfg, params, batch,
+                                 {"none": None, "mesh": mesh}, grads_of)
+    n_ssm = cfg.num_layers
+    want = {"none": designed(**k2_sites(2, 1), ssd_training_route=2 * n_ssm),
+            "mesh": designed(**k2_sites(2 * tp, tp),
+                             ssd_training_route=2 * tp * n_ssm)}
+    grad_rel = {k: rel_to_largest(grads["mesh"][k], grads["none"][k])
+                for k in grads["none"]}
+    loss_rel = abs(runs["mesh"]["loss"] - runs["none"]["loss"]) \
+        / abs(runs["none"]["loss"])
+    emit({"phase": "hybrid_mesh", "entry": "train_step.make_loss_grad "
+          "under mesh_context(Mesh((1, 4)))", "config": hc,
+          "runs": runs, "designed": want,
+          "mesh_vs_none": {"loss_rel": loss_rel,
+                           "grad_rel_to_largest": grad_rel},
+          "step_ms_mesh_over_none": runs["mesh"]["step_ms"]
+          / runs["none"]["step_ms"], "tolerance": TP_TOL,
+          "ln_V": math.log(cfg.vocab_size), "card": smi})
+    del params, grads
+    free(torch)
+    bad = [f"{n}: counts {r['counts']}, designed {want[n]}"
+           for n, r in runs.items() if r["counts"] != want[n]]
+    bad += [f"{n}: loss {r['loss']}" for n, r in runs.items()
+            if not abs(r["loss"] - math.log(cfg.vocab_size)) < 3.0]
+    if not loss_rel <= TP_TOL["loss_rel"]:
+        bad.append(f"loss: mesh vs none {loss_rel}")
+    if bad:
+        raise AssertionError("hybrid_mesh: " + "; ".join(bad))
+
+
+@contextlib.contextmanager
+def recorded_offsets(record: list):
+    """Within the block, every `kernels.ops.flash_mha` call appends its
+    (q_offset, query rows)."""
+    from repro_torch.kernels import ops
+
+    flash_mha = ops.flash_mha
+
+    def recording(q, k, v, **kw):
+        record.append((kw.get("q_offset", 0), q.shape[1]))
+        return flash_mha(q, k, v, **kw)
+
+    ops.flash_mha = recording
+    try:
+        yield
+    finally:
+        ops.flash_mha = flash_mha
+
+
+def k2_rank_bits(torch, tp):
+    """K2's forward on the whole sequence of the seq-split step's shape
+    (B 4, S = T = 1024, H 28 over Hkv 4, D 128, bf16, causal), and on each
+    rank's 256 query rows at q_offset r * 256 against all the
+    keys: each rank's rows bit for bit the whole forward's (256 is a
+    multiple of the 64-row tile, so a row meets the same key tiles in the
+    same order)."""
+    from repro_torch.kernels import ops
+
+    b, s, t, h, hkv, d = K2_SEQ_SHAPES[0][:6]
+    q, k, v, _ = k2_inputs(torch, (b, t, t, h, hkv, d), torch.bfloat16,
+                           seed=3)
+    with torch.no_grad():
+        whole = ops.flash_mha(q, k, v, causal=True)
+        return [torch.equal(ops.flash_mha(q[:, r * s:(r + 1) * s], k, v,
+                                          causal=True, q_offset=r * s),
+                            whole[:, r * s:(r + 1) * s])
+                for r in range(tp)]
+
+
+def phase_seq_mesh(torch, smi):
+    """Slice 14's Qwen2-7B step with ``attn_seq_shard``: one
+    ``make_loss_grad`` step with no mesh and on the (1, 4) mesh, whose
+    ranks attend their 256 query rows each through K2 at q_offset 0, 256,
+    512 and 768 (recorded): counts held, the loss to the all-bf16 rule,
+    each rank's forward rows bit for bit the whole forward's; then K2 at
+    the first rank's and the last rank's shapes."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import Mesh
+
+    cfg = ARCHS[TP["arch"]].with_(num_layers=TP["layers"], dtype="bfloat16",
+                                  param_dtype="bfloat16",
+                                  use_flash_attention=True,
+                                  attn_seq_shard=True)
+    tp, n_layers = TP["tp"], TP["layers"]
+    mesh = Mesh([[torch.device("cuda", 0)] * tp], ("data", "model"))
+    params, batch = bf16_model(torch, cfg, TP["seed"], TP["batch"],
+                               TP["seq"])
+    offsets = []
+    with recorded_offsets(offsets):
+        runs, _ = loss_grad_runs(torch, cfg, params, batch,
+                                 {"none": None, "mesh": mesh},
+                                 lambda g: None)
+    part = TP["seq"] // tp
+    # per step: (remat's recompute) x layers x ranks; first use, then the
+    # counted step, for no mesh and then the mesh
+    one = [(0, TP["seq"])] * 2 * n_layers
+    split = [(r * part, part) for r in range(tp)] * 2 * n_layers
+    want_offsets = one * 2 + split * 2
+    want = {"none": designed(**k2_sites(2 * n_layers, n_layers)),
+            "mesh": designed(**k2_sites(2 * tp * n_layers, tp * n_layers))}
+    loss_rel = abs(runs["mesh"]["loss"] - runs["none"]["loss"]) \
+        / abs(runs["none"]["loss"])
+    emit({"phase": "seq_mesh", "entry": "train_step.make_loss_grad under "
+          "mesh_context(Mesh((1, 4))), attn_seq_shard",
+          "config": dict(TP, attn_seq_shard=True), "runs": runs,
+          "designed": want, "mesh_q_offsets": sorted({o for o, n in
+                                                     offsets[-len(split):]}),
+          "mesh_vs_none": {"loss_rel": loss_rel},
+          "step_ms_mesh_over_none": runs["mesh"]["step_ms"]
+          / runs["none"]["step_ms"], "tolerance": TP_TOL, "card": smi})
+    del params
+    free(torch)
+    rank_bits = k2_rank_bits(torch, tp)
+    emit({"phase": "k2_seq_rank_vs_whole", "bits_equal_per_rank": rank_bits,
+          "card": smi})
+    bad = [f"{n}: counts {r['counts']}, designed {want[n]}"
+           for n, r in runs.items() if r["counts"] != want[n]]
+    if not all(rank_bits):
+        bad.append(f"K2 per rank vs the whole forward: {rank_bits}")
+    if offsets != want_offsets:
+        bad.append(f"K2's query offsets {offsets}")
+    if not loss_rel <= TP_TOL["loss_rel"]:
+        bad.append(f"loss: mesh vs none {loss_rel}")
+    if bad:
+        raise AssertionError("seq_mesh: " + "; ".join(bad))
+    rows = []
+    for shape, tag in zip(K2_SEQ_SHAPES, ("first", "last")):
+        rows += phase_k2_at_path_shape(
+            torch, smi, runs["mesh"]["counts"], runs["mesh"]["step_ms"],
+            n_layers, shape=shape, phase=f"k2_at_seq_{tag}_rank_shape",
+            cuda_core=False)
+        free(torch)
+    return rows
+
+
+def phase_slice_15(torch, smi):
+    """Slice 15's paths: the SSM's heads, the vocab and the query sequence
+    over the model axis; returns the K3 row at a rank's shape and K2's at
+    the seq-split ranks' shapes."""
+    t0 = time.perf_counter()
+    rows = phase_ssm_mesh(torch, smi)
+    free(torch)
+    t_ssm = time.perf_counter() - t0
+    phase_hybrid_mesh(torch, smi)
+    t_hy = time.perf_counter() - t0 - t_ssm
+    rows += phase_seq_mesh(torch, smi)
+    free(torch)
+    emit({"phase": "slice_15", "phase_s": time.perf_counter() - t0,
+          "ssm_mesh_s": t_ssm, "hybrid_mesh_s": t_hy,
+          "seq_mesh_s": time.perf_counter() - t0 - t_ssm - t_hy})
+    return rows
+
+
 def free(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -4564,12 +4992,15 @@ def main() -> int:
     free(torch)
     t14 = time.perf_counter()
     k2_tp = phase_slice_14(torch, smi)
+    free(torch)
+    t15 = time.perf_counter()
+    rows_15 = phase_slice_15(torch, smi)
     emit({"phase": "total", "seconds": time.perf_counter() - t_main,
           "slice_11_seconds": t12 - t11, "slice_12_seconds": t13 - t12,
-          "slice_13_seconds": t14 - t13,
-          "slice_14_seconds": time.perf_counter() - t14})
+          "slice_13_seconds": t14 - t13, "slice_14_seconds": t15 - t14,
+          "slice_15_seconds": time.perf_counter() - t15})
     emit({"kernels": [k1] + k2 + k3 + k3_hybrid + k2_hybrid + k2_whisper
-          + k2_padded + k2_tp})
+          + k2_padded + k2_tp + rows_15})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,8 @@ Causal and sliding-window masks; with ``cfg.use_flash_attention`` the
 cache-free self-attention core is `kernels.ops.flash_mha` (K2 on the
 card), else, and always against a cache or across, the plain core
 `_attend`, as in the reference. Under a mesh context the query heads
-split over the model axis (`_attention_split`)."""
+split over the model axis (`_attention_split`), or with
+``cfg.attn_seq_shard`` the query sequence (`_attention_seq_split`)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -15,8 +16,9 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import spmd
-from repro_torch.models.common import (ParamSpec, dense_spec, padded_heads,
-                                       rope, tp_ranks, tp_slice)
+from repro_torch.models.common import (ParamSpec, dense_spec, join_runs,
+                                       padded_heads, rope, tp_ranks,
+                                       tp_slice)
 
 NEG_INF = -1e30
 
@@ -126,25 +128,33 @@ def attention_block(p, cfg, x, qpos, *, kv_src=None, kv_pos=None, cache=None,
 
     Under a mesh context whose model axis divides the query heads (and
     without ``cfg.attn_seq_shard``) the heads split over the tp ranks
-    (`_attention_split`); else the block computes whole."""
+    (`_attention_split`). With ``cfg.attn_seq_shard`` the query sequence
+    splits instead, where the model axis divides it and there is no cache
+    (`_attention_seq_split`). Else the block computes whole."""
     dh = cfg.resolved_head_dim
     hq = p["wq"].shape[1] // dh
     assert hq % cfg.num_kv_heads == 0, (hq, cfg.num_kv_heads)
     kw = dict(kv_src=kv_src, kv_pos=kv_pos, cache=cache, cache_pos=cache_pos,
               causal=causal, cross_cached=cross_cached)
     tpr = tp_ranks()
-    if tpr is None or cfg.attn_seq_shard or hq % tpr.size:
+    if tpr is not None and cfg.attn_seq_shard:
+        split = cache is None and x.shape[1] % tpr.size == 0
+        return _attention_heads(p, cfg, x, qpos, seq_ranks=tpr if split
+                                else None, **kw)
+    if tpr is None or hq % tpr.size:
         return _attention_heads(p, cfg, x, qpos, **kw)
     return _attention_split(p, cfg, x, qpos, tpr, hq, **kw)
 
 
 def _attention_heads(p, cfg, x, qpos, *, kv_src=None, kv_pos=None,
                      cache=None, cache_pos=None, causal=True,
-                     cross_cached=False, kv_index=None):
+                     cross_cached=False, kv_index=None, seq_ranks=None):
     """The block over the heads ``p`` holds: ``wq``'s query heads, ``wk``
     and ``wv``'s KV heads (the cache's), ``wo``'s rows. Query head h reads
     KV head h // (query heads / KV heads), or ``kv_index[h]`` when given
-    (a rank whose query heads straddle KV groups)."""
+    (a rank whose query heads straddle KV groups). With ``seq_ranks`` (no
+    cache) the attention core splits over the query sequence
+    (`_attention_seq_split`)."""
     B, S, _ = x.shape
     dh = cfg.resolved_head_dim
     hq = p["wq"].shape[1] // dh
@@ -188,16 +198,52 @@ def _attention_heads(p, cfg, x, qpos, *, kv_src=None, kv_pos=None,
         v = v.index_select(2, kv_index)
 
     is_cross = kv_src is not None or cross_cached
-    if (cfg.use_flash_attention and cache is None and not is_cross
-            and kv_pos is None):
-        # positions come from array offsets in the kernel (query s at s,
-        # keys at 0..T-1), which is exactly this path's contiguous qpos
-        ctx = ops.flash_mha(q, k, v, causal=causal, window=window)
+    flash = (cfg.use_flash_attention and cache is None and not is_cross
+             and kv_pos is None)
+
+    def core(q, k, v, qpos, kpos, q_offset=0):
+        if flash:
+            # positions come from array offsets in the kernel (query s at
+            # q_offset + s, keys at 0..T-1), which is exactly this path's
+            # contiguous qpos
+            return ops.flash_mha(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+        return _attend(q, k, v, qpos, kpos, causal=causal and not is_cross,
+                       window=None if is_cross else window)
+
+    if seq_ranks is not None:
+        ctx = _attention_seq_split(core, seq_ranks, q, k, v, qpos, kpos)
     else:
-        ctx = _attend(q, k, v, qpos, kpos, causal=causal and not is_cross,
-                      window=None if is_cross else window)
-    ctx = ctx.reshape(B, S, hq * dh)
-    return ctx @ p["wo"], new_cache
+        ctx = core(q, k, v, qpos, kpos)
+    return ctx.reshape(B, S, hq * dh) @ p["wo"], new_cache
+
+
+def _attention_seq_split(core, tpr, q, k, v, qpos, kpos):
+    """The attention core split over the query sequence (the reference's
+    ``attn_seq_shard``): rank r takes query rows [r·S/tp, (r+1)·S/tp) with
+    their positions (K2 at ``q_offset`` r·S/tp on the flash path) and every
+    key and value, on its device; the rows join in rank order, with no
+    psum, and ``wo`` multiplies them once. q, k and v are formed once,
+    whole, so a rank's rows of them are the whole run's bits; the gradient
+    of k and v sums over the ranks. ``wo`` takes the joined rows because
+    cuBLAS rounds a product of a quarter of the rows otherwise than the
+    whole product's same rows (measured on an H100: a 1024-row product
+    against a 4096-row one), and that rounding would reach an MoE router's
+    near-ties; the joined rows are the whole block's bits wherever the
+    ranks' cores are. Batch groups over the data ranks as
+    `models.common.TPRanks.groups` gives them."""
+    b, s = q.shape[:2]
+    part = s // tpr.size
+    out = []
+    for rows, devs in tpr.groups(b):
+        for r, dev in enumerate(devs):
+            seq = slice(r * part, (r + 1) * part)
+            out.append(core(q[rows, seq].to(dev), k[rows].to(dev),
+                            v[rows].to(dev), qpos[rows, seq].to(dev),
+                            kpos[rows].to(dev), r * part).to(q.device))
+    groups = [torch.cat(out[i:i + tpr.size], dim=1)
+              for i in range(0, len(out), tpr.size)]
+    return torch.cat(groups, dim=0)
 
 
 def rank_heads(hq: int, hkv: int, tp: int, r: int):
@@ -239,17 +285,6 @@ def _rank_attn_params(p, cfg, heads, kv, r, tp, dev):
     return {k: v.to(dev) for k, v in out.items()}
 
 
-def _join_kv(parts, runs):
-    """The whole KV-head axis (2) from the ranks' runs [lo, hi): each head
-    taken from the first rank that holds it."""
-    pieces, done = [], 0
-    for t, (lo, hi) in zip(parts, runs):
-        if hi > done:
-            pieces.append(t[:, :, done - lo:hi - lo].to(parts[0].device))
-            done = hi
-    return torch.cat(pieces, dim=2) if len(pieces) > 1 else pieces[0]
-
-
 def _attention_split(p, cfg, x, qpos, tpr, hq, *, kv_src, kv_pos, cache,
                      cache_pos, causal, cross_cached):
     """The block split over the model axis: rank r computes its query
@@ -289,8 +324,8 @@ def _attention_split(p, cfg, x, qpos, tpr, hq, *, kv_src, kv_pos, cache,
         ys.append(spmd.psum(outs)[0].to(x.device))
         if cache is not None and not cross_cached:
             caches.append({
-                "k": _join_kv([c["k"] for c in rank_caches], runs),
-                "v": _join_kv([c["v"] for c in rank_caches], runs),
+                "k": join_runs([c["k"] for c in rank_caches], runs, 2),
+                "v": join_runs([c["v"] for c in rank_caches], runs, 2),
                 "pos": rank_caches[0]["pos"]})
     y = torch.cat(ys, dim=0)
     if cache is None:

@@ -8,10 +8,12 @@ helpers (RMSNorm, RoPE, SwiGLU, the sinusoidal positions).
   over a 16-way model axis). ``resolve_spec`` reads only the mesh's axis
   names and sizes, so it takes a `launch.mesh.Mesh` or an
   `launch.mesh.AbstractMesh` (the dry run's 256 and 512 devices).
-* ``tp_ranks`` / ``tp_slice`` — the dense layers' tensor parallelism: the
-  installed mesh's model axis as ranks on their devices, with the batch
-  groups over the data ranks, and a leaf cut to one rank's slice by the
-  spec ``resolve_spec`` gives its tp token.
+* ``tp_ranks`` / ``tp_slice`` / ``join_runs`` — tensor parallelism over
+  the model axis (the dense layers, the SSM's heads, the vocab, the query
+  sequence): the installed mesh's model axis as ranks on their devices,
+  with the batch groups over the data ranks, a leaf cut to one rank's
+  slice by the spec ``resolve_spec`` gives its tp token, and an axis put
+  back together from the runs of it the ranks hold.
 * ``ParamSpec`` is the single source of truth for every parameter: shape,
   dtype, logical sharding tokens, initializer. It is materialized three
   ways: ``init_params`` (tensors on a device, each leaf drawn from its own
@@ -230,6 +232,19 @@ def tp_slice(x: torch.Tensor, tokens, rank: int) -> torch.Tensor:
         part = x.shape[dim] // n
         x = x.narrow(dim, rank * part, part)
     return x
+
+
+def join_runs(parts, runs, dim: int) -> torch.Tensor:
+    """The whole axis ``dim`` from the ranks' runs [lo, hi) of it (the KV
+    heads a rank read, the SSM groups), on the first part's device: each
+    index taken from the first rank that holds it."""
+    pieces, done = [], 0
+    for t, (lo, hi) in zip(parts, runs):
+        if hi > done:
+            pieces.append(t.narrow(dim, done - lo, hi - done).to(
+                parts[0].device))
+            done = hi
+    return torch.cat(pieces, dim=dim) if len(pieces) > 1 else pieces[0]
 
 
 def data_axis_names() -> Tuple[str, ...]:

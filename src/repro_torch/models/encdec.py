@@ -95,9 +95,11 @@ def _dec_layer(p, cfg, x, qpos, enc_out, enc_pos, *, self_cache=None,
     return x + mlp_block(p["mlp"], h), new_self, new_cross
 
 
-def encdec_forward(params, cfg, tokens, frames, remat="full"
+def encdec_forward(params, cfg, tokens, frames, remat="full", head=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Teacher-forced training forward. Returns (logits, aux = 0)."""
+    """Teacher-forced training forward. Returns (``head``(params, cfg, x)
+    of the last hidden states — `unembed`'s logits by default — aux =
+    0)."""
     enc_out = encode(params, cfg, frames, remat=remat)
     b, t_src, d = enc_out.shape
     enc_pos = _positions(b, t_src, enc_out.device)
@@ -113,7 +115,7 @@ def encdec_forward(params, cfg, tokens, frames, remat="full"
     body = _remat(body, remat)
     for layer in range(cfg.num_layers):
         x = body(x, tree_index(params["dec_layers"], layer))
-    return unembed(params, cfg, x), torch.zeros(
+    return (head or unembed)(params, cfg, x), torch.zeros(
         (), dtype=torch.float32, device=x.device)
 
 

@@ -93,9 +93,10 @@ def _ssm_stack(layers_p, cfg, x, caches=None):
     return x, new
 
 
-def hybrid_forward(params, cfg, tokens, remat="full"):
+def hybrid_forward(params, cfg, tokens, remat="full", head=None):
     """Training forward; each super-group runs under ``_remat(remat)``,
-    the tail without. Returns (logits, aux = 0)."""
+    the tail without. Returns (``head``(params, cfg, x) of the last hidden
+    states — `unembed`'s logits by default — aux = 0)."""
     x = embed_tokens(params, cfg, tokens)
     b, s, _ = x.shape
     qpos = torch.arange(s, device=x.device).expand(b, s)
@@ -111,7 +112,7 @@ def hybrid_forward(params, cfg, tokens, remat="full"):
         x = group_body(x, tree_index(params["groups"], gi))
     if "tail" in params:
         x, _ = _ssm_stack(params["tail"], cfg, x)
-    return unembed(params, cfg, x), torch.zeros(
+    return (head or unembed)(params, cfg, x), torch.zeros(
         (), dtype=torch.float32, device=x.device)
 
 

@@ -41,7 +41,7 @@ def _ssm_lm_defs(cfg):
     }
 
 
-def _ssm_lm_forward(params, cfg, tokens, remat="full"):
+def _ssm_lm_forward(params, cfg, tokens, remat="full", head=None):
     x = tf_mod.embed_tokens(params, cfg, tokens)
 
     def body(x, layer_p):
@@ -51,7 +51,7 @@ def _ssm_lm_forward(params, cfg, tokens, remat="full"):
     body = tf_mod._remat(body, remat)
     for layer in range(cfg.num_layers):
         x = body(x, tree_index(params["layers"], layer))
-    return tf_mod.unembed(params, cfg, x), torch.zeros(
+    return (head or tf_mod.unembed)(params, cfg, x), torch.zeros(
         (), dtype=torch.float32, device=x.device)
 
 
@@ -86,18 +86,32 @@ def param_defs(cfg):
 def forward(params, cfg, batch: Dict[str, torch.Tensor], remat: str = "full"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch keys: tokens (B, S); encdec additionally frames (B, src, d);
-    vlm additionally patches (B, P, d)."""
+    vlm additionally patches (B, P, d). Returns (logits, moe_aux)."""
+    return _forward(params, cfg, batch, remat, None)
+
+
+def forward_hidden(params, cfg, batch: Dict[str, torch.Tensor],
+                   remat: str = "full") -> Tuple[torch.Tensor, torch.Tensor]:
+    """`forward` up to the LM head: (the last hidden states (B, S, d),
+    before the final norm, moe_aux), for a loss that applies the head
+    itself (`train.loss.head_token_nll`)."""
+    return _forward(params, cfg, batch, remat, lambda params, cfg, x: x)
+
+
+def _forward(params, cfg, batch, remat, head):
     if cfg.family == "encdec":
         return encdec_mod.encdec_forward(params, cfg, batch["tokens"],
-                                         batch["frames"], remat=remat)
+                                         batch["frames"], remat=remat,
+                                         head=head)
     if cfg.family == "ssm":
-        return _ssm_lm_forward(params, cfg, batch["tokens"], remat=remat)
+        return _ssm_lm_forward(params, cfg, batch["tokens"], remat=remat,
+                               head=head)
     if cfg.family == "hybrid":
         return hybrid_mod.hybrid_forward(params, cfg, batch["tokens"],
-                                         remat=remat)
+                                         remat=remat, head=head)
     prefix = batch.get("patches") if cfg.family == "vlm" else None
     return tf_mod.lm_forward(params, cfg, batch["tokens"],
-                             prefix_embeds=prefix, remat=remat)
+                             prefix_embeds=prefix, remat=remat, head=head)
 
 
 def decode_step(params, cfg, tokens, caches, pos):

@@ -10,7 +10,7 @@ once) run in turn; on different cards the launches are asynchronous
 anyway. There are no threads, no process group and no ports.
 
 The collectives sum in rank order: the reference's XLA all-reduce may
-sum in another, so the two agree to rounding."""
+sum in another, so the two agree to rounding. The maximum is exact."""
 from __future__ import annotations
 
 import math
@@ -57,6 +57,15 @@ def psum(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     for part in parts[1:]:
         total = total + part.to(total.device)
     return [total.to(p.device) for p in parts]
+
+
+def pmax(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The elementwise maximum of the ranks' tensors, taken in rank order
+    (exact, whatever the order), one copy per rank on its device."""
+    top = parts[0]
+    for part in parts[1:]:
+        top = torch.maximum(top, part.to(top.device))
+    return [top.to(p.device) for p in parts]
 
 
 def pmean(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:

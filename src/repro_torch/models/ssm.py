@@ -29,7 +29,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import ParamSpec, dense_spec, rms_norm
+from repro_torch.models import spmd
+from repro_torch.models.attention import rank_heads
+from repro_torch.models.common import (ParamSpec, dense_spec, join_runs,
+                                       rms_norm, tp_ranks, tp_slice)
 
 
 def ssm_defs(cfg):
@@ -158,13 +161,32 @@ def ssm_block(p, cfg, x, *, cache=None):
     from the cached state and conv context), a one-token decode step with
     one (S = 1). The chunked SSD takes the training route `ssd_chunked`
     under the module's route rule, else `kernels.ops.ssd_chunked` (K3 on
-    the card)."""
+    the card).
+
+    Under a mesh context whose model axis divides the SSD's heads, the
+    heads split over the tp ranks (`_ssm_split`); else the block computes
+    whole."""
+    h = p["wdt"].shape[1]
+    tpr = tp_ranks()
+    if tpr is not None and h % tpr.size == 0:
+        return _ssm_split(p, cfg, x, cache, tpr)
+    yz, new_cache = _ssd_heads(p, cfg, x, cache)
+    y = rms_norm(yz, p["norm_w"], cfg.norm_eps)
+    return _mm(y, p["wo"]), new_cache
+
+
+def _ssd_heads(p, cfg, x, cache, group_index=None):
+    """The block up to its gated norm over the heads ``p`` holds: ``wx``'s
+    and ``wz``'s columns, ``wdt``'s heads, the B/C groups of ``wB`` and
+    ``wC`` (and the cache's). Head h reads group h // (heads / groups), or
+    ``group_index[h]`` when given (a rank whose heads straddle groups).
+    Returns (y·silu(z) (B, S, d_inner of p), new_cache)."""
     s_cfg = cfg.ssm
-    b, s, d = x.shape
-    d_inner = s_cfg.expand * d
-    h = d_inner // s_cfg.head_dim
-    hd = s_cfg.head_dim
-    g, n = s_cfg.ngroups, s_cfg.d_state
+    b, s, _ = x.shape
+    hd, n = s_cfg.head_dim, s_cfg.d_state
+    d_inner = p["wx"].shape[1]
+    h = d_inner // hd
+    g = p["wB"].shape[1] // n
 
     z = _mm(x, p["wz"])
     xin = _mm(x, p["wx"])
@@ -208,6 +230,10 @@ def ssm_block(p, cfg, x, *, cache=None):
     xh = xin.reshape(b, s, h, hd)
     bm = bin_.reshape(b, s, g, n)
     cm = cin.reshape(b, s, g, n)
+    if group_index is not None:
+        bm = bm.index_select(2, group_index)
+        cm = cm.index_select(2, group_index)
+        g = h
 
     if cache is None or prefill:
         h0 = cache["h"] if prefill else None
@@ -238,9 +264,100 @@ def ssm_block(p, cfg, x, *, cache=None):
     y = y.reshape(b, s, d_inner)
     y = y + (p["D"][None, None, :, None] * xh.to(torch.float32)
              ).reshape(b, s, d_inner).to(y.dtype)
-    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
-    out = _mm(y, p["wo"])
-    return out, new_cache
+    return y * F.silu(z), new_cache
+
+
+def _rank_ssm_params(p, r, groups, n, dev):
+    """Rank r's weights on ``dev``: the columns of ``wz``, ``wx`` and
+    ``conv_x`` and the rows of ``wo`` for its heads, its entries of
+    ``wdt``, ``A_log``, ``D``, ``dt_bias`` and ``norm_w`` (each cut by
+    `tp_slice` from its head-level spec), and the columns of ``wB``,
+    ``wC``, ``conv_B`` and ``conv_C`` of the groups [lo, hi) its heads
+    read."""
+    lo, hi = groups
+    out = {k: tp_slice(p[k], (None, "tp"), r)
+           for k in ("wz", "wx", "conv_x", "wdt")}
+    out.update({k: tp_slice(p[k], ("tp",), r)
+                for k in ("A_log", "D", "dt_bias", "norm_w")})
+    out["wo"] = tp_slice(p["wo"], ("tp", None), r)
+    out.update({k: p[k][:, lo * n:hi * n]
+                for k in ("wB", "wC", "conv_B", "conv_C")})
+    return {k: v.to(dev) for k, v in out.items()}
+
+
+def _ssm_split(p, cfg, x, cache, tpr):
+    """The block split over the model axis by the SSD's heads: rank r
+    runs its heads (`_rank_ssm_params`; the B/C groups those read, whole
+    on every rank when there is one group, as replicated KV heads are in
+    attention) through the conv, the SSD — K3 once a rank on the card, or
+    the training route — and its share of the cache, on its device. The
+    gated RMSNorm normalises over the whole d_inner: each rank forms the
+    float32 sum of squares of its slice, a psum gives the mean, and only
+    then does a rank scale its slice. A psum joins the ranks' outputs
+    after ``wo``. Batch groups over the data ranks as
+    `models.common.TPRanks.groups` gives them. The caller's cache keeps
+    its shape and device: a rank's state is cut by heads and its conv
+    context by the columns it reads, and the new cache is put back
+    together from the ranks' in head order (the B/C columns from the
+    first rank holding each group)."""
+    s_cfg = cfg.ssm
+    tp, n, hd = tpr.size, s_cfg.d_state, s_cfg.head_dim
+    d_inner = p["wx"].shape[1]
+    h, g = p["wdt"].shape[1], p["wB"].shape[1] // n
+    plan = [rank_heads(h, g, tp, r) for r in range(tp)]
+    runs = [grp for _, grp, _ in plan]
+    f32 = torch.float32
+    ys, caches = [], []
+    for rows, devs in tpr.groups(x.shape[0]):
+        yzs, prs, rank_caches = [], [], []
+        for r, (((a, b), (lo, hi), index), dev) in enumerate(zip(plan,
+                                                                  devs)):
+            pr = _rank_ssm_params(p, r, (lo, hi), n, dev)
+            rc = None
+            if cache is not None:
+                conv = cache["conv"][rows]
+                rc = {"h": cache["h"][rows, a:b].to(dev),
+                      "conv": torch.cat(
+                          [conv[..., a * hd:b * hd],
+                           conv[..., d_inner + lo * n:d_inner + hi * n],
+                           conv[..., d_inner + (g + lo) * n:
+                                d_inner + (g + hi) * n]], dim=-1).to(dev)}
+            yz, nc = _ssd_heads(pr, cfg, x[rows].to(dev), rc,
+                                group_index=None if index is None
+                                else torch.tensor(index, device=dev))
+            yzs.append(yz)
+            prs.append(pr)
+            rank_caches.append(nc)
+        sumsq = spmd.psum([(t.to(f32) * t.to(f32)).sum(-1, keepdim=True)
+                           for t in yzs])
+        outs = [_mm((yz.to(f32) * torch.rsqrt(ss / d_inner + cfg.norm_eps)
+                     * pr["norm_w"].to(f32)).to(yz.dtype), pr["wo"])
+                for yz, ss, pr in zip(yzs, sumsq, prs)]
+        ys.append(spmd.psum(outs)[0].to(x.device))
+        if cache is not None:
+            caches.append(_join_ssm_cache(rank_caches, runs, n))
+    y = torch.cat(ys, dim=0)
+    if cache is None:
+        return y, None
+    return y, {k: torch.cat([c[k].to(cache[k].device) for c in caches],
+                            dim=0) for k in ("h", "conv")}
+
+
+def _join_ssm_cache(parts, runs, n):
+    """The whole cache from the ranks' (one batch group): the states and
+    the conv context's x columns in head order, its B and C columns from
+    the first rank holding each group."""
+    dev = parts[0]["h"].device
+    conv, bc = [], []
+    for c, (lo, hi) in zip(parts, runs):
+        w = (hi - lo) * n
+        x_part, b_part, c_part = c["conv"].split(
+            [c["conv"].shape[-1] - 2 * w, w, w], dim=-1)
+        conv.append(x_part.to(dev))
+        bc.append(torch.stack([b_part, c_part]).unflatten(-1, (hi - lo, n)))
+    bc = join_runs(bc, runs, 3).flatten(-2)                # (2, B, K-1, G·N)
+    return {"h": torch.cat([c["h"].to(dev) for c in parts], dim=1),
+            "conv": torch.cat(conv + [bc[0], bc[1]], dim=-1)}
 
 
 def ssm_cache_defs(cfg, batch: int):

@@ -186,23 +186,56 @@ def embed_tokens(params, cfg, tokens):
 
 
 def unembed(params, cfg, x):
+    """The final norm and the LM head: logits (B, S, V). Under a mesh
+    context whose model axis divides the vocab, each tp rank forms its
+    vocab slice on its device (`unembed_ranks`) and the slices join in
+    rank order on x's device; else the head computes whole."""
+    parts = unembed_ranks(params, cfg, x)
+    if parts is None:
+        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        return x @ head.to(x.dtype)
+    return torch.cat([torch.cat([t.to(x.device) for t in ranks], dim=-1)
+                      for _, ranks in parts], dim=0)
+
+
+def unembed_ranks(params, cfg, x):
+    """The LM head split over the vocab (the reference's logits sharded
+    ``("batch", None, "tp")``): for each batch group over the data ranks
+    (`models.common.TPRanks.groups`), its rows and the tp ranks' logit
+    slices (rows, S, V / tp) in rank order, each formed on its rank's
+    device from the rank's columns of ``lm_head`` (its rows of ``embed``
+    where the embeddings are tied). None where the head computes whole:
+    no model axis, or one that does not divide the vocab."""
+    tpr = tp_ranks()
+    if tpr is None or cfg.vocab_size % tpr.size:
+        return None
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head.to(x.dtype)
+    out = []
+    for rows, devs in tpr.groups(x.shape[0]):
+        ranks = []
+        for r, dev in enumerate(devs):
+            head = (tp_slice(params["embed"], ("tp", None), r).T
+                    if cfg.tie_embeddings
+                    else tp_slice(params["lm_head"], (None, "tp"), r))
+            ranks.append(x[rows].to(dev) @ head.to(dev, x.dtype))
+        out.append((rows, ranks))
+    return out
 
 
-def lm_forward(params, cfg, tokens, *, prefix_embeds=None, remat="full"
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def lm_forward(params, cfg, tokens, *, prefix_embeds=None, remat="full",
+               head=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward. tokens: (B, S_text). ``prefix_embeds`` (B, P, d)
     are precomputed frontend embeddings (VLM patches) prefixed to the
-    token embeddings. Returns (logits (B, S_total, V), moe_aux)."""
+    token embeddings. Returns (``head``(params, cfg, x) of the last hidden
+    states — `unembed`'s logits (B, S_total, V) by default — moe_aux)."""
     x = embed_tokens(params, cfg, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     qpos = torch.arange(s, device=x.device).expand(b, s)
     x, _, aux = scan_decoder(params["layers"], cfg, x, qpos, remat=remat)
-    return unembed(params, cfg, x), aux
+    return (head or unembed)(params, cfg, x), aux
 
 
 def lm_decode(params, cfg, token, caches, pos):

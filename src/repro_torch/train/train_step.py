@@ -12,8 +12,8 @@ from repro_torch.configs.base import JobConfig, ModelConfig
 from repro_torch.models import model_zoo
 from repro_torch.models.common import init_params, shard
 from repro_torch.optim.sgd import constant_lr, get_optimizer
-from repro_torch.train.loss import (elastic_token_weights, next_token_loss,
-                                    token_nll)
+from repro_torch.train.loss import (elastic_token_weights, head_token_nll,
+                                    next_token_loss)
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 
@@ -26,7 +26,10 @@ def make_loss_grad(cfg: ModelConfig, job: JobConfig, remat: str = "full"):
     1)``), and optional gradient accumulation over ``job.microbatch``
     micro-slices (float32 accumulators, as in the reference). ``grads``
     has ``params``' structure; ``loss`` and ``aux`` are 0-d float32
-    tensors without a graph."""
+    tensors without a graph. The forward stops before the LM head, which
+    `train.loss.head_token_nll` applies: under a mesh whose model axis
+    divides the vocab, the loss is vocab-parallel and the (B, S, V)
+    logits are never joined on one device."""
     n_micro = max(job.microbatch, 1)
     aux_w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
 
@@ -34,14 +37,13 @@ def make_loss_grad(cfg: ModelConfig, job: JobConfig, remat: str = "full"):
         """(weighted nll sum, weight sum, aux) for one (micro)batch —
         sum-form so microbatch accumulation is exactly the full-batch
         masked mean of Eq. (5)."""
-        logits, aux = model_zoo.forward(p, cfg, batch, remat=remat)
-        if cfg.family == "vlm":
-            logits = logits[:, cfg.vision.num_patches:]
+        x, aux = model_zoo.forward_hidden(p, cfg, batch, remat=remat)
+        skip = cfg.vision.num_patches if cfg.family == "vlm" else 0
         labels = batch["labels"]
         w = elastic_token_weights(active_mask, b, labels.shape[1],
                                   batch.get("label_mask"))
         w = shard(w, "batch", None).to(torch.float32)
-        nll_sum = (token_nll(logits, labels) * w).sum()
+        nll_sum = (head_token_nll(p, cfg, x, labels, skip) * w).sum()
         return nll_sum, w.sum(), aux
 
     def _grads(objective, leaves, like):

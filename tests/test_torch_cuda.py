@@ -17,7 +17,11 @@ training route against the CPU, and remat's gradients bit for bit with
 the kernels on the path; and expert parallelism: the MoE block's psum and
 all-to-all routes with their ranks on one card against the same routes on
 the CPU, and their bits from run to run; and dense tensor parallelism: the
-ranks' slices on their devices and K2 launched once a rank.
+ranks' slices on their devices and K2 launched once a rank; and the last
+model-axis layouts: K3 on a rank's heads bit for bit the whole launch's,
+K2 on a rank's query rows at its offset bit for bit the whole forward's,
+the split SSM block and the vocab-parallel loss on the card against the
+CPU, and the MoE routing exact under the sequence split.
 
 Every test here needs an NVIDIA GPU and skips itself elsewhere. The file
 imports neither ``jax`` nor the reference, so it runs on a machine that
@@ -1585,3 +1589,162 @@ def test_tensor_parallel_launches_k2_per_rank_on_rank_devices(cuda_device,
     for k in ("w_gate", "w_down"):
         assert rel_err(g1["layers"]["mlp"][k], g0["layers"]["mlp"][k]) \
             <= 1e-4, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,tp", [((2, 512, 64, 64, 1, 128, 256), 4),
+                                      ((1, 512, 56, 64, 1, 64, 256), 2)])
+def test_k3_per_rank_is_the_whole_launch_heads(cuda_device, shape, tp,
+                                               dtype):
+    """K3 on each rank's heads (contiguous, one group, so B and C whole)
+    gives the whole launch's outputs on those heads bit for bit: a rank's
+    16 heads are one of the whole launch's slabs, and a rank's 28 are the
+    whole launch's slabs [16r', ...) cut 16 + 12 in its own slabs, each
+    head's arithmetic the same."""
+    xh, dt, a_h, bm, cm = ssd_inputs(shape, dtype, cuda_device)
+    q, h = shape[6], shape[2]
+    whole = ssd_scan.ssd_chunk(xh, dt, a_h, bm, cm, chunk=q)
+    per = h // tp
+    for r in range(tp):
+        heads = slice(r * per, (r + 1) * per)
+        got = ssd_scan.ssd_chunk(xh[:, :, heads].contiguous(),
+                                 dt[:, :, heads].contiguous(),
+                                 a_h[heads].contiguous(), bm, cm, chunk=q)
+        for name, a, w in zip(K3_OUTS, got, whole):
+            assert torch.equal(a, w[:, :, heads]), (r, name)
+
+
+def test_seq_split_k2_is_the_whole_forward_by_rows(cuda_device):
+    """K2 on each rank's 128 query rows at q_offset r·128 (a multiple of
+    the 64-row tile) against all 512 keys gives the whole forward's rows
+    bit for bit; the keys' and values' gradients summed over the ranks
+    agree with the whole backward's to bf16 rounding (7.8e-3 of the
+    largest entry, K2_TOL's rows)."""
+    shape = (2, 512, 512, 8, 2, 128, True, None, 0)
+    q, k, v, do = k2_inputs(shape, torch.bfloat16, cuda_device)
+    whole = ops.flash_mha(q, k, v, causal=True)
+    kl, vl = (x.clone().requires_grad_() for x in (k, v))
+    outs = []
+    for r in range(4):
+        rows = slice(128 * r, 128 * (r + 1))
+        outs.append(ops.flash_mha(q[:, rows], kl, vl, causal=True,
+                                  q_offset=128 * r))
+        assert torch.equal(outs[-1], whole[:, rows]), r
+    dk, dv = torch.autograd.grad(torch.cat(outs, dim=1), (kl, vl), do)
+    k0, v0 = (x.clone().requires_grad_() for x in (k, v))
+    dk0, dv0 = torch.autograd.grad(ops.flash_mha(q, k0, v0, causal=True),
+                                   (k0, v0), do)
+    assert rel_err(dk, dk0) <= 7.8e-3 and rel_err(dv, dv0) <= 7.8e-3
+
+
+def _split_case(device):
+    """Reduced Mamba2 in float32, its weights and a batch of 4 × 64 tokens
+    drawn on the CPU, then moved to ``device``."""
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import init_params
+    from repro_torch.tree import tree_map
+
+    cfg = ARCHS["mamba2-1.3b"].reduced()
+    params = init_params(model_zoo.param_defs(cfg), 4, torch.float32,
+                         device="cpu")
+    g = torch.Generator(device="cpu").manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 65), generator=g)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    job = JobConfig(model=cfg, shape=InputShape("tp", 64, 4, "train"),
+                    n_workers=4)
+    return cfg, job, *tree_map(lambda t: t.to(device), (params, batch))
+
+
+def _split_runs(cfg, job, params, batch, mesh, device):
+    """forward, a prefill and make_loss_grad under ``mesh``, with the
+    launch counts of the prefill."""
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import init_params, mesh_context
+    from repro_torch.train.train_step import make_loss_grad
+
+    caches = init_params(model_zoo.cache_defs(cfg, 4, 64), 0, torch.float32,
+                         device=device)
+    with mesh_context(mesh):
+        with torch.no_grad():
+            y, _ = model_zoo.forward(params, cfg, batch, remat="none")
+            ops.reset_launch_counts()
+            yp, c = model_zoo.prefill(params, cfg,
+                                      {"tokens": batch["tokens"]}, caches)
+            counts = ops.launch_counts()
+        g, loss, _ = make_loss_grad(cfg, job, "full")(
+            params, batch, torch.tensor([1.0, 0.0, 1.0, 1.0], device=device))
+    return {"logits": y, "prefill": yp, "h": c["h"], "loss": loss,
+            "wx": g["layers"]["ssm"]["wx"], "wo": g["layers"]["ssm"]["wo"],
+            "lm_head": g["lm_head"]}, counts
+
+
+def test_split_ssm_block_and_vocab_loss_on_the_card_match_the_cpu(
+        cuda_device):
+    """Reduced Mamba2 on a (1, 4) mesh of cuda:0 against a (1, 4) mesh of
+    host devices: the forward's logits, the prefill's logits and state
+    (K3 once a rank and layer) and ``make_loss_grad``'s vocab-parallel
+    loss and gradients (the SSD's training route once a rank), float32 at
+    1e-4 of each tensor's largest entry (the loss at 1e-5 relative)."""
+    from repro_torch.launch.mesh import Mesh
+
+    card = Mesh([[cuda_device] * 4], ("data", "model"))
+    host = Mesh([[torch.device("cpu")] * 4], ("data", "model"))
+    cfg, job, params, batch = _split_case(cuda_device)
+    got, counts = _split_runs(cfg, job, params, batch, card, cuda_device)
+    torch.cuda.synchronize()
+    cfg, job, params, batch = _split_case("cpu")
+    want, _ = _split_runs(cfg, job, params, batch, host, "cpu")
+    assert counts["ssd_chunk"] == 4 * cfg.num_layers
+    torch.testing.assert_close(got["loss"].cpu(), want["loss"], rtol=1e-5,
+                               atol=0)
+    for k in ("logits", "prefill", "h", "wx", "wo", "lm_head"):
+        assert rel_err(got[k].cpu(), want[k]) <= 1e-4, k
+
+
+def test_expert_parallel_routing_is_exact_with_the_sequence_split(
+        cuda_device):
+    """Reduced Qwen2-MoE in float32 with ``attn_seq_shard`` on a (1, 4)
+    mesh of cuda:0, 2048 positions as in the expert-parallel phase: its
+    attention splits over the query sequence (each rank's rows of q, k
+    and v are the whole run's, its 512 rows one of the whole core's
+    blocks, ``wo`` on the joined rows), and every MoE block routes as no
+    mesh's, exactly (that phase's check)."""
+    import contextlib
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model_zoo, moe
+    from repro_torch.models.common import init_params, mesh_context
+
+    cfg = ARCHS["qwen2-moe-a2.7b"].reduced().with_(attn_seq_shard=True)
+    params = init_params(model_zoo.param_defs(cfg), 5, torch.float32,
+                         device=cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 2048), generator=g)
+    tokens = tokens.to(cuda_device)
+    mesh = Mesh([[cuda_device] * 4], ("data", "model"))
+    routes = {}
+
+    @contextlib.contextmanager
+    def recorded(out):
+        route = moe._route
+
+        def recording(x2d, router, moe_cfg):
+            res = route(x2d, router, moe_cfg)
+            out.append(res[0])
+            return res
+
+        moe._route = recording
+        try:
+            yield
+        finally:
+            moe._route = route
+
+    for name, on in (("none", None), ("mesh", mesh)):
+        routes[name] = []
+        with recorded(routes[name]), torch.no_grad(), mesh_context(on):
+            model_zoo.forward(params, cfg, {"tokens": tokens}, remat="none")
+    none, meshed = routes["none"], routes["mesh"]
+    assert len(meshed) == 4 * len(none)
+    for i, r in enumerate(none):
+        for rank in range(4):
+            assert torch.equal(meshed[4 * i + rank], r), (i, rank)

@@ -26,7 +26,6 @@ rank order, the whole products in one)."""
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import torch_mesh_ref as mr
 from repro_torch.configs.base import InputShape, JobConfig
@@ -82,50 +81,14 @@ def test_split_matches_reference_and_no_mesh(reference, unmeshed, case, tag):
     if case["name"] == "dsv2":
         # MoE capacity counts a data rank's tokens: not the unmeshed run
         return
-    alone = unmeshed[case["name"]]
-    for what, got in out.items():
-        if isinstance(got, dict):
-            _trees_close(got, alone[what], what)
-        else:
-            np.testing.assert_allclose(
-                got.detach().numpy(), alone[what].detach().numpy(), rtol=0,
-                atol=1e-4 * float(alone[what].abs().max()) + 1e-7,
-                err_msg=what)
-
-
-def _trees_close(a, b, what):
-    if isinstance(a, dict):
-        assert a.keys() == b.keys(), what
-        for k in a:
-            _trees_close(a[k], b[k], f"{what}/{k}")
-        return
-    a, b = a.detach(), b.detach()
-    if not a.is_floating_point():
-        assert torch.equal(a, b), what
-        return
-    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
-                               atol=1e-4 * float(b.abs().max()),
-                               err_msg=what)
-
-
-class _Products(TorchDispatchMode):
-    """Records the shape of every ``aten.mm``'s right operand."""
-
-    def __init__(self):
-        super().__init__()
-        self.shapes = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func is torch.ops.aten.mm.default:
-            self.shapes.append(tuple(args[1].shape))
-        return func(*args, **(kwargs or {}))
+    mr.check_against_no_mesh(out, unmeshed[case["name"]])
 
 
 def _products(reference, case, tag):
     cfg = mr.port_cfg(case)
     params = mr.port_params(reference, case, cfg)
     batch, _, _ = mr.port_inputs(reference, case, 4)
-    rec = _Products()
+    rec = mr.Products()
     with mesh_context(mr.port_mesh(tag)), torch.no_grad(), rec:
         model_zoo.forward(params, cfg, batch, remat="none")
     return cfg, rec.shapes
@@ -136,7 +99,8 @@ def _products(reference, case, tag):
 def test_ranks_compute_their_slices(reference, tag, tp, groups):
     """kv_split: every layer, data group and rank multiplies by its slices
     (d, 8/tp heads) of wq, (8/tp heads, d) of wo, (d, 384/tp) of w_gate
-    and w_up and (384/tp, d) of w_down; the whole matrices never."""
+    and w_up and (384/tp, d) of w_down, and every data group and rank by
+    its (d, V/tp) columns of the LM head; the whole matrices never."""
     cfg, shapes = _products(reference, BY_NAME["kv_split"], tag)
     d, dh, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
     n = cfg.num_layers * groups * tp
@@ -146,8 +110,13 @@ def test_ranks_compute_their_slices(reference, tag, tp, groups):
     assert shapes.count((hq * dh, d)) == n                # wo
     assert shapes.count((d, f // tp)) == 2 * n            # w_gate, w_up
     assert shapes.count((f // tp, d)) == n                # w_down
+    # the LM head's vocab slices, once a group and rank; at tp 2 their
+    # (d, V / 2) is the whole wo's shape, which must not appear beside them
+    head = (d, cfg.vocab_size // tp)
+    assert shapes.count(head) == groups * tp
     for whole in ((cfg.num_heads * dh, d), (f, d), (d, f)):
-        assert whole not in shapes, whole
+        assert shapes.count(whole) == (groups * tp if whole == head
+                                       else 0), whole
 
 
 def test_straddling_ranks_read_the_kv_heads_of_their_query_heads(reference):
@@ -203,15 +172,7 @@ def test_one_rank_mesh_is_bit_for_bit_no_mesh(reference, name):
     one = mr.port_run(reference, case, "1x1", 4, ALL)
     alone = mr.port_run(reference, case, None, 4, ALL)
     for what in one:
-        _bits_equal(one[what], alone[what], what)
-
-
-def _bits_equal(a, b, what):
-    if isinstance(a, dict):
-        for k in a:
-            _bits_equal(a[k], b[k], f"{what}/{k}")
-    else:
-        assert torch.equal(a, b), what
+        mr.bits_equal(one[what], alone[what], what)
 
 
 @pytest.mark.parametrize("name", ["kv_split", "straddle", "dsv2"])
@@ -229,7 +190,7 @@ def test_remat_is_bit_equal_under_the_mesh(reference, name):
             runs[mode] = make_loss_grad(cfg, job, mode)(
                 params, dict(batch, labels=labels), mask)
     for mode in ("dots", "full"):
-        _bits_equal(runs[mode][0], runs["none"][0], mode)
+        mr.bits_equal(runs[mode][0], runs["none"][0], mode)
         assert torch.equal(runs[mode][1], runs["none"][1])
 
 
@@ -241,7 +202,7 @@ def test_replicated_batch_splits_over_the_model_axis_alone(reference):
     cfg = mr.port_cfg(case)
     params = mr.port_params(reference, case, cfg)
     batch, _, _ = mr.port_inputs(reference, case, 4)
-    rec = _Products()
+    rec = mr.Products()
     with mesh_context(mr.port_mesh("2x4")), torch.no_grad():
         with rec:
             y3, _ = model_zoo.forward(params, cfg,

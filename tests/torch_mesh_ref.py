@@ -1,6 +1,8 @@
 """The reference's runs under Auto-typed meshes, and the port's runs of the
-same cases, for tests/test_torch_serve_mesh.py and
-tests/test_torch_tensor_parallel.py (not a test file).
+same cases, for tests/test_torch_serve_mesh.py,
+tests/test_torch_tensor_parallel.py, tests/test_torch_ssm_parallel.py,
+tests/test_torch_vocab_parallel.py and tests/test_torch_seq_parallel.py
+(not a test file).
 
 The reference runs in a child process with 8 forced XLA host devices
 (the flag set only there), as tests/test_torch_expert_parallel.py's
@@ -12,8 +14,10 @@ sizes to run, and the functions: ``forward`` (remat "none"),
 ``loss_grad`` (``make_loss_grad``, remat "full"), ``train_step``
 (``make_train_step``, remat "none", SGD with momentum from zero state),
 ``serve`` (``prefill`` of the prompt into fresh caches, then two
-``decode_step``s of given tokens) and, for ``mesh`` None, the same with no
-mesh. Weights come from the reference's ``init_params`` outside any mesh
+``decode_step``s of given tokens), ``nll`` (``next_token_loss`` of the
+forward's logits, with the elastic weights and with every weight 0) and, for ``mesh`` None, the same with no mesh. A case may set its own
+``prompt`` length, ``ssm`` overrides and ``zero_mask`` (``loss_grad`` once
+more with every worker preempted). Weights come from the reference's ``init_params`` outside any mesh
 (so no head is padded), float32, with the zero-initialised QKV biases
 perturbed so the bias path carries weight; tokens, labels, decode tokens
 and enc-dec frames from numpy seeds. The child saves every value in one
@@ -33,12 +37,14 @@ import sys
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import ARCHS
 from repro_torch.configs.base import InputShape, JobConfig
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import model_zoo
 from repro_torch.models.common import map_specs, mesh_context
+from repro_torch.train.loss import elastic_token_weights, next_token_loss
 from repro_torch.train.train_step import make_loss_grad, make_train_step
 from repro_torch.tree import tree_map
 
@@ -62,15 +68,18 @@ from repro.configs import ARCHS
 from repro.configs.base import InputShape, JobConfig
 from repro.models import model_zoo
 from repro.models.common import init_params, mesh_context
+from repro.train.loss import elastic_token_weights, next_token_loss
 from repro.train.train_step import make_loss_grad, make_train_step
 
-cases, meshes, prompt, gen, n_w, mask, out_path = json.loads(sys.argv[1])
+cases, meshes, prompt0, gen, n_w, mask, out_path = json.loads(sys.argv[1])
 mask = np.asarray(mask, np.float32)
 
 def cfg_of(case):
     cfg = ARCHS[case["arch"]].reduced().with_(**case.get("over", {}))
     if case.get("moe"):
         cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, **case["moe"]))
+    if case.get("ssm"):
+        cfg = cfg.with_(ssm=dataclasses.replace(cfg.ssm, **case["ssm"]))
     return cfg
 
 def flat(prefix, tree, out):
@@ -87,6 +96,7 @@ def mesh_of(tag):
 out = {}
 for case in cases:
     name, cfg = case["name"], cfg_of(case)
+    prompt = case.get("prompt", prompt0)
     params = init_params(model_zoo.param_defs(cfg), jax.random.PRNGKey(1),
                          jnp.float32)
     rng = np.random.default_rng(7)
@@ -123,12 +133,23 @@ for case in cases:
                     y, aux = jax.jit(lambda p, bt: model_zoo.forward(
                         p, cfg, bt, remat="none"))(params, batch)
                     out[key + "/logits"], out[key + "/aux"] = y, aux
+                if "nll" in fns:
+                    # the loss over the forward's (vocab-sharded) logits,
+                    # with the elastic weights and with all weights 0
+                    w = elastic_token_weights(mask, b, prompt)
+                    nll = jax.jit(next_token_loss)
+                    out[key + "/nll"] = nll(y, labels[:b], w)
+                    out[key + "/nll0"] = nll(y, labels[:b], 0 * w)
                 lbatch = dict(batch, labels=labels[:b])
                 if "loss_grad" in fns:
-                    g, loss, gaux = jax.jit(make_loss_grad(
-                        cfg, job, remat="full"))(params, lbatch, mask)
+                    lg = jax.jit(make_loss_grad(cfg, job, remat="full"))
+                    g, loss, gaux = lg(params, lbatch, mask)
                     out[key + "/loss"], out[key + "/gaux"] = loss, gaux
                     flat(key + "/grad", g, out)
+                    if case.get("zero_mask"):
+                        g, loss, _ = lg(params, lbatch, 0 * mask)
+                        out[key + "/loss0"] = loss
+                        flat(key + "/grad0", g, out)
                 if "train_step" in fns:
                     opt = jax.tree.map(jnp.zeros_like, params)
                     new, _, _ = jax.jit(make_train_step(
@@ -171,7 +192,13 @@ def port_cfg(case):
     cfg = ARCHS[case["arch"]].reduced().with_(**case.get("over", {}))
     if case.get("moe"):
         cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, **case["moe"]))
+    if case.get("ssm"):
+        cfg = cfg.with_(ssm=dataclasses.replace(cfg.ssm, **case["ssm"]))
     return cfg
+
+
+def prompt_of(case) -> int:
+    return case.get("prompt", PROMPT)
 
 
 def port_mesh(tag):
@@ -204,7 +231,7 @@ def port_inputs(ref, case, b):
     return batch, labels, steps
 
 
-def fresh_caches(cfg, b):
+def fresh_caches(cfg, b, prompt=PROMPT):
     """Zeros, positions −1, as the reference's ``init_params`` of the
     cache definitions gives them."""
     def make(_, spec):
@@ -212,7 +239,7 @@ def fresh_caches(cfg, b):
             return torch.full(spec.shape, -1, dtype=torch.int32)
         return torch.zeros(spec.shape, dtype=spec.dtype or torch.float32)
 
-    return map_specs(make, model_zoo.cache_defs(cfg, b, PROMPT + GEN))
+    return map_specs(make, model_zoo.cache_defs(cfg, b, prompt + GEN))
 
 
 def port_run(ref, case, tag, b, fns):
@@ -220,9 +247,10 @@ def port_run(ref, case, tag, b, fns):
     child keys them (without the ``<case>/<mesh>/b<B>`` prefix), trees
     kept as trees."""
     cfg = port_cfg(case)
+    prompt = prompt_of(case)
     params = port_params(ref, case, cfg)
     batch, labels, steps = port_inputs(ref, case, b)
-    job = JobConfig(model=cfg, shape=InputShape("t", PROMPT, b, "train"),
+    job = JobConfig(model=cfg, shape=InputShape("t", prompt, b, "train"),
                     n_workers=N_W)
     mask = torch.from_numpy(MASK.copy())
     out = {}
@@ -230,10 +258,16 @@ def port_run(ref, case, tag, b, fns):
         if "forward" in fns:
             out["logits"], out["aux"] = model_zoo.forward(
                 params, cfg, batch, remat="none")
+        if "nll" in fns:
+            w = elastic_token_weights(mask, b, prompt)
+            out["nll"] = next_token_loss(out["logits"], labels, w)
+            out["nll0"] = next_token_loss(out["logits"], labels, 0 * w)
         lbatch = dict(batch, labels=labels)
         if "loss_grad" in fns:
-            out["grad"], out["loss"], out["gaux"] = make_loss_grad(
-                cfg, job, "full")(params, lbatch, mask)
+            lg = make_loss_grad(cfg, job, "full")
+            out["grad"], out["loss"], out["gaux"] = lg(params, lbatch, mask)
+            if case.get("zero_mask"):
+                out["grad0"], out["loss0"], _ = lg(params, lbatch, 0 * mask)
         if "train_step" in fns:
             opt = tree_map(torch.zeros_like, params)
             out["step"], _, _ = make_train_step(cfg, job, remat="none")(
@@ -241,11 +275,11 @@ def port_run(ref, case, tag, b, fns):
         if "serve" in fns:
             with torch.no_grad():
                 y, caches = model_zoo.prefill(params, cfg, batch,
-                                              fresh_caches(cfg, b))
+                                              fresh_caches(cfg, b, prompt))
                 out["prefill"], out["prefill_cache"] = y, caches
                 for i in range(GEN):
                     y, caches = model_zoo.decode_step(
-                        params, cfg, steps[i], caches, PROMPT + i)
+                        params, cfg, steps[i], caches, prompt + i)
                     out[f"decode{i}"] = y
                 out["decode_cache"] = caches
     return out
@@ -290,7 +324,58 @@ def check_against_reference(ref, case, tag, b, out):
         if what in ("logits", "prefill") or (
                 what.startswith("decode") and not what.endswith("cache")):
             logits_close(got, ref[f"{key}/{what}"], f"{key}/{what}")
-        elif what in ("aux", "loss", "gaux"):
+        elif what in ("aux", "loss", "gaux", "loss0", "nll", "nll0"):
             scalar_close(got, ref[f"{key}/{what}"], f"{key}/{what}")
         else:
             tree_close(got, ref, f"{key}/{what}")
+
+
+def trees_close(a, b, what=""):
+    """Two of the port's trees (or tensors) leaf by leaf: floating leaves
+    at the reference's leaf tolerance, integer leaves exactly."""
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), what
+        for k in a:
+            trees_close(a[k], b[k], f"{what}/{k}")
+        return
+    a, b = a.detach(), b.detach()
+    if not a.is_floating_point():
+        assert torch.equal(a, b), what
+        return
+    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                               atol=1e-4 * float(b.abs().max()),
+                               err_msg=what)
+
+
+def check_against_no_mesh(out, alone):
+    """Every value of a meshed ``port_run`` against the unmeshed one:
+    tensors within 1e-4 of the largest entry, trees by `trees_close`."""
+    for what, got in out.items():
+        if isinstance(got, dict):
+            trees_close(got, alone[what], what)
+        else:
+            np.testing.assert_allclose(
+                got.detach().numpy(), alone[what].detach().numpy(), rtol=0,
+                atol=1e-4 * float(alone[what].abs().max()) + 1e-7,
+                err_msg=what)
+
+
+def bits_equal(a, b, what=""):
+    if isinstance(a, dict):
+        for k in a:
+            bits_equal(a[k], b[k], f"{what}/{k}")
+    else:
+        assert torch.equal(a, b), what
+
+
+class Products(TorchDispatchMode):
+    """Records the shape of every ``aten.mm``'s right operand."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.mm.default:
+            self.shapes.append(tuple(args[1].shape))
+        return func(*args, **(kwargs or {}))
