@@ -56,6 +56,7 @@ from repro_torch.device import resolve_device
 from repro_torch.sim.market_core import (BID_EPS, iteration_cost,  # noqa: F401
                                          preemptible_active,
                                          spot_active_mask)
+from repro_torch.spans import span
 from repro_torch.tree import tree_index, tree_map
 
 # Modes / price kinds (ints so they stack as data).
@@ -822,7 +823,8 @@ def _blocked_tick(batch: ScenarioBatch, data, seeds, program: ModelProgram,
     alpha2 = _col(batch.alpha).expand(grid)
 
     def tick(state: SimState, k: int) -> SimState:
-        m = _market_tick(batch, seeds, state.t, state.j, state.bucket, k)
+        with span("engine.market"):
+            m = _market_tick(batch, seeds, state.t, state.j, state.bucket, k)
         model, metric = program.step_fn(
             state.model, data, m.k_grad, m.mask.to(torch.float32), state.j,
             alpha2, m.running)
@@ -851,7 +853,8 @@ def _cells_tick(batch: ScenarioBatch, data, seeds, program: ModelProgram,
     s_dim, r_dim = grid
 
     def tick(state: SimState, k: int) -> SimState:
-        m = _market_tick(batch, seeds, state.t, state.j, state.bucket, k)
+        with span("engine.market"):
+            m = _market_tick(batch, seeds, state.t, state.j, state.bucket, k)
         mask = m.mask.to(torch.float32)
         metric = torch.empty(grid, dtype=torch.float32,
                              device=state.t.device)
@@ -861,7 +864,8 @@ def _cells_tick(batch: ScenarioBatch, data, seeds, program: ModelProgram,
                 stepped, met = program.step_fn(
                     cell, data, m.k_grad[s, r], mask[s, r], state.j[s, r],
                     batch.alpha[s])
-                _gate_model(m.running[s, r], stepped, cell)
+                with span("engine.gate"):
+                    _gate_model(m.running[s, r], stepped, cell)
                 del stepped
                 metric[s, r] = met
         return _advance(state, m, metric, state.model, batch.j_max)
@@ -886,7 +890,8 @@ def _run_ticks(tick, state: SimState, tick0: int, n_run: int,
     remainder ticks run unsnapshotted. Nothing is read back to the host."""
     snaps = []
     for i in range(n_run):
-        state = tick(state, tick0 + i)
+        with span("engine.tick"):
+            state = tick(state, tick0 + i)
         if k_snap and (i + 1) % k_snap == 0:
             snaps.append(_map_state(torch.clone, state))
     if not snaps:
@@ -962,14 +967,15 @@ def _engine_result(final: SimState, snaps: Optional[SimState],
     if snaps is not None:
         n_snap = n_run // cfg.snapshot_every
         snap_ticks = tick0 + cfg.snapshot_every * np.arange(1, n_snap + 1)
-    return EngineResult(
-        errors=host(final.err_traj), costs=host(final.cost_traj),
-        times=host(final.time_traj), ys=host(final.y_traj),
-        iterations=host(final.j).astype(np.int32),
-        total_time=host(final.t), total_cost=host(final.total_cost),
-        total_idle=host(final.total_idle),
-        J=host(scenarios.J), final_model=final.model, snapshots=snaps,
-        snapshot_ticks=snap_ticks, final_state=final)
+    with span("engine.readback"):
+        return EngineResult(
+            errors=host(final.err_traj), costs=host(final.cost_traj),
+            times=host(final.time_traj), ys=host(final.y_traj),
+            iterations=host(final.j).astype(np.int32),
+            total_time=host(final.t), total_cost=host(final.total_cost),
+            total_idle=host(final.total_idle),
+            J=host(scenarios.J), final_model=final.model, snapshots=snaps,
+            snapshot_ticks=snap_ticks, final_state=final)
 
 
 @functools.lru_cache(maxsize=None)

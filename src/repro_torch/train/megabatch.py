@@ -44,6 +44,7 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref
 from repro_torch.models import common, transformer
 from repro_torch.optim.sgd import constant_lr
+from repro_torch.spans import span
 
 NEG_INF = -1e30
 
@@ -414,8 +415,11 @@ def sum_form_grads(p_flat: torch.Tensor, cfg: ModelConfig, tokens, labels,
         out = torch.empty_like(p_flat)
     with torch.no_grad():
         p = _slices(p_flat, cfg)
-        nll_r, w_r, res = _fwd_res(p, cfg, tok2, labels2, w2, (rt, b, s))
-        _bwd(p, cfg, tok2, labels2, w2, res, (rt, b, s), _slices(out, cfg))
+        with span("step.forward"):
+            nll_r, w_r, res = _fwd_res(p, cfg, tok2, labels2, w2, (rt, b, s))
+        with span("step.backward"):
+            _bwd(p, cfg, tok2, labels2, w2, res, (rt, b, s),
+                 _slices(out, cfg))
     return out, nll_r, w_r
 
 
@@ -453,7 +457,7 @@ def make_megabatch_step(cfg: ModelConfig, job: JobConfig,
             g = grad_buf[p_flat.device] = torch.empty_like(p_flat)
         g, nll_r, w_r = sum_form_grads(p_flat, cfg, tokens, labels, masks,
                                        label_mask, out=g)
-        with torch.no_grad():
+        with torch.no_grad(), span("step.optimizer"):
             lr = lr_fn(j)
             if use_fused_update:
                 kernel_ops.fused_elastic_update(p_flat, v_flat, g, w_r,

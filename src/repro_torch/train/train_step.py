@@ -12,6 +12,7 @@ from repro_torch.configs.base import JobConfig, ModelConfig
 from repro_torch.models import model_zoo
 from repro_torch.models.common import init_params, shard
 from repro_torch.optim.sgd import constant_lr, get_optimizer
+from repro_torch.spans import span
 from repro_torch.train.loss import (elastic_token_weights, head_token_nll,
                                     next_token_loss)
 from repro_torch.tree import tree_leaves, tree_unflatten
@@ -57,15 +58,18 @@ def make_loss_grad(cfg: ModelConfig, job: JobConfig, remat: str = "full"):
 
         if n_micro == 1:
             live = [x.detach().requires_grad_() for x in leaves]
-            nll_sum, w_sum, aux = _losses(tree_unflatten(params, live),
-                                          batch, active_mask, b)
-            pos = w_sum > 0
-            loss = nll_sum / torch.where(pos, w_sum, torch.ones_like(w_sum))
-            if cfg.moe is not None:
-                loss = loss + aux_w * aux
-            # exact 0 (value and grads) when every worker is preempted
-            loss = torch.where(pos, loss, torch.zeros_like(loss))
-            grads = _grads(loss, live, leaves)
+            with span("step.forward"):
+                nll_sum, w_sum, aux = _losses(tree_unflatten(params, live),
+                                              batch, active_mask, b)
+                pos = w_sum > 0
+                loss = nll_sum / torch.where(pos, w_sum,
+                                             torch.ones_like(w_sum))
+                if cfg.moe is not None:
+                    loss = loss + aux_w * aux
+                # exact 0 (value and grads) when every worker is preempted
+                loss = torch.where(pos, loss, torch.zeros_like(loss))
+            with span("step.backward"):
+                grads = _grads(loss, live, leaves)
             return (tree_unflatten(params, grads), loss.detach(),
                     aux.detach())
 
@@ -86,13 +90,15 @@ def make_loss_grad(cfg: ModelConfig, job: JobConfig, remat: str = "full"):
         for i in range(n_micro):
             mbatch = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             live = [x.detach().requires_grad_() for x in leaves]
-            nll, w_sum, aux = _losses(tree_unflatten(params, live), mbatch,
-                                      mask_micro[i], mb)
-            # the aux loss folds in sum-form (× w_sum), so dividing by the
-            # global Σw yields CE + aux_w·weighted-mean(aux)
-            obj = nll + aux_w * aux * w_sum
-            for acc, g in zip(g_acc, _grads(obj, live, leaves)):
-                acc.add_(g)
+            with span("step.forward"):
+                nll, w_sum, aux = _losses(tree_unflatten(params, live),
+                                          mbatch, mask_micro[i], mb)
+                # the aux loss folds in sum-form (× w_sum), so dividing by
+                # the global Σw yields CE + aux_w·weighted-mean(aux)
+                obj = nll + aux_w * aux * w_sum
+            with span("step.backward"):
+                for acc, g in zip(g_acc, _grads(obj, live, leaves)):
+                    acc.add_(g)
             nll_acc = nll_acc + obj.detach()
             w_acc = w_acc + w_sum
             aux_acc = aux_acc + aux.detach()
@@ -118,8 +124,9 @@ def make_train_step(cfg: ModelConfig, job: JobConfig,
 
     def train_step(params, opt_state, batch: Dict, active_mask, step):
         grads, loss, aux = grad_step(params, batch, active_mask)
-        lr = lr_fn(step)
-        new_params, new_opt = opt.update(grads, opt_state, params, lr)
+        with span("step.optimizer"):
+            lr = lr_fn(step)
+            new_params, new_opt = opt.update(grads, opt_state, params, lr)
         metrics = {"loss": loss, "moe_aux": aux,
                    "active_workers": active_mask.sum(), "lr": lr}
         return new_params, new_opt, metrics

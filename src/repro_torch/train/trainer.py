@@ -45,6 +45,7 @@ from repro_torch.data.synthetic import lm_batch
 from repro_torch.device import exact_float32, resolve_device
 from repro_torch.sim import engine
 from repro_torch.sim.cluster import VolatileCluster
+from repro_torch.spans import span
 from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train import megabatch as megabatch_mod
 from repro_torch.train import zoo_program as zoo_mod
@@ -465,25 +466,26 @@ def _prepare_batched(job: JobConfig, scenarios, *, n_ticks, n_batches,
     stream, program (``program``, a factory ``n_batches ->
     ModelProgram``; else the megabatch program; else the per-cell one),
     tick-budget default."""
-    if not isinstance(scenarios, engine.ScenarioBatch):
-        scenarios = engine.stack_scenarios(scenarios, device=device)
-    if scenarios.n_max != job.n_workers:
-        raise ValueError(
-            f"scenario fleet width {scenarios.n_max} != job.n_workers "
-            f"{job.n_workers}: the elastic mask must cover every worker "
-            "slice")
-    j_max = scenarios.j_max
-    n_batches = n_batches or j_max
-    data = stack_batches(job, n_batches, seed=batch_seed, batch_fn=batch_fn,
-                         device=device)
-    if program is not None:
-        program = program(n_batches)
-    elif megabatch:
-        program = make_megabatch_train_program(job, n_batches,
-                                               use_fused_update)
-    else:
-        program = make_train_program(job, n_batches)
-    return scenarios, program, data, n_ticks or default_n_ticks(j_max)
+    with span("train.prepare"):
+        if not isinstance(scenarios, engine.ScenarioBatch):
+            scenarios = engine.stack_scenarios(scenarios, device=device)
+        if scenarios.n_max != job.n_workers:
+            raise ValueError(
+                f"scenario fleet width {scenarios.n_max} != job.n_workers "
+                f"{job.n_workers}: the elastic mask must cover every worker "
+                "slice")
+        j_max = scenarios.j_max
+        n_batches = n_batches or j_max
+        data = stack_batches(job, n_batches, seed=batch_seed,
+                             batch_fn=batch_fn, device=device)
+        if program is not None:
+            program = program(n_batches)
+        elif megabatch:
+            program = make_megabatch_train_program(job, n_batches,
+                                                   use_fused_update)
+        else:
+            program = make_train_program(job, n_batches)
+        return scenarios, program, data, n_ticks or default_n_ticks(j_max)
 
 
 def default_n_ticks(j_max: int) -> int:
@@ -507,14 +509,17 @@ def batched_init_state(job: JobConfig,
     mixed-precision carry are all different trees."""
     device = resolve_device(device)
     n_seeds = int(seeds) if np.isscalar(seeds) else len(seeds)
-    if callable(model0):
-        model0 = model0()
-    elif model0 is None and megabatch:
-        model0 = megabatch_mod.init_megabatch_state(
-            job.model, job, job.seed, device=device)
-    elif model0 is None:
-        model0 = init_train_state(job.model, job, job.seed, device=device)
-    return engine.initial_state(scenarios, model0, n_seeds, device=device)
+    with span("train.prepare"):
+        if callable(model0):
+            model0 = model0()
+        elif model0 is None and megabatch:
+            model0 = megabatch_mod.init_megabatch_state(
+                job.model, job, job.seed, device=device)
+        elif model0 is None:
+            model0 = init_train_state(job.model, job, job.seed,
+                                      device=device)
+        return engine.initial_state(scenarios, model0, n_seeds,
+                                    device=device)
 
 
 def save_batched(path: str, result: engine.EngineResult,

@@ -25,6 +25,7 @@ from repro_torch.models import model_zoo
 from repro_torch.models.common import init_params, spec_dtypes
 from repro_torch.optim.sgd import constant_lr, get_optimizer
 from repro_torch.sim import engine
+from repro_torch.spans import span
 from repro_torch.train.train_step import init_train_state, make_loss_grad
 from repro_torch.tree import tree_map
 
@@ -66,22 +67,24 @@ def make_zoo_step(cfg: ModelConfig, job: JobConfig, remat: str = "none"):
         def zoo_step(model, batch, mask, j):
             params, opt_state = model
             grads, loss, _ = grad_step(params, batch, mask)
-            new_params, new_opt = opt.update(grads, opt_state, params,
-                                             lr_fn(j))
+            with span("step.optimizer"):
+                new_params, new_opt = opt.update(grads, opt_state, params,
+                                                 lr_fn(j))
             return (new_params, new_opt), loss
 
         return zoo_step
 
     def zoo_step(model, batch, mask, j):
         grads, loss, _ = grad_step(model["params"], batch, mask)
-        g32 = tree_map(lambda g: g.to(torch.float32), grads)
-        del grads
-        master, opt_state = opt.update(g32, model["opt"], model["master"],
-                                       lr_fn(j))
-        del g32
-        # refresh the low-precision working copy from the masters
-        params = tree_map(lambda m, p: m.to(p.dtype), master,
-                          model["params"])
+        with span("step.optimizer"):
+            g32 = tree_map(lambda g: g.to(torch.float32), grads)
+            del grads
+            master, opt_state = opt.update(g32, model["opt"],
+                                           model["master"], lr_fn(j))
+            del g32
+            # refresh the low-precision working copy from the masters
+            params = tree_map(lambda m, p: m.to(p.dtype), master,
+                              model["params"])
         return {"params": params, "master": master, "opt": opt_state}, loss
 
     return zoo_step
