@@ -43,7 +43,10 @@ Phases, each printing one JSON line and raising on failure:
    time beside its bound, the plain version's time and
    ``scaled_dot_product_attention``'s (timed here only; the port never
    calls it), the CUDA-core forward's, dK/dV and dQ kernels' bf16 times
-   beside the tensor-core ones';
+   beside the tensor-core ones'; and the path's mixed-precision update
+   (one launch a cell and tick) at one cell's shape: bit for bit against
+   its plain version, its time running and idle beside its byte bound, the
+   plain version's and the functional update-and-gate's it replaced;
 5. slice 3's path: serving full-width Mamba2-1.3B (48 layers, float32
    parameters initialised on the card, bf16 activations) through
    ``launch.serve``'s ``prefill_prompt`` (batch 8, a 2048-token prompt)
@@ -264,7 +267,10 @@ KERNEL_SOURCES = {"elastic_sgd_update": (
     "flash_attention_bwd_delta": K2_TC_SOURCE,
     "flash_attention_bwd_dkdv_tc": K2_TC_SOURCE,
     "flash_attention_bwd_dq": K2_SOURCE,
-    "flash_attention_bwd_dq_tc": K2_TC_SOURCE}
+    "flash_attention_bwd_dq_tc": K2_TC_SOURCE,
+    "mixed_sgd_update": ("src/repro_torch/csrc/mixed_sgd.cu",
+                         "none: the reference's update is jnp, fused by "
+                         "XLA")}
 #: the CUDA-core forward, dK/dV and dQ kernels take float32 (and bf16 when
 #: called directly); the tensor-core ones take bf16, which is what the zoo
 #: path runs, the dK/dV and dQ kernels after one D_i pre-pass
@@ -942,6 +948,7 @@ def phase_zoo_path(torch):
     # every cell's step runs on every tick (idle ones are gated away)
     per_kernel = job.model.num_layers * cells * n_ticks
     want = {n: per_kernel if n in K2_ZOO_KERNELS else 0 for n in launches}
+    want.update(zoo_update_launches(job, cells, n_ticks))
     if launches != want:
         raise AssertionError(f"zoo: kernel launches {launches}, designed "
                              f"{want} ({job.model.num_layers} layers × "
@@ -960,9 +967,18 @@ def phase_zoo_path(torch):
     return res, job, launches
 
 
+def zoo_update_launches(job, cells, n_ticks) -> dict:
+    """The mixed-precision update's launches a ``train_zoo`` run should
+    read: one a cell and tick where the step lands in place, else none."""
+    from repro_torch.train.zoo_program import lands_in_place
+
+    return {"mixed_sgd_update":
+            cells * n_ticks if lands_in_place(job.model, job) else 0}
+
+
 def phase_zoo_steady(torch, res, job):
     """One tick's worth of steps over the run's final carry: every cell
-    stepped and gated in, all running."""
+    stepped and landed (gated in, or landing itself), all running."""
     from repro_torch.sim import engine
     from repro_torch.train.trainer import stack_batches
     from repro_torch.train.zoo_program import make_zoo_program
@@ -982,6 +998,9 @@ def phase_zoo_steady(torch, res, job):
         for s in range(s_dim):
             for r in range(r_dim):
                 cell = tree_index(res.final_model, (s, r))
+                if prog.gates_itself:
+                    prog.step_fn(cell, data, None, mask, j, alpha, running)
+                    continue
                 stepped, _ = prog.step_fn(cell, data, None, mask, j, alpha)
                 engine._gate_model(running, stepped, cell)
                 del stepped      # as the engine does: one new tree at a time
@@ -995,6 +1014,93 @@ def phase_zoo_steady(torch, res, job):
           "tokens_per_s": tokens / (ms / 1e3),
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
     return ms
+
+
+def phase_mixed_sgd_at_cell_shape(torch, smi, launches):
+    """The zoo's mixed-precision update at one grid cell's shape (the zoo
+    path's full-width Qwen2-7B at depth 2: bf16 gradients and working
+    copies over float32 masters and momentum, every leaf): the kernel bit
+    for bit against its plain version, its time running and idle beside
+    its byte bound, the plain version's time, and the time of what it
+    replaced on the same leaves: the functional update (the gradients cast
+    up, `optim.sgd`, the bf16 refresh) followed by the engine's gate."""
+    from repro_torch.kernels import mixed_sgd, ops
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import abstract_params
+    from repro_torch.optim.sgd import get_optimizer
+    from repro_torch.sim import engine
+    from repro_torch.tree import tree_leaves, tree_map
+
+    job, _, _ = zoo_job_and_scenario()
+    shapes = [t.shape for t in tree_leaves(abstract_params(
+        model_zoo.param_defs(job.model), torch.bfloat16))]
+    n = sum(math.prod(sh) for sh in shapes)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(31)
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    grads = [randn(sh, 3.0).to(torch.bfloat16) for sh in shapes]
+    mom = [randn(sh) for sh in shapes]
+    master = [randn(sh) for sh in shapes]
+    params = [m.to(torch.bfloat16) for m in master]
+    lr = torch.full((), job.learning_rate, device=dev)
+    on, off = (torch.tensor(x, device=dev) for x in (True, False))
+    mu = job.momentum
+
+    carry = (mom, master, params)
+    want = [[x.clone() for x in part] for part in carry]
+    mixed_sgd.mixed_sgd_update_reference(grads, *want, on, lr, momentum=mu)
+    ops.mixed_sgd_update(grads, *carry, on, lr, momentum=mu)
+    torch.cuda.synchronize()
+    for part, wpart in zip(carry, want):
+        for a, b in zip(part, wpart):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"mixed_sgd_update differs from its plain version at "
+                    f"{tuple(a.shape)}: max |err| "
+                    f"{(a.float() - b.float()).abs().max().item()}")
+    del want
+
+    ms = timed(lambda: ops.mixed_sgd_update(grads, *carry, on, lr,
+                                            momentum=mu), 10, torch)
+    idle_ms = timed(lambda: ops.mixed_sgd_update(grads, *carry, off, lr,
+                                                 momentum=mu), 10, torch)
+    plain_ms = timed(lambda: mixed_sgd.mixed_sgd_update_reference(
+        grads, *carry, on, lr, momentum=mu), 2, torch)
+
+    def tree(xs):
+        return {f"{i:02d}": x for i, x in enumerate(xs)}
+    opt = get_optimizer("sgd", mu)
+    model = {"params": tree(params), "master": tree(master),
+             "opt": tree(mom)}
+
+    def update_and_gate():
+        g32 = tree_map(lambda g: g.to(torch.float32), tree(grads))
+        new_master, new_opt = opt.update(g32, model["opt"], model["master"],
+                                         lr)
+        del g32
+        new_params = tree_map(lambda m, p: m.to(p.dtype), new_master,
+                              model["params"])
+        engine._gate_model(on, {"params": new_params, "master": new_master,
+                                "opt": new_opt}, model)
+    parent_ms = timed(update_and_gate, 2, torch)
+    del grads, mom, master, params, carry, model
+
+    hbm, _, _, _, label = card_peaks(torch.cuda.get_device_name(0))
+    nbytes = 20 * n       # read g (bf16), v, m; write v, m, p (bf16)
+    bound_ms = 1e3 * nbytes / hbm
+    emit({"phase": "mixed_sgd_at_cell_shape", "kernel": "mixed_sgd_update",
+          "leaves": len(shapes), "P": n, "bit_exact": True, "ms": ms,
+          "idle_ms": idle_ms, "achieved_GBps": nbytes / ms / 1e6,
+          "bound_ms": bound_ms, "roofline_pct": 100 * bound_ms / ms,
+          "peak": label, "plain_ms": plain_ms,
+          "functional_update_and_gate_ms": parent_ms, "card": smi})
+    src, replaces = KERNEL_SOURCES["mixed_sgd_update"]
+    return {"name": "mixed_sgd_update", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches["mixed_sgd_update"],
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 
 def phase_k2_in_place(torch, job):
@@ -2304,6 +2410,7 @@ def phase_durable_reference(torch):
     cells = int(res.iterations.size)
     per_kernel = job.model.num_layers * cells * spec.n_ticks
     want = {n: per_kernel if n in K2_ZOO_KERNELS else 0 for n in launches}
+    want.update(zoo_update_launches(job, cells, spec.n_ticks))
     if launches != want:
         raise AssertionError(f"durable_reference: kernel launches "
                              f"{launches}, designed {want}")
@@ -3030,7 +3137,8 @@ def zoo_train_phase(torch, name, spec_kw, want_of, remat="none"):
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     cells = int(res.iterations.size)
-    want = want_of(job, cells, spec.n_ticks)
+    want = {**want_of(job, cells, spec.n_ticks),
+            **zoo_update_launches(job, cells, spec.n_ticks)}
     losses = zoo_losses(res)
     flat = [float(x) for row in losses for x in row]
     vocab = job.model.vocab_size
@@ -4955,6 +5063,8 @@ def main() -> int:
     cells = int(zres.iterations.size)
     del zres
     free(torch)
+    mixed = phase_mixed_sgd_at_cell_shape(torch, smi, zlaunches)
+    free(torch)
     phase_k2_in_place(torch, zjob)
     free(torch)
     k2 = phase_k2_at_path_shape(torch, smi, zlaunches, tick_ms / cells,
@@ -4999,7 +5109,7 @@ def main() -> int:
           "slice_11_seconds": t12 - t11, "slice_12_seconds": t13 - t12,
           "slice_13_seconds": t14 - t13, "slice_14_seconds": t15 - t14,
           "slice_15_seconds": time.perf_counter() - t15})
-    emit({"kernels": [k1] + k2 + k3 + k3_hybrid + k2_hybrid + k2_whisper
+    emit({"kernels": [k1, mixed] + k2 + k3 + k3_hybrid + k2_hybrid + k2_whisper
           + k2_padded + k2_tp + rows_15})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,9 +7,9 @@ import threading
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``: its kernel was launched. Under a
-    lock, since shards on different cards launch from their own host
-    threads (`sim.engine.simulate_sharded`)."""
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add ``n`` to ``wrapper.launches``: its kernel was launched ``n``
+    times. Under a lock, since shards on different cards launch from their
+    own host threads (`sim.engine.simulate_sharded`)."""
     with _COUNT_LOCK:
-        wrapper.launches += 1
+        wrapper.launches += n

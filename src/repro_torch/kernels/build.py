@@ -27,13 +27,15 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 #: kernel name -> source file under csrc/
 SOURCES = {"elastic_update": "elastic_update.cu",
+           "mixed_sgd": "mixed_sgd.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_sm90": "flash_attention_sm90.cu",
            "ssd_scan": "ssd_scan.cu",
            "ssd_scan_sm90": "ssd_scan_sm90.cu"}
 
 #: -fmad=false keeps every multiply and add separately rounded, as in the
-#: plain PyTorch versions, so the card checks K1 bit for bit. The inner
+#: plain PyTorch versions, so the card checks K1 and the mixed-precision
+#: update bit for bit. The inner
 #: products of K2 and K3 are explicit fmaf() calls, which the flag leaves
 #: fused.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

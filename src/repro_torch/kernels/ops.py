@@ -11,7 +11,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import flash_attention as flash
-from repro_torch.kernels import count_launch, ref, ssd_scan
+from repro_torch.kernels import count_launch, mixed_sgd, ref, ssd_scan
 from repro_torch.kernels.elastic_update import elastic_sgd_update
 
 
@@ -37,6 +37,30 @@ def fused_elastic_update(params, mom, grads, w_sum, running, lr, *,
 
 
 fused_elastic_update.launches = 0
+
+
+def mixed_sgd_update(grads, mom, master, params, running, lr, *,
+                     momentum: float) -> None:
+    """One cell's mixed-precision SGD-with-momentum step, landed IN PLACE
+    in its momentum, float32 masters and working copies (bf16 or float32)
+    where the 0-d ``running`` holds; leaves matched by position, ``lr`` a
+    0-d float32 tensor.
+
+    Where any of its tensors is on CUDA this launches the kernel
+    (``kernels.mixed_sgd``) once for all the leaves, which refuses tensors
+    on other devices, and adds its launches to
+    ``mixed_sgd_update.launches``; on CPU tensors it runs
+    ``mixed_sgd.mixed_sgd_update_reference``."""
+    tensors = (running, lr, *grads, *mom, *master, *params)
+    if not any(t.is_cuda for t in tensors):
+        mixed_sgd.mixed_sgd_update_reference(grads, mom, master, params,
+                                             running, lr, momentum=momentum)
+        return
+    count_launch(mixed_sgd_update, mixed_sgd.mixed_sgd_update(
+        grads, mom, master, params, running, lr, momentum=momentum))
+
+
+mixed_sgd_update.launches = 0
 
 
 def flash_mha(q, k, v, *, causal: bool = True, window: Optional[int] = None,
@@ -115,6 +139,7 @@ ssd_chunked.launches = 0
 
 #: kernel name -> the wrapper that launches it
 WRAPPERS = {"elastic_sgd_update": fused_elastic_update,
+            "mixed_sgd_update": mixed_sgd_update,
             "flash_attention_fwd": flash.flash_fwd,
             "flash_attention_fwd_tc": flash.flash_fwd_tc,
             "flash_attention_bwd_dkdv": flash.flash_bwd_dkdv,

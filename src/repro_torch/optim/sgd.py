@@ -2,7 +2,8 @@
 Adam, over nested dicts of tensors, with a constant or cosine learning
 rate. ``update`` is functional: it returns new parameter and state trees and
 leaves its inputs untouched (the engine gates the new trees into the carry
-in place)."""
+in place). The zoo's bf16 step with SGD and momentum lands the same update
+itself, in one pass (`kernels.ops.mixed_sgd_update`)."""
 from __future__ import annotations
 
 import dataclasses

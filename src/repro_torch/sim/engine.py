@@ -525,6 +525,13 @@ class ModelProgram:
     ``new_model`` only where the iteration runs (`_gate_model`), so idle
     and finished ticks are true no-ops on every leaf.
 
+    ``gates_itself=True`` (per cell): the step lands its own update, as a
+    blocked step does. The engine passes the cell's 0-d ``running`` as a
+    seventh argument, ``step_fn(model, data, key, mask, j, alpha,
+    running)``; the step writes the cell's carry in place wherever
+    ``running`` holds and nowhere else, and the engine ignores the model
+    it returns and calls no `_gate_model`.
+
     ``blocked=True``: ``step_fn`` is called ONCE per tick over the whole
     grid with leading (S, R) axes on every argument::
 
@@ -541,6 +548,7 @@ class ModelProgram:
     step_fn: Callable[..., Any]
     name: str = "program"
     blocked: bool = False
+    gates_itself: bool = False
 
 
 class SimState(NamedTuple):
@@ -849,7 +857,7 @@ def _cells_tick(batch: ScenarioBatch, data, seeds, program: ModelProgram,
     """One tick of the per-cell layout (the reference's vmapped
     ``_sim_one``): the market logic runs over the whole (S, R) grid, then
     the step runs for every cell on views of its carry and `_gate_model`
-    lands it."""
+    lands it, or the step lands itself (``program.gates_itself``)."""
     s_dim, r_dim = grid
 
     def tick(state: SimState, k: int) -> SimState:
@@ -861,12 +869,15 @@ def _cells_tick(batch: ScenarioBatch, data, seeds, program: ModelProgram,
         for s in range(s_dim):
             for r in range(r_dim):
                 cell = tree_index(state.model, (s, r))
-                stepped, met = program.step_fn(
-                    cell, data, m.k_grad[s, r], mask[s, r], state.j[s, r],
-                    batch.alpha[s])
-                with span("engine.gate"):
-                    _gate_model(m.running[s, r], stepped, cell)
-                del stepped
+                args = (cell, data, m.k_grad[s, r], mask[s, r],
+                        state.j[s, r], batch.alpha[s])
+                if program.gates_itself:
+                    _, met = program.step_fn(*args, m.running[s, r])
+                else:
+                    stepped, met = program.step_fn(*args)
+                    with span("engine.gate"):
+                        _gate_model(m.running[s, r], stepped, cell)
+                    del stepped
                 metric[s, r] = met
         return _advance(state, m, metric, state.model, batch.j_max)
 

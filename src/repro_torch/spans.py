@@ -17,7 +17,8 @@ The spans, each with the one open around it on the host thread:
 * ``engine.market``: the tick's market and accounting
   (`sim.engine._market_tick`), under ``engine.tick``;
 * ``engine.gate``: landing a per-cell step in the carry
-  (`sim.engine._gate_model`), under ``engine.tick``;
+  (`sim.engine._gate_model`), under ``engine.tick``; a program that gates
+  itself (the mixed-precision zoo step with SGD and momentum) opens none;
 * ``step.forward``: the step's forward and loss (`train.megabatch`'s
   ``_fwd_res``; `train.train_step.make_loss_grad`'s loss, once a
   micro-slice), under ``engine.tick`` in the engine's programs;
@@ -26,9 +27,9 @@ The spans, each with the one open around it on the host thread:
   may run on a worker thread of its own, while this thread waits inside
   the span;
 * ``step.optimizer``: the update (the megabatch step's fused or plain
-  update and its loss; the zoo step's cast of the gradients, the
-  optimizer and the refresh of the low-precision parameters; the train
-  step's optimizer);
+  update and its loss; the zoo step's gated in-place update, or its cast
+  of the gradients, the optimizer and the refresh of the low-precision
+  parameters; the train step's optimizer);
 * ``train.prepare``: a trainer call's batches and program
   (`train.trainer._prepare_batched`) and the grid's initial carry
   (`train.trainer.batched_init_state`);

@@ -797,8 +797,10 @@ def train_zoo(job: JobConfig,
     ``save_every`` are given, over `train_batched_durable` — the same
     durable chunk loop, step-directory GC, async writer, NaN guard and
     chaos hooks all apply) with the model program swapped for
-    `zoo_program.make_zoo_program` (per cell, gated by the engine) and the
-    initial carry for `zoo_program.init_zoo_state` from ``job.seed``, or
+    `zoo_program.make_zoo_program` (per cell, gated by the engine, or by
+    the step itself where it lands in place: bf16 with SGD and momentum)
+    and the initial carry for `zoo_program.init_zoo_state` from
+    ``job.seed``, or
     ``model0`` (one replica's carry, e.g. the reference's weights carried
     over by `convert.zoo_state_from_reference`). With
     ``job.model.use_flash_attention`` the attention runs through K2 on the

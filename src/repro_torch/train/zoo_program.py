@@ -6,12 +6,17 @@ ModelProgram, trained under elastic worker masking.
   beside float32 optimizer masters and float32 momentum. Grads are
   computed against the bf16 params, cast up, applied to the masters, and
   the masters are cast down to refresh the params. The loss stays float32
-  end to end. With a float32 ``param_dtype`` the carry is exactly
-  `train_step.init_train_state`'s ``(params, opt_state)``.
+  end to end. With bf16 params and SGD with momentum (`lands_in_place`)
+  all of that is one gated pass in place (`kernels.ops.mixed_sgd_update`,
+  a CUDA kernel on the card), bit for bit the functional update followed
+  by the engine's gate; other optimizers return new trees. With a float32
+  ``param_dtype`` the carry is exactly `train_step.init_train_state`'s
+  ``(params, opt_state)``.
 * **Elastic masking**: the engine's (n_max,) active-worker mask drives the
   per-worker token weights inside `train_step.make_loss_grad`, with
-  `core.elastic.weighted_mean`'s exact-zero convention; the engine gates
-  idle ticks to true no-ops.
+  `core.elastic.weighted_mean`'s exact-zero convention; idle ticks are
+  true no-ops, gated by the engine or, in place, by the step itself on
+  the tick's ``running``.
 * **Flash attention**: ``cfg.use_flash_attention`` routes full-sequence
   self-attention through `kernels.ops.flash_mha` (K2 on the card); nothing
   else changes here.
@@ -21,13 +26,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import JobConfig, ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import model_zoo
 from repro_torch.models.common import init_params, spec_dtypes
 from repro_torch.optim.sgd import constant_lr, get_optimizer
 from repro_torch.sim import engine
 from repro_torch.spans import span
 from repro_torch.train.train_step import init_train_state, make_loss_grad
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def is_mixed_precision(cfg: ModelConfig) -> bool:
@@ -35,6 +41,14 @@ def is_mixed_precision(cfg: ModelConfig) -> bool:
     selects the master-copy carry layout. A bad dtype string raises the
     named `configs.base.DtypeError` here."""
     return cfg.resolved_param_dtype() != torch.float32
+
+
+def lands_in_place(cfg: ModelConfig, job: JobConfig) -> bool:
+    """True when the zoo step lands its own update in place, gated on the
+    tick's ``running``: bf16 params over float32 masters (the dtypes
+    `kernels.ops.mixed_sgd_update` takes) and SGD with momentum."""
+    return (cfg.resolved_param_dtype() == torch.bfloat16
+            and job.optimizer == "sgd" and job.momentum != 0.0)
 
 
 def init_zoo_state(cfg: ModelConfig, job: JobConfig, seed: int, *, device):
@@ -57,8 +71,11 @@ def init_zoo_state(cfg: ModelConfig, job: JobConfig, seed: int, *, device):
 
 def make_zoo_step(cfg: ModelConfig, job: JobConfig, remat: str = "none"):
     """One zoo training iteration over the `init_zoo_state` carry:
-    ``zoo_step(model, batch, mask, j) -> (new_model, loss)``. It returns
-    new trees and leaves ``model`` untouched."""
+    ``zoo_step(model, batch, mask, j) -> (new_model, loss)``, which
+    returns new trees and leaves ``model`` untouched; or, where
+    `lands_in_place`, ``zoo_step(model, batch, mask, j, running) ->
+    (model, loss)``, which updates ``model`` in place where the 0-d
+    ``running`` holds."""
     grad_step = make_loss_grad(cfg, job, remat)
     opt = get_optimizer(job.optimizer, job.momentum)
     lr_fn = constant_lr(job.learning_rate)
@@ -71,6 +88,21 @@ def make_zoo_step(cfg: ModelConfig, job: JobConfig, remat: str = "none"):
                 new_params, new_opt = opt.update(grads, opt_state, params,
                                                  lr_fn(j))
             return (new_params, new_opt), loss
+
+        return zoo_step
+
+    if lands_in_place(cfg, job):
+        def zoo_step(model, batch, mask, j, running):
+            grads, loss, _ = grad_step(model["params"], batch, mask)
+            with span("step.optimizer"):
+                # autograd may hand back a strided gradient; the kernel
+                # takes contiguous leaves
+                ops.mixed_sgd_update(
+                    [g.contiguous() for g in tree_leaves(grads)],
+                    tree_leaves(model["opt"]), tree_leaves(model["master"]),
+                    tree_leaves(model["params"]), running, lr_fn(j),
+                    momentum=job.momentum)
+            return model, loss
 
         return zoo_step
 
@@ -97,15 +129,18 @@ def make_zoo_program(cfg: ModelConfig, job: JobConfig, n_batches: int,
     ``data`` is the `trainer.stack_batches` dict (leading (n_batches,)
     axis), indexed ``j % n_batches`` on the device (no host sync). The
     scenario ``alpha`` and the random word are ignored — the learning rate
-    comes from the job, as everywhere in the trainer."""
+    comes from the job, as everywhere in the trainer. Where
+    `lands_in_place` the program gates itself: the engine hands the step
+    the cell's ``running``."""
     step = make_zoo_step(cfg, job, remat)
 
-    def step_fn(model, data, key, mask, j, alpha):
+    def step_fn(model, data, key, mask, j, alpha, *running):
         del key, alpha
         idx = (j % n_batches).reshape(1)
         batch = {k: x.index_select(0, idx)[0] for k, x in data.items()}
-        return step(model, batch, mask, j)
+        return step(model, batch, mask, j, *running)
 
     mode = "mixed" if is_mixed_precision(cfg) else "f32"
     return engine.ModelProgram(step_fn=step_fn,
-                               name=f"zoo-{cfg.name}-{n_batches}-{mode}")
+                               name=f"zoo-{cfg.name}-{n_batches}-{mode}",
+                               gates_itself=lands_in_place(cfg, job))

@@ -5,7 +5,10 @@ beside their CUDA-core counterparts; K2 at head_dims other than 64 and 128
 through its zero-padding entry point), the engine's random bits and RNG-free market on CUDA against
 the CPU, the quadratic oracle on the card against the CPU and its snapshot
 resume, a small megabatched run through K1, small zoo runs through K2
-(float32 and bf16), a small Mamba2 served through K3, the reduced dense,
+(float32 and bf16), the zoo's mixed-precision update bit for bit against
+its plain version (at the zoo cell's leaf shapes; ragged, unaligned and
+idle leaves) and a small bf16 zoo run through it bit for bit the
+functional update's, a small Mamba2 served through K3, the reduced dense,
 MLA and MoE transformers served on the card against the CPU (no kernel:
 the cached path is the plain attention core) and the MoE block's
 deterministic combine, and durable
@@ -37,7 +40,7 @@ from repro_torch.configs import ARCHS
 from repro_torch.configs.base import InputShape, JobConfig
 from repro_torch.core import bidding, strategies as strat
 from repro_torch.core.cost_model import RuntimeModel
-from repro_torch.kernels import ops, ref, ssd_scan
+from repro_torch.kernels import mixed_sgd, ops, ref, ssd_scan
 from repro_torch.kernels.elastic_update import elastic_sgd_update
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels.flash_attention import flash_attention
@@ -696,6 +699,215 @@ def test_zoo_bf16_run_on_cuda_goes_through_tc_forward(cuda_device):
     assert np.isfinite(gpu.errors[..., 0][ran]).all()
     np.testing.assert_allclose(gpu.errors[..., 0][ran],
                                cpu.errors[..., 0][ran], atol=2e-2)
+
+
+# ------------------------------------------- the zoo's mixed-precision SGD
+
+
+def _mixed_leaves(shapes, device, grad_dtype=torch.bfloat16,
+                  work=torch.bfloat16, seed=0):
+    """(grads, momentum, masters, working copies) at ``shapes``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+    master = [randn(sh) for sh in shapes]
+    return ([randn(sh, 3.0).to(grad_dtype) for sh in shapes],
+            [randn(sh) for sh in shapes], master,
+            [m.to(work) for m in master])
+
+
+def _bit_view(t):
+    return t.view({torch.bfloat16: torch.int16,
+                   torch.float32: torch.int32}[t.dtype])
+
+
+def _kernel_and_plain(grads, carry, running, lr):
+    """The kernel's update of ``carry`` (in place) and the plain version's
+    of a copy of it, from the same start."""
+    want = [[x.clone() for x in part] for part in carry]
+    mixed_sgd.mixed_sgd_update_reference(grads, *want, running, lr,
+                                         momentum=0.9)
+    ops.mixed_sgd_update(grads, *carry, running, lr, momentum=0.9)
+    torch.cuda.synchronize()
+    return want
+
+
+def test_mixed_sgd_bit_equal_to_plain_at_the_zoo_cells_shapes(cuda_device):
+    """One grid cell of the zoo cell (full-width Qwen2-7B at depth 2: its
+    15 leaves, 1.56 B parameters, bf16 over float32 masters and momentum)
+    in one launch, every bit of the plain version's."""
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import abstract_params
+    from repro_torch.tree import tree_leaves
+
+    cfg = ARCHS["qwen2-7b"].with_(num_layers=2)
+    shapes = [t.shape for t in tree_leaves(abstract_params(
+        model_zoo.param_defs(cfg), torch.bfloat16))]
+    assert len(shapes) == 15
+    grads, *carry = _mixed_leaves(shapes, cuda_device)
+    ops.reset_launch_counts()
+    want = _kernel_and_plain(grads, carry,
+                             torch.tensor(True, device=cuda_device),
+                             torch.full((), 0.1, device=cuda_device))
+    assert ops.launch_counts()["mixed_sgd_update"] == 1
+    for part, wpart in zip(carry, want):
+        for a, b in zip(part, wpart):
+            assert torch.equal(_bit_view(a), _bit_view(b)), tuple(a.shape)
+
+
+@pytest.mark.parametrize("grad_dtype,work", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+    (torch.float32, torch.float32)])
+def test_mixed_sgd_ragged_and_unaligned_leaves(cuda_device, grad_dtype,
+                                               work):
+    """Leaf sizes no multiple of 8 (one of 1), whole and ragged chunks, one
+    leaf starting an element off its 16-byte boundary in every part (the
+    scalar path), NaN and infinite gradients: every bit of the plain
+    version's."""
+    shapes = [(1,), (7,), (4096,), (3, 4099), (2, 8192 + 13), (5, 8)]
+    grads, mom, master, params = _mixed_leaves(shapes, cuda_device,
+                                               grad_dtype, work, seed=1)
+    grads[2].view(-1)[::5] = float("nan")
+    grads[4].view(-1)[::7] = float("inf")
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        out = buf[1:].view(x.shape)
+        out.copy_(x)
+        return out
+    for part in (grads, mom, master, params):
+        part[3] = shifted(part[3])
+    assert grads[3].data_ptr() % 16 and mom[3].data_ptr() % 16
+    carry = [mom, master, params]
+    want = _kernel_and_plain(grads, carry,
+                             torch.tensor(True, device=cuda_device),
+                             torch.full((), 0.05, device=cuda_device))
+    for part, wpart in zip(carry, want):
+        for a, b in zip(part, wpart):
+            assert torch.equal(_bit_view(a), _bit_view(b)), tuple(a.shape)
+
+
+def test_mixed_sgd_idle_cell_leaves_a_canary_untouched(cuda_device):
+    """``running`` false: not a bit of any leaf moves (a canary pattern
+    under NaN gradients), nor of the guard elements around each leaf;
+    running, the leaves move and the guards still do not. The counter adds
+    one per cell-update, idle or not."""
+    shapes = [(3 * 4096,), (1000, 7)]
+    grads, mom, master, params = _mixed_leaves(shapes, cuda_device, seed=2)
+    canary = {torch.float32: 0x7FA5A5A5, torch.bfloat16: 0x7F81}
+    bufs = []
+
+    def guarded(x):
+        buf = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+        _bit_view(buf).fill_(canary[x.dtype])
+        bufs.append(buf)
+        return buf[8:8 + x.numel()].view(x.shape)
+    carry = [[guarded(x) for x in part] for part in (mom, master, params)]
+    nan_grads = [torch.full_like(g, float("nan")) for g in grads]
+    before = [_bit_view(b).clone() for b in bufs]
+    lr = torch.full((), 0.1, device=cuda_device)
+    ops.reset_launch_counts()
+    for _ in range(2):
+        ops.mixed_sgd_update(nan_grads, *carry,
+                             torch.tensor(False, device=cuda_device), lr,
+                             momentum=0.9)
+    torch.cuda.synchronize()
+    for b, c in zip(bufs, before):
+        assert torch.equal(_bit_view(b), c)
+    for part in carry:                # finite values for the running call
+        for x in part:
+            x.copy_(torch.randn(x.shape, device=cuda_device))
+    ops.mixed_sgd_update(grads, *carry, torch.tensor(True, device=cuda_device),
+                         lr, momentum=0.9)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mixed_sgd_update"] == 3
+    for b, c in zip(bufs, before):
+        assert torch.equal(_bit_view(b)[:8], c[:8])
+        assert torch.equal(_bit_view(b)[-8:], c[-8:])
+        assert not torch.equal(_bit_view(b), c)
+
+
+def test_mixed_sgd_refuses_what_it_does_not_take(cuda_device):
+    grads, mom, master, params = _mixed_leaves([(64,), (8, 8)], cuda_device,
+                                               seed=3)
+    on = torch.tensor(True, device=cuda_device)
+    lr = torch.full((), 0.1, device=cuda_device)
+    bad = [
+        (grads, mom, master, params, on.cpu(), lr),
+        (grads, mom, master, params, on, lr.double()),
+        (grads, mom, master[:1], params, on, lr),
+        ([g.double() for g in grads], mom, master, params, on, lr),
+        (grads, [v.to(torch.bfloat16) for v in mom], master, params, on, lr),
+        (grads, mom, master, [p.half() for p in params], on, lr),
+        (grads, mom, master, [params[0], params[1].t()], on, lr),
+        (grads, mom, master, [params[0], params[1][:4]], on, lr),
+        ([grads[0].cpu(), grads[1]], mom, master, params, on, lr),
+        # a bf16 gradient under a float32 working copy: no caller makes it
+        (grads, mom, master, [p.float() for p in params], on, lr),
+        ([grads[0]] * 65, [mom[0]] * 65, [master[0]] * 65, [params[0]] * 65,
+         on, lr),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            mixed_sgd.mixed_sgd_update(*args, momentum=0.9)
+    # through the dispatching wrapper: CUDA leaves with a CPU ``running``
+    # or rate raise, rather than taking the plain path
+    for args in ((grads, mom, master, params, on.cpu(), lr),
+                 (grads, mom, master, params, on.cpu(), lr.cpu())):
+        with pytest.raises(ValueError):
+            ops.mixed_sgd_update(*args, momentum=0.9)
+
+
+def test_mixed_sgd_counts_the_launches_it_makes(cuda_device):
+    """The counter adds what the launcher made: one for a cell's leaves,
+    none when every leaf is empty."""
+    on = torch.tensor(True, device=cuda_device)
+    lr = torch.full((), 0.1, device=cuda_device)
+    ops.reset_launch_counts()
+    ops.mixed_sgd_update(*_mixed_leaves([(0,), (0, 8)], cuda_device), on, lr,
+                         momentum=0.9)
+    assert ops.launch_counts()["mixed_sgd_update"] == 0
+    ops.mixed_sgd_update(*_mixed_leaves([(0,), (40,)], cuda_device), on, lr,
+                         momentum=0.9)
+    assert ops.launch_counts()["mixed_sgd_update"] == 1
+
+
+def test_zoo_bf16_run_lands_in_place_as_the_functional_step(cuda_device,
+                                                            monkeypatch):
+    """A small bf16 zoo run on the card, its update through the
+    mixed-precision kernel once a cell and tick, against the same run
+    through the functional update and the engine's gate: the same losses
+    and trajectories and every carry bit."""
+    from repro_torch.train import zoo_program
+    from repro_torch.train.trainer import train_zoo
+    from repro_torch.tree import tree_leaves
+
+    base = _job()
+    job = JobConfig(model=base.model.with_(
+        head_dim=64, use_flash_attention=True, dtype="bfloat16",
+        param_dtype="bfloat16"), shape=base.shape,
+        n_workers=base.n_workers, learning_rate=base.learning_rate)
+    model0 = zoo_program.init_zoo_state(job.model, job, 0, device="cpu")
+    n_ticks, seeds = 12, [0, 3]
+
+    def run():
+        return train_zoo(job, _scenarios(), seeds, n_ticks=n_ticks,
+                         model0=model0, device=cuda_device)
+    ops.reset_launch_counts()
+    mine = run()
+    assert ops.launch_counts()["mixed_sgd_update"] == len(seeds) * n_ticks
+    monkeypatch.setattr(zoo_program, "lands_in_place", lambda cfg, job: False)
+    ops.reset_launch_counts()
+    theirs = run()
+    assert ops.launch_counts()["mixed_sgd_update"] == 0
+    assert (mine.iterations > 0).all()
+    for field in ("errors", "iterations", "ys", "total_time", "total_cost"):
+        np.testing.assert_array_equal(getattr(mine, field),
+                                      getattr(theirs, field))
+    for a, b in zip(tree_leaves(mine.final_model),
+                    tree_leaves(theirs.final_model)):
+        assert a.dtype == b.dtype and torch.equal(_bit_view(a), _bit_view(b))
 
 
 # ------------------------------------------------------------------ K3

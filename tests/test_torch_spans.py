@@ -1,7 +1,8 @@
 """The port's host spans (`repro_torch.spans`): a tiny float32 megabatch
-call and a tiny bf16 zoo call under ``torch.profiler`` on the CPU record
-each span as often as the run implies, as a plain function range nested
-where its layer is, and a traced run is bit for bit an untraced one."""
+call and tiny bf16 and float32 zoo calls under ``torch.profiler`` on the
+CPU record each span as often as the run implies, as a plain function
+range nested where its layer is, and a traced run is bit for bit an
+untraced one."""
 import numpy as np
 import pytest
 import torch
@@ -49,10 +50,10 @@ def _megabatch(**kw):
                          device="cpu", **kw)
 
 
-def _zoo(**kw):
+def _zoo(dtype="bfloat16", **kw):
     cfg = ARCHS["qwen2-7b"].reduced().with_(
         d_model=32, num_heads=4, num_kv_heads=2, head_dim=8, d_ff=64,
-        vocab_size=128, dtype="bfloat16", param_dtype="bfloat16",
+        vocab_size=128, dtype=dtype, param_dtype=dtype,
         use_flash_attention=True)
     job = JobConfig(model=cfg, shape=InputShape("t", 24, 8, "train"),
                     n_workers=4, learning_rate=0.1)
@@ -60,20 +61,23 @@ def _zoo(**kw):
                      device="cpu", **kw)
 
 
-RUNS = {"megabatch": _megabatch, "zoo": _zoo}
+RUNS = {"megabatch": _megabatch, "zoo": _zoo,
+        "zoo-f32": lambda **kw: _zoo("float32", **kw)}
 CELLS = 2 * len(SEEDS)
-#: per span: how often a call of N_TICKS ticks over CELLS cells opens it
+_ZOO = {"engine.tick": N_TICKS, "engine.market": N_TICKS,
+        "step.forward": CELLS * N_TICKS, "step.backward": CELLS * N_TICKS,
+        "step.optimizer": CELLS * N_TICKS, "train.prepare": 2,
+        "engine.readback": 1}
+#: per span: how often a call of N_TICKS ticks over CELLS cells opens it.
+#: The bf16 zoo step lands its update in place and gates itself, so the
+#: engine's gate opens only for the float32 one.
 COUNTS = {
     "megabatch": {"engine.tick": N_TICKS, "engine.market": N_TICKS,
                   "engine.gate": 0, "step.forward": N_TICKS,
                   "step.backward": N_TICKS, "step.optimizer": N_TICKS,
                   "train.prepare": 2, "engine.readback": 1},
-    "zoo": {"engine.tick": N_TICKS, "engine.market": N_TICKS,
-            "engine.gate": CELLS * N_TICKS,
-            "step.forward": CELLS * N_TICKS,
-            "step.backward": CELLS * N_TICKS,
-            "step.optimizer": CELLS * N_TICKS,
-            "train.prepare": 2, "engine.readback": 1},
+    "zoo": {**_ZOO, "engine.gate": 0},
+    "zoo-f32": {**_ZOO, "engine.gate": CELLS * N_TICKS},
 }
 
 

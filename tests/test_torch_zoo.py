@@ -36,8 +36,9 @@ from repro_torch.sim import engine
 from repro_torch.train import trainer
 from repro_torch.train.train_step import (make_eval_step, make_loss_grad,
                                           make_train_step)
+from repro_torch.train import zoo_program
 from repro_torch.train.zoo_program import init_zoo_state, is_mixed_precision
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 J = 8
 N_W = 4
@@ -352,6 +353,97 @@ def test_gate_keeps_old_bits_and_casts_to_carry_dtype():
                        old)
     assert old["w"].dtype == torch.bfloat16
     assert old["w"].tolist() == [7.0, 8.0] and old["m"][0].item() == 9.0
+
+
+def _bits(t):
+    """A leaf's bits, so that NaNs compare equal to themselves."""
+    return t.view({torch.bfloat16: torch.int16,
+                   torch.float32: torch.int32}[t.dtype])
+
+
+#: working copy's dtype, gradients' dtype, running, NaN gradients. float32
+#: gradients under bf16 parameters are what micro-slice accumulation gives;
+#: a float32 working leaf is a per-ParamSpec dtype override.
+IN_PLACE_CASES = {
+    "bf16-running": (torch.bfloat16, torch.bfloat16, True, False),
+    "bf16-idle": (torch.bfloat16, torch.bfloat16, False, False),
+    "f32-running": (torch.float32, torch.float32, True, False),
+    "f32-idle": (torch.float32, torch.float32, False, False),
+    "bf16-f32-grads-running": (torch.bfloat16, torch.float32, True, False),
+    "nan-grads-running": (torch.bfloat16, torch.bfloat16, True, True),
+    "nan-grads-idle": (torch.bfloat16, torch.bfloat16, False, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(IN_PLACE_CASES))
+def test_in_place_update_is_the_functional_step_and_gate(monkeypatch, case):
+    """The zoo step that lands in place (its plain path on the CPU)
+    against `make_zoo_step`'s functional update followed by
+    `engine._gate_model`, on the same gradients: every bit of every leaf,
+    ragged leaf sizes included; an idle tick leaves every bit as it was,
+    NaN gradients too."""
+    work, gdt, running, nan = IN_PLACE_CASES[case]
+    job, _ = _jobs(dtype="bfloat16", param_dtype="bfloat16")
+    assert zoo_program.lands_in_place(job.model, job)
+    gen = torch.Generator().manual_seed(7)
+    shapes = {"a": (37,), "b": (3, 24), "c": (2, 5, 8)}
+
+    def draw(scale=1.0):
+        return {k: torch.randn(s, generator=gen) * scale
+                for k, s in shapes.items()}
+    master = draw()
+    model = {"params": {k: m.to(work) for k, m in master.items()},
+             "master": master, "opt": draw()}
+    grads = {k: g.to(gdt) for k, g in draw(3.0).items()}
+    if nan:
+        for g in grads.values():
+            g.view(-1)[::3] = float("nan")
+    loss = torch.tensor(1.25)
+    monkeypatch.setattr(zoo_program, "make_loss_grad", lambda *a, **k: (
+        lambda params, batch, mask: (grads, loss, loss)))
+    in_place = zoo_program.make_zoo_step(job.model, job)
+    monkeypatch.setattr(zoo_program, "lands_in_place", lambda cfg, job: False)
+    functional = zoo_program.make_zoo_step(job.model, job)
+
+    before = [_bits(x).clone() for x in tree_leaves(model)]
+    mine, theirs = tree_map(torch.clone, model), tree_map(torch.clone, model)
+    j, run = torch.tensor(3), torch.tensor(running)
+    out, _ = in_place(mine, None, None, j, run)
+    assert out is mine
+    stepped, _ = functional(theirs, None, None, j)
+    engine._gate_model(run, stepped, theirs)
+    changed = False
+    for a, b, c in zip(tree_leaves(mine), tree_leaves(theirs), before):
+        assert a.dtype == b.dtype
+        assert torch.equal(_bits(a), _bits(b))
+        changed |= not torch.equal(_bits(a), c)
+    assert changed == running
+
+
+def test_train_zoo_bf16_in_place_matches_the_functional_step(monkeypatch):
+    """``train_zoo`` at bf16 over a trace of running, idle and finished
+    ticks: the program that gates itself gives the functional step's
+    losses, trajectories and every carry bit."""
+    job, _ = _jobs(dtype="bfloat16", param_dtype="bfloat16")
+    model0 = init_zoo_state(job.model, job, 0, device="cpu")
+
+    def run():
+        return trainer.train_zoo(job, [_trace_scenario(engine)],
+                                 seeds=[0, 1], n_ticks=len(TRACE),
+                                 model0=model0, device="cpu")
+    assert zoo_program.make_zoo_program(job.model, job, 4).gates_itself
+    mine = run()
+    monkeypatch.setattr(zoo_program, "lands_in_place", lambda cfg, job: False)
+    assert not zoo_program.make_zoo_program(job.model, job, 4).gates_itself
+    theirs = run()
+    assert (mine.iterations == J).all()
+    for field in ("losses", "iterations", "ys", "total_time",
+                  "total_cost"):
+        np.testing.assert_array_equal(getattr(mine, field),
+                                      getattr(theirs, field))
+    for a, b in zip(tree_leaves(mine.final_model),
+                    tree_leaves(theirs.final_model)):
+        assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
 
 
 def test_initial_state_fans_out_nested_carries():
