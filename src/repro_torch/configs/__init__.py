@@ -19,6 +19,7 @@ from repro_torch.configs.base import (
     ModelConfig,
     ShardingConfig,
     SSMConfig,
+    YaRNConfig,
 )
 from repro_torch.configs.shapes import DECODE_32K, LONG_500K, PREFILL_32K, SHAPES, TRAIN_4K
 
@@ -76,6 +77,7 @@ __all__ = [
     "MoEConfig",
     "MLAConfig",
     "SSMConfig",
+    "YaRNConfig",
     "InputShape",
     "ShardingConfig",
     "JobConfig",

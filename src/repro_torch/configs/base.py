@@ -80,6 +80,47 @@ class MoEConfig:
     # model axis, dispatch/return all-to-alls — ~k·cf/tp of the psum bytes
     # for top-k routing; EXPERIMENTS.md §Perf pair 3, Q4).
     parallelism: str = "psum"
+    # renormalise the top-k weights to sum to 1 (DeepSeek-V2 does not)
+    norm_topk_prob: bool = True
+    # the experts this device holds without a mesh: the first
+    # ``experts_held`` of them (None: every expert). The router keeps all
+    # ``num_experts`` outputs; the block gives the held experts' share of
+    # the routed output (one rank's part under expert parallelism).
+    experts_held: Optional[int] = None
+
+    def __post_init__(self):
+        if not 0 < self.held <= self.num_experts:
+            raise ValueError(f"{self.held} experts held of "
+                             f"{self.num_experts}")
+
+    @property
+    def held(self) -> int:
+        return self.num_experts if self.experts_held is None \
+            else self.experts_held
+
+
+@dataclasses.dataclass(frozen=True)
+class YaRNConfig:
+    """YaRN's rope scaling (arXiv:2309.00071), as DeepSeek-V2's
+    ``rope_scaling`` states it: the rotary frequencies ramp between plain
+    and divided by ``factor`` over the dimensions whose wavelengths lie
+    between ``beta_fast`` and ``beta_slow`` rotations of the
+    ``original_max_position`` context, and the softmax scale gains
+    ``mscale(factor, mscale_all_dim)²``. cos and sin are scaled by
+    ``mscale(factor, mscale) / mscale(factor, mscale_all_dim)``, which the
+    port takes as 1: the two must be equal."""
+
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 1.0
+
+    def __post_init__(self):
+        if self.mscale != self.mscale_all_dim:
+            raise ValueError("YaRN with mscale != mscale_all_dim scales cos "
+                             "and sin, which the port does not")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +131,7 @@ class MLAConfig:
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
+    yarn: Optional[YaRNConfig] = None   # None: plain rope
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,6 +182,11 @@ class ModelConfig:
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     attn_every: int = 0           # hybrid: shared attn block after every k SSM layers
+    # MoE: the first k of the num_layers layers run a dense SwiGLU MLP of
+    # width d_ff_dense in place of the experts (DeepSeek's
+    # first_k_dense_replace)
+    first_dense_layers: int = 0
+    d_ff_dense: int = 0
     encoder: Optional[EncoderConfig] = None
     vision: Optional[VisionStubConfig] = None
     # long_500k support: dense archs switch attention to a sliding window.
@@ -196,6 +243,8 @@ class ModelConfig:
             num_heads=min(self.num_heads, 4),
             num_kv_heads=min(self.num_kv_heads, 2),
             d_ff=min(self.d_ff, 512),
+            d_ff_dense=min(self.d_ff_dense, 512),
+            first_dense_layers=min(self.first_dense_layers, 1),
             vocab_size=min(self.vocab_size, 512),
             head_dim=64,
             max_seq_len=4096,
@@ -211,6 +260,7 @@ class ModelConfig:
                 d_ff_expert=128,
                 num_shared_experts=min(self.moe.num_shared_experts, 1),
                 d_ff_shared=128,
+                experts_held=None,
             )
         if self.mla is not None:
             kw["mla"] = dataclasses.replace(

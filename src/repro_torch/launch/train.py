@@ -83,7 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "(qwen2_7b == qwen2-7b)")
     ap.add_argument("--reduce-depth", type=int, default=None, metavar="N",
                     help="run the FULL arch config (real widths/vocab) at "
-                         "N layers instead of the reduced smoke variant")
+                         "N layers instead of the reduced smoke variant; a "
+                         "config's leading dense layers stay, and the cut "
+                         "falls on the layers after them")
     ap.add_argument("--param-dtype", default=None,
                     help="override the model param/activation dtype (e.g. "
                          "bfloat16 — implies the zoo mixed-precision "

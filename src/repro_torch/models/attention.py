@@ -67,15 +67,17 @@ def _mask(qpos, kpos, causal: bool, window: Optional[int]):
     return m
 
 
-def _attend(q, k, v, qpos, kpos, *, causal, window):
+def _attend(q, k, v, qpos, kpos, *, causal, window, scale=None):
     """Plain attention core (GQA by kv-head repetition, float32 scores and
-    softmax, masked scores set to ``NEG_INF``).
+    softmax, masked scores set to ``NEG_INF``), the scores scaled by
+    ``scale`` (default D^−½).
 
     q: (B, S, H, D)   k/v: (B, T, Hkv, D), H = G·Hkv
     qpos: (B, S)      kpos: (B, T) (−1 ⇒ invalid slot)
     returns (B, S, H, D) in v's dtype
     """
-    scale = q.shape[-1] ** -0.5
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
     g = q.shape[2] // k.shape[2]
     if g > 1:
         k = k.repeat_interleave(g, dim=2)

@@ -398,18 +398,23 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (y * weight.to(torch.float32)).to(dt)
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor,
-         theta: float) -> torch.Tensor:
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         inv_freq: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rotary embedding. x: (..., S, H, D) or (..., S, D); positions:
-    (..., S). Computed in float32, cast back to ``x``'s dtype."""
+    (..., S). Computed in float32, cast back to ``x``'s dtype. The
+    frequencies are ``theta``'s, or ``inv_freq`` (D/2,) where given
+    (`yarn_inv_freq`)."""
     if theta <= 0:
         return x
     d = x.shape[-1]
     half = d // 2
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=x.device),
-                      -torch.arange(half, dtype=torch.float32,
-                                    device=x.device) / half)
+    if inv_freq is not None:
+        freqs = inv_freq.to(device=x.device, dtype=torch.float32)
+    else:
+        freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                       device=x.device),
+                          -torch.arange(half, dtype=torch.float32,
+                                        device=x.device) / half)
     ang = positions.to(torch.float32)[..., None] * freqs      # (..., S, half)
     if x.dim() == positions.dim() + 2:                        # head dim
         ang = ang[..., None, :]
@@ -418,6 +423,38 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x2 = x[..., half:].to(torch.float32)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature ``0.1 · mscale · ln(factor) + 1``."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_range(yarn, dim: int, theta: float) -> Tuple[int, int]:
+    """(low, high): the rotary dimensions (of ``dim // 2``) between which
+    YaRN ramps from the plain frequency to the interpolated one — those
+    that turn ``beta_fast`` and ``beta_slow`` times over the original
+    context, floored and ceiled, clipped to [0, dim − 1]."""
+    def at(rotations):
+        return dim * math.log(yarn.original_max_position
+                              / (rotations * 2 * math.pi)) \
+            / (2 * math.log(theta))
+    return (max(math.floor(at(yarn.beta_fast)), 0),
+            min(math.ceil(at(yarn.beta_slow)), dim - 1))
+
+
+def yarn_inv_freq(yarn, dim: int, theta: float, device=None
+                  ) -> torch.Tensor:
+    """YaRN's rotary frequencies (dim // 2,), float32: ``theta^(−2i/dim)``
+    below ``low``, that over ``factor`` above ``high``, and a linear ramp
+    between, as DeepSeek-V2's ``DeepseekV2YarnRotaryEmbedding`` forms
+    them."""
+    low, high = yarn_range(yarn, dim, theta)
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)
+    extra = 1.0 / theta ** (2 * i / dim)
+    inter = extra / yarn.factor
+    ramp = ((i - low) / max(high - low, 1e-3)).clamp(0, 1)
+    return inter * ramp + extra * (1 - ramp)
 
 
 def sinusoidal_at(positions: torch.Tensor, d: int) -> torch.Tensor:

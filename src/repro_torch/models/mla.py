@@ -4,15 +4,22 @@ Training and the cache-free forward expand the latent to full K/V and run
 the plain attention core; with a cache (prefill and decode) the block uses
 the absorbed formulation: scores and context computed in latent space, in
 float32, cast back to the activations' dtype. Under a mesh context the
-heads split over the model axis (`mla_block`)."""
+heads split over the model axis (`mla_block`). With ``cfg.mla.yarn`` the
+rope dimensions turn at YaRN's frequencies and the softmax scale gains
+YaRN's mscale², as DeepSeek-V2 has them. The per-head K/V and the
+attention core run under the ``mla.core`` span."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.models import spmd
 from repro_torch.models.attention import NEG_INF, _attend, _mask, cache_write
 from repro_torch.models.common import (ParamSpec, dense_spec, rms_norm, rope,
-                                       tp_ranks, tp_slice)
+                                       tp_ranks, tp_slice, yarn_inv_freq,
+                                       yarn_mscale)
+from repro_torch.spans import span
 
 
 def mla_defs(cfg):
@@ -30,6 +37,29 @@ def mla_defs(cfg):
     }
 
 
+@functools.lru_cache(maxsize=None)
+def _yarn_freqs(yarn, dim: int, theta: float, device: torch.device):
+    return yarn_inv_freq(yarn, dim, theta, device)
+
+
+def _rope(cfg, x, pos):
+    """`rope` of the rope dimensions x at ``pos``, at YaRN's frequencies
+    where the config scales them."""
+    yarn = cfg.mla.yarn
+    inv = None if yarn is None else _yarn_freqs(
+        yarn, x.shape[-1], float(cfg.rope_theta), x.device)
+    return rope(x, pos, cfg.rope_theta, inv)
+
+
+def softmax_scale(cfg) -> float:
+    """(qk_nope + qk_rope)^−½, times YaRN's mscale² where it is set."""
+    m = cfg.mla
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    if m.yarn is not None:
+        scale = scale * yarn_mscale(m.yarn.factor, m.yarn.mscale_all_dim) ** 2
+    return scale
+
+
 def _project_q(p, cfg, x, qpos):
     """The query heads ``p["wq"]`` holds, split into their no-rope and
     rotated rope parts."""
@@ -38,14 +68,14 @@ def _project_q(p, cfg, x, qpos):
     b, s, _ = x.shape
     q = (x @ p["wq"]).reshape(b, s, -1, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    return q_nope, rope(q_rope, qpos, cfg.rope_theta)
+    return q_nope, _rope(cfg, q_rope, qpos)
 
 
 def _compress_kv(p, cfg, x, kpos):
     r = cfg.mla.kv_lora_rank
     ckv_full = x @ p["w_dkv"]
     c = rms_norm(ckv_full[..., :r], p["ckv_norm"], cfg.norm_eps)
-    k_rope = rope(ckv_full[..., r:], kpos, cfg.rope_theta)  # one shared head
+    k_rope = _rope(cfg, ckv_full[..., r:], kpos)  # one shared head
     return c, k_rope
 
 
@@ -72,36 +102,39 @@ def _mla_heads(p, cfg, x, qpos, latent, cache):
     m = cfg.mla
     b, s, _ = x.shape
     h = p["w_uk"].shape[1]
-    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    dr, dv = m.qk_rope_head_dim, m.v_head_dim
     f32 = torch.float32
 
     q_nope, q_rope = _project_q(p, cfg, x, qpos)
-    if cache is None:
-        # expanded path: full K (nope ‖ the shared rope head) and V
-        c, k_rope = latent
-        k_nope = torch.einsum("btr,rhn->bthn", c, p["w_uk"])
-        v = torch.einsum("btr,rhv->bthv", c, p["w_uv"])
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
-                      dim=-1)
-        qf = torch.cat([q_nope, q_rope], dim=-1)
-        ctx = _attend(qf, k, v, qpos, qpos, causal=True,
-                      window=cfg.sliding_window)
-    else:
-        # absorbed path (decode s = 1, chunked prefill s > 1): w_uk folds
-        # into the query and w_uv into the context, so the block attends
-        # over the latent cache itself
-        ckv, krope, kpos = cache["ckv"], cache["krope"], cache["pos"]
-        q_abs = torch.einsum("bshn,rhn->bshr", q_nope.to(f32),
-                             p["w_uk"].to(f32))
-        scores = (torch.einsum("bshr,btr->bhst", q_abs, ckv.to(f32))
-                  + torch.einsum("bshd,btd->bhst", q_rope.to(f32),
-                                 krope.to(f32))) * (dn + dr) ** -0.5
-        msk = _mask(qpos, kpos, True, cfg.sliding_window)   # (B, S, T)
-        scores = torch.where(msk[:, None], scores, NEG_INF)
-        probs = torch.softmax(scores, dim=-1)
-        ctx_c = torch.einsum("bhst,btr->bshr", probs, ckv.to(f32))
-        ctx = torch.einsum("bshr,rhv->bshv", ctx_c,
-                           p["w_uv"].to(f32)).to(x.dtype)
+    scale = softmax_scale(cfg)
+    with span("mla.core"):
+        if cache is None:
+            # expanded path: full K (nope ‖ the shared rope head) and V
+            c, k_rope = latent
+            k_nope = torch.einsum("btr,rhn->bthn", c, p["w_uk"])
+            v = torch.einsum("btr,rhv->bthv", c, p["w_uv"])
+            k = torch.cat([k_nope,
+                           k_rope[:, :, None, :].expand(b, s, h, dr)],
+                          dim=-1)
+            qf = torch.cat([q_nope, q_rope], dim=-1)
+            ctx = _attend(qf, k, v, qpos, qpos, causal=True,
+                          window=cfg.sliding_window, scale=scale)
+        else:
+            # absorbed path (decode s = 1, chunked prefill s > 1): w_uk
+            # folds into the query and w_uv into the context, so the block
+            # attends over the latent cache itself
+            ckv, krope, kpos = cache["ckv"], cache["krope"], cache["pos"]
+            q_abs = torch.einsum("bshn,rhn->bshr", q_nope.to(f32),
+                                 p["w_uk"].to(f32))
+            scores = (torch.einsum("bshr,btr->bhst", q_abs, ckv.to(f32))
+                      + torch.einsum("bshd,btd->bhst", q_rope.to(f32),
+                                     krope.to(f32))) * scale
+            msk = _mask(qpos, kpos, True, cfg.sliding_window)  # (B, S, T)
+            scores = torch.where(msk[:, None], scores, NEG_INF)
+            probs = torch.softmax(scores, dim=-1)
+            ctx_c = torch.einsum("bhst,btr->bshr", probs, ckv.to(f32))
+            ctx = torch.einsum("bshr,rhv->bshv", ctx_c,
+                               p["w_uv"].to(f32)).to(x.dtype)
     return ctx.reshape(b, s, h * dv) @ p["wo"]
 
 

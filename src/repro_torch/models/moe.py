@@ -18,7 +18,15 @@ them. The all-to-all route also splits the sequence over tp: each rank
 routes its own tokens, the dispatched (E, C, d) buffers travel to the
 experts' owners and back by two all-to-alls, and the shared experts run
 whole on each rank's tokens. Capacity always counts a rank's own tokens.
-Without a mesh the block is `_moe_device` over every expert."""
+Without a mesh the block is `_moe_device` over the experts the device
+holds (the first ``cfg.moe.experts_held``; every expert by default): the
+router keeps all its outputs, and the block gives the held experts' share
+of the routed output plus the shared experts, as one rank of the psum
+route computes it without the psum.
+
+`_moe_device` runs its router, tables, gather and combine under the
+``moe.route`` span and the held experts' products and the shared experts
+under ``moe.experts``."""
 from __future__ import annotations
 
 import math
@@ -30,6 +38,7 @@ import torch.nn.functional as F
 from repro_torch.models import spmd
 from repro_torch.models.common import (ParamSpec, TPRanks, current_ctx,
                                        dense_spec)
+from repro_torch.spans import span
 
 
 def moe_defs(cfg):
@@ -38,9 +47,10 @@ def moe_defs(cfg):
     defs = {
         "router": ParamSpec((d, e), (None, None), scale=d ** -0.5,
                             dtype=torch.float32),
-        "w_in": ParamSpec((e, d, 2 * f), ("tp", "fsdp", None),
+        "w_in": ParamSpec((m.held, d, 2 * f), ("tp", "fsdp", None),
                           scale=d ** -0.5),
-        "w_out": ParamSpec((e, f, d), ("tp", None, "fsdp"), scale=f ** -0.5),
+        "w_out": ParamSpec((m.held, f, d), ("tp", None, "fsdp"),
+                           scale=f ** -0.5),
     }
     if m.num_shared_experts:
         fs = m.d_ff_shared
@@ -51,8 +61,10 @@ def moe_defs(cfg):
 
 
 def _route(x2d, router, moe_cfg):
-    """Top-k routing. x2d: (T, d) -> (topi (T, k), weights (T, k), aux
-    scalar).
+    """Top-k routing over every expert, in float32 (a low-precision router
+    is upcast). x2d: (T, d) -> (topi (T, k), weights (T, k), aux scalar);
+    the weights are the top-k probabilities, renormalised to sum to 1
+    where ``moe_cfg.norm_topk_prob``.
 
     ``jax.lax.top_k`` breaks ties toward the lower index and ``torch.topk``
     promises no order on the card. Ties arise only among the padded
@@ -60,13 +72,14 @@ def _route(x2d, router, moe_cfg):
     real experts, so the two pick the same experts."""
     e, e_real, k = moe_cfg.num_experts, moe_cfg.num_experts_unpadded, \
         moe_cfg.top_k
-    logits = x2d.to(torch.float32) @ router
+    logits = x2d.to(torch.float32) @ router.to(torch.float32)
     if e_real < e:
         real = torch.arange(e, device=x2d.device) < e_real
         logits = torch.where(real, logits, -math.inf)
     probs = torch.softmax(logits, dim=-1)
     topv, topi = torch.topk(probs, k, dim=-1)
-    topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
+    if moe_cfg.norm_topk_prob:
+        topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
     # Switch/GShard load-balance loss: E * sum_e f_e * p_e
     assign = torch.zeros_like(probs).scatter_(1, topi, 1.0)
     f_e = assign.mean(0)                      # fraction routed to e (×k)
@@ -100,6 +113,19 @@ def _dispatch_tables(topi, topv, e: int, capacity: int):
     val_tbl = table(valid, torch.bool)
     cmb_tbl = table(torch.where(valid, topv.reshape(-1), 0.0), torch.float32)
     return tok_tbl, cmb_tbl, val_tbl
+
+
+def _slot_tokens(tok_tbl, val_tbl, t: int):
+    """The token each slot of the (E, C) tables gathers, flat: its own
+    where the slot is filled, else a filler row (the slot's index mod
+    ``t``) in place of the tables' token 0. An empty slot weighs 0 either
+    way; distinct fillers keep the gather's backward and the combine's
+    scatter-adds from piling every empty slot onto one row, whose serial
+    accumulation makes their time grow with the slots routing leaves
+    empty."""
+    tok = tok_tbl.reshape(-1).long()
+    filler = torch.arange(tok.numel(), device=tok.device) % t
+    return torch.where(val_tbl.reshape(-1), tok, filler)
 
 
 def _combine(out, tok, cmb_tbl, val_tbl, t: int):
@@ -140,20 +166,24 @@ def _moe_device(x, p, cfg, e_start: int, e_local: int):
     m = cfg.moe
     b, s, d = x.shape
     x2d = x.reshape(b * s, d)
-    (tok_tbl, cmb_tbl, val_tbl), aux = _tables(x2d, p["router"], m)
     loc = slice(e_start, e_start + e_local)
-    tok = tok_tbl[loc].reshape(-1).long()
+    with span("moe.route"):
+        (tok_tbl, cmb_tbl, val_tbl), aux = _tables(x2d, p["router"], m)
+        tok = _slot_tokens(tok_tbl[loc], val_tbl[loc], b * s)
+        xg = x2d[tok].reshape(e_local, tok_tbl.shape[1], d)
     w_in = p["w_in"] if p["w_in"].shape[0] == e_local else p["w_in"][loc]
     w_out = p["w_out"] if p["w_out"].shape[0] == e_local else p["w_out"][loc]
-    xg = x2d[tok].reshape(e_local, tok_tbl.shape[1], d)
-    gate, up = torch.bmm(xg, w_in).chunk(2, dim=-1)
-    out = torch.bmm(F.silu(gate) * up, w_out)
-    y = _combine(out, tok, cmb_tbl[loc], val_tbl[loc], b * s)
+    with span("moe.experts"):
+        gate, up = torch.bmm(xg, w_in).chunk(2, dim=-1)
+        out = torch.bmm(F.silu(gate) * up, w_out)
+    with span("moe.route"):
+        y = _combine(out, tok, cmb_tbl[loc], val_tbl[loc], b * s)
     if m.num_shared_experts:
         # with a mesh: the rank's share of d_ff, or the whole shared expert
         # where d_ff_shared does not split (then the psum counts it tp
         # times, as the reference's does)
-        y = y + _shared(x2d, p)
+        with span("moe.experts"):
+            y = y + _shared(x2d, p)
     return y.reshape(b, s, d), aux
 
 
@@ -224,7 +254,10 @@ def moe_block(p, cfg, x) -> Tuple[torch.Tensor, torch.Tensor]:
     ctx = current_ctx()
     m = cfg.moe
     if ctx.mesh is None:
-        return _moe_device(x, p, cfg, 0, m.num_experts)
+        return _moe_device(x, p, cfg, 0, m.held)
+    if m.held != m.num_experts:
+        raise ValueError(f"a mesh splits all {m.num_experts} experts; this "
+                         f"config holds {m.held}")
 
     mesh = ctx.mesh
     sizes = mesh.shape

@@ -2,8 +2,11 @@
 families: parameter definitions, the training forward and the decode
 against per-layer caches (a chunked prefill when S > 1). Layers run as a
 Python loop over the stacked (L, ...) layer leaves, so gradients land in
-the stacked leaves. `_remat` is the reference's activation
-rematerialisation for every family's training forward."""
+the stacked leaves. An MoE config with ``first_dense_layers`` k runs a
+``dense_layers`` stack of k layers (a dense MLP of width ``d_ff_dense``)
+ahead of its ``layers`` stack of num_layers − k MoE layers. `_remat` is
+the reference's activation rematerialisation for every family's training
+forward."""
 from __future__ import annotations
 
 import functools
@@ -23,8 +26,8 @@ from repro_torch.models.common import (ParamSpec, current_ctx, dense_spec,
 from repro_torch.tree import tree_index, tree_leaves, tree_map
 
 
-def mlp_defs(cfg):
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_defs(cfg, d_ff=None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     return {
         "w_gate": dense_spec(d, f),
         "w_up": dense_spec(d, f),
@@ -59,7 +62,10 @@ def mlp_block(p, x):
     return torch.cat(ys, dim=0)
 
 
-def layer_defs(cfg):
+def layer_defs(cfg, dense: bool = False):
+    """One layer's leaves: attention (MLA or not), and the config's MoE,
+    or with ``dense`` (or no MoE) a dense MLP, ``d_ff_dense`` wide where
+    that is set."""
     d = cfg.d_model
     defs = {"ln1": ParamSpec((d,), (None,), init="ones"),
             "ln2": ParamSpec((d,), (None,), init="ones")}
@@ -67,16 +73,17 @@ def layer_defs(cfg):
         defs["mla"] = mla_mod.mla_defs(cfg)
     else:
         defs["attn"] = attn.attn_defs(cfg)
-    if cfg.moe is not None:
+    if cfg.moe is not None and not dense:
         defs["moe"] = moe_mod.moe_defs(cfg)
     else:
-        defs["mlp"] = mlp_defs(cfg)
+        defs["mlp"] = mlp_defs(cfg, cfg.d_ff_dense if dense else None)
     return defs
 
 
 def decoder_layer(p, cfg, x, qpos, *, cache=None, cache_pos=None,
                   kv_src=None, kv_pos=None, causal=True):
-    """Pre-norm block. Returns (x, new_cache, aux)."""
+    """Pre-norm block: the MoE where ``p`` holds one, else the MLP.
+    Returns (x, new_cache, aux)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
         a, new_cache = mla_mod.mla_block(p["mla"], cfg, h, qpos, cache=cache,
@@ -87,7 +94,7 @@ def decoder_layer(p, cfg, x, qpos, *, cache=None, cache_pos=None,
             kv_src=kv_src, kv_pos=kv_pos, causal=causal)
     x = x + a
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    if cfg.moe is not None:
+    if "moe" in p:
         m, aux = moe_mod.moe_block(p["moe"], cfg, h)
     else:
         m, aux = mlp_block(p["mlp"], h), torch.zeros(
@@ -97,11 +104,15 @@ def decoder_layer(p, cfg, x, qpos, *, cache=None, cache_pos=None,
 
 def lm_defs(cfg):
     d, v = cfg.d_model, cfg.vocab_size
-    defs = {
-        "embed": ParamSpec((v, d), ("tp", None), scale=0.02),
-        "layers": stack_specs(layer_defs(cfg), cfg.num_layers),
-        "ln_f": ParamSpec((d,), (None,), init="ones"),
-    }
+    k = cfg.first_dense_layers
+    if k and cfg.num_layers <= k:
+        raise ValueError(f"{cfg.num_layers} layers leave none after the "
+                         f"{k} leading dense ones")
+    defs = {"embed": ParamSpec((v, d), ("tp", None), scale=0.02)}
+    if k:
+        defs["dense_layers"] = stack_specs(layer_defs(cfg, dense=True), k)
+    defs["layers"] = stack_specs(layer_defs(cfg), cfg.num_layers - k)
+    defs["ln_f"] = ParamSpec((d,), (None,), init="ones")
     if not cfg.tie_embeddings:
         defs["lm_head"] = dense_spec(d, v)
     return defs
@@ -154,25 +165,29 @@ def _in_ctx(ctx, fn, *args):
 
 
 def scan_decoder(layers_p, cfg, x, qpos, *, caches=None, cache_pos=None,
-                 kv_src=None, kv_pos=None, causal=True, remat="full"):
-    """Run the stacked decoder layers in order. Returns (x, new_caches,
-    aux_sum). With ``caches`` (stacked (L, ...) leaves) each layer decodes
-    against its own, and the new caches are written into fresh stacked
-    buffers; ``caches`` is left as it was. Each layer runs under
-    ``_remat(remat)``."""
+                 kv_src=None, kv_pos=None, causal=True, remat="full",
+                 dense_p=None):
+    """Run the stacked decoder layers in order, those of ``dense_p`` (the
+    leading dense layers) first where given. Returns (x, new_caches,
+    aux_sum). With ``caches`` (stacked (L, ...) leaves over every layer)
+    each layer decodes against its own, and the new caches are written
+    into fresh stacked buffers; ``caches`` is left as it was. Each layer
+    runs under ``_remat(remat)``."""
     def body(x, layer_p, cache):
         return decoder_layer(layer_p, cfg, x, qpos, cache=cache,
                              cache_pos=cache_pos, kv_src=kv_src,
                              kv_pos=kv_pos, causal=causal)
 
     body = _remat(body, remat)
-    n_layers = tree_leaves(layers_p)[0].shape[0]
+    stacks = [layers_p] if dense_p is None else [dense_p, layers_p]
+    order = [(st, i) for st in stacks
+             for i in range(tree_leaves(st)[0].shape[0])]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = None if caches is None else tree_map(torch.empty_like,
                                                       caches)
-    for layer in range(n_layers):
+    for layer, (st, i) in enumerate(order):
         cache = None if caches is None else tree_index(caches, layer)
-        x, c, a = body(x, tree_index(layers_p, layer), cache)
+        x, c, a = body(x, tree_index(st, i), cache)
         if c is not None:
             tree_map(lambda out, new: out[layer].copy_(new), new_caches, c)
         aux = aux + a
@@ -234,7 +249,8 @@ def lm_forward(params, cfg, tokens, *, prefix_embeds=None, remat="full",
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     qpos = torch.arange(s, device=x.device).expand(b, s)
-    x, _, aux = scan_decoder(params["layers"], cfg, x, qpos, remat=remat)
+    x, _, aux = scan_decoder(params["layers"], cfg, x, qpos, remat=remat,
+                             dense_p=params.get("dense_layers"))
     return (head or unembed)(params, cfg, x), aux
 
 
@@ -247,7 +263,8 @@ def lm_decode(params, cfg, token, caches, pos):
     qpos = pos + torch.arange(s, device=x.device).expand(b, s)
     x, new_caches, _ = scan_decoder(params["layers"], cfg, x, qpos,
                                     caches=caches, cache_pos=pos,
-                                    remat="none")
+                                    remat="none",
+                                    dense_p=params.get("dense_layers"))
     return unembed(params, cfg, x), new_caches
 
 

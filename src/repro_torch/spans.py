@@ -34,7 +34,19 @@ The spans, each with the one open around it on the host thread:
   (`train.trainer._prepare_batched`) and the grid's initial carry
   (`train.trainer.batched_init_state`);
 * ``engine.readback``: the engine call's copies of its results to the
-  host (`sim.engine._engine_result`).
+  host (`sim.engine._engine_result`);
+* ``moe.route``: an MoE block's router, softmax, top-k and (E, C)
+  dispatch tables, the gather of its held experts' slots and the combine
+  (`models.moe._moe_device`), under ``step.forward``;
+* ``moe.experts``: the held experts' two batched products and the shared
+  experts (`models.moe._moe_device`), under ``step.forward``;
+* ``mla.core``: MLA's expansion of the latent to per-head keys and values
+  and its float32 scores, softmax and values, or the absorbed path's over
+  the latent cache (`models.mla._mla_heads`), under ``step.forward``.
+
+The model's spans cover the forward only: autograd's backward of what they
+launched runs under ``step.backward``, and under remat the recompute of a
+layer in the backward opens them again there.
 """
 from __future__ import annotations
 
@@ -42,7 +54,7 @@ from torch._C._profiler import _RecordFunctionFast
 
 NAMES = ("engine.tick", "engine.market", "engine.gate", "step.forward",
          "step.backward", "step.optimizer", "train.prepare",
-         "engine.readback")
+         "engine.readback", "moe.route", "moe.experts", "mla.core")
 
 
 def span(name: str) -> _RecordFunctionFast:

@@ -24,7 +24,9 @@ ranks' slices on their devices and K2 launched once a rank; and the last
 model-axis layouts: K3 on a rank's heads bit for bit the whole launch's,
 K2 on a rank's query rows at its offset bit for bit the whole forward's,
 the split SSM block and the vocab-parallel loss on the card against the
-CPU, and the MoE routing exact under the sequence split.
+CPU, and the MoE routing exact under the sequence split; and
+DeepSeek-V2-Lite's published block, one bf16 step at its widths and depth
+1 + 1, against the benchmark's plain float32 reference.
 
 Every test here needs an NVIDIA GPU and skips itself elsewhere. The file
 imports neither ``jax`` nor the reference, so it runs on a machine that
@@ -1960,3 +1962,66 @@ def test_expert_parallel_routing_is_exact_with_the_sequence_split(
     for i, r in enumerate(none):
         for rank in range(4):
             assert torch.equal(meshed[4 * i + rank], r), (i, rank)
+
+
+def test_deepseek_v2_published_block_bf16_step_against_the_reference(
+        cuda_device):
+    """DeepSeek-V2-Lite's published block at its published widths and
+    depth 1 + 1 (MLA with YaRN's rope, the dense layer 0, one MoE layer
+    holding 8 of 64 experts, the 12,800-row vocabulary slice), as the
+    benchmark's cell ``deepseek-v2-lite.zoo-bf16`` configures it: one bf16
+    loss/grad step of the zoo's (bf16 parameters, 8 rows of 1023 tokens, a
+    preempted worker) against the benchmark's plain float32 reference on
+    the same weights, TF32 off. The loss's relative gap and the gradient
+    norms' (`bench.harness.check`'s measures) lie within the cell's own
+    limits, which its 14 layers and 3 iterations set."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from bench.harness import check, spec, weights as wmod
+    from bench.reference.elastic_sgd import row_weights
+    from bench.reference.precision import products
+    from repro_torch.train.train_step import make_loss_grad
+
+    cell = spec.cell("deepseek-v2-lite.zoo-bf16")
+    conf = {**cell.config, "num_hidden_layers": 2}
+    cfg = cell.port.model_config(conf, cell.traffic)
+    assert (cfg.first_dense_layers, cfg.moe.held, cfg.dtype) == (
+        1, 8, "bfloat16")
+    b, s = 8, 1023
+    job = JobConfig(model=cfg, shape=InputShape("t", s, b, "train"),
+                    n_workers=8)
+    leaves = cell.reference.leaves(conf)
+    seed = 3200000077
+    params = cell.port.to_program(
+        {k: v.to(torch.bfloat16) for k, v in
+         wmod.make_all(leaves, seed, cuda_device).items()})
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    toks = torch.randint(0, conf["vocab_size"], (b, s + 1), generator=gen,
+                         device=cuda_device)
+    tokens, labels = toks[:, :-1], toks[:, 1:]
+    mask = np.asarray([1, 1, 0, 1, 1, 1, 1, 1], np.float32)
+    grads, loss, aux = make_loss_grad(cfg, job, remat="none")(
+        params, {"tokens": tokens, "labels": labels},
+        torch.from_numpy(mask).to(cuda_device))
+    prog = {k: float(torch.linalg.vector_norm(v.float()))
+            for k, v in cell.port.from_program(grads, 0).items()}
+    assert float(aux) > 0 and torch.isfinite(loss)
+    del grads, params
+
+    w = wmod.make_all(leaves, seed, cuda_device)
+    for x in w.values():
+        x.requires_grad_(True)
+    rows = torch.from_numpy(row_weights(mask, b)).to(cuda_device)
+    with products("float32"):
+        ref_loss = cell.reference.loss(w, conf, tokens, labels,
+                                       rows[:, None].expand(b, s))
+        ref = {k: float(torch.linalg.vector_norm(g)) for k, g in zip(
+            w, torch.autograd.grad(ref_loss, list(w.values())))}
+    assert set(prog) == set(ref)
+    gap = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    assert gap <= cell.limits["loss"], gap
+    assert check._rel_norm_gap(prog, ref) <= cell.limits["grad"]

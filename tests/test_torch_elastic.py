@@ -77,10 +77,32 @@ def test_example_weights_matches_reference():
         elastic.example_weights(torch.from_numpy(mask), 10)
 
 
+#: the port's config fields that the reference lacks (DeepSeek-V2's
+#: published block), each at the value that computes what the reference
+#: computes
+PORT_ONLY = {"first_dense_layers": 0, "d_ff_dense": 0,
+             "moe": {"norm_topk_prob": True, "experts_held": None},
+             "mla": {"yarn": None}}
+
+
+def _without_port_only(d, extra=PORT_ONLY):
+    """``d`` (a config as a dict) without the fields of ``extra``, each
+    checked to hold ``extra``'s value first."""
+    out = dict(d)
+    for k, v in extra.items():
+        if isinstance(v, dict):
+            if out[k] is not None:
+                out[k] = _without_port_only(out[k], v)
+        else:
+            assert out.pop(k) == v, k
+    return out
+
+
 def test_config_registry_matches_reference():
     assert sorted(ARCHS) == sorted(JAX_ARCHS)
     for name, cfg in ARCHS.items():
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(JAX_ARCHS[name])
+        assert _without_port_only(dataclasses.asdict(cfg)) == \
+            dataclasses.asdict(JAX_ARCHS[name])
 
 
 @pytest.mark.parametrize("spelling,want", [

@@ -1,8 +1,10 @@
 """The port's host spans (`repro_torch.spans`): a tiny float32 megabatch
-call and tiny bf16 and float32 zoo calls under ``torch.profiler`` on the
-CPU record each span as often as the run implies, as a plain function
-range nested where its layer is, and a traced run is bit for bit an
-untraced one."""
+call and tiny bf16 and float32 zoo calls (one with DeepSeek-V2's MLA and
+MoE block) under ``torch.profiler`` on the CPU record each span as often
+as the run implies, as a plain function range nested where its layer is,
+and a traced run is bit for bit an untraced one."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,8 @@ SEEDS = [0, 1]
 #: the spans each step opens under ``engine.tick``
 UNDER_TICK = ("engine.market", "engine.gate", "step.forward",
               "step.backward", "step.optimizer")
+#: the model's spans, each under ``step.forward``
+UNDER_FORWARD = ("moe.route", "moe.experts", "mla.core")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -61,13 +65,34 @@ def _zoo(dtype="bfloat16", **kw):
                      device="cpu", **kw)
 
 
+def _zoo_mla_moe(**kw):
+    """DeepSeek-V2's block, bf16, tiny: one dense layer, then two MoE
+    layers holding 4 of 8 experts, with a shared expert."""
+    base = ARCHS["deepseek-v2-lite-16b"].reduced()
+    cfg = base.with_(
+        d_model=32, num_heads=2, num_kv_heads=2, d_ff=24, d_ff_dense=48,
+        num_layers=3, first_dense_layers=1, vocab_size=128,
+        dtype="bfloat16", param_dtype="bfloat16",
+        moe=dataclasses.replace(base.moe, num_experts=8,
+                                num_experts_unpadded=8, d_ff_expert=24,
+                                d_ff_shared=24, experts_held=4,
+                                norm_topk_prob=False))
+    job = JobConfig(model=cfg, shape=InputShape("t", 24, 8, "train"),
+                    n_workers=4, learning_rate=0.1)
+    return train_zoo(job, _scenarios(), SEEDS, n_ticks=N_TICKS,
+                     device="cpu", **kw)
+
+
 RUNS = {"megabatch": _megabatch, "zoo": _zoo,
-        "zoo-f32": lambda **kw: _zoo("float32", **kw)}
+        "zoo-f32": lambda **kw: _zoo("float32", **kw),
+        "zoo-mla-moe": _zoo_mla_moe}
 CELLS = 2 * len(SEEDS)
 _ZOO = {"engine.tick": N_TICKS, "engine.market": N_TICKS,
         "step.forward": CELLS * N_TICKS, "step.backward": CELLS * N_TICKS,
         "step.optimizer": CELLS * N_TICKS, "train.prepare": 2,
         "engine.readback": 1}
+#: the model's spans in a run without MLA or MoE
+_NO_MODEL_SPANS = {"moe.route": 0, "moe.experts": 0, "mla.core": 0}
 #: per span: how often a call of N_TICKS ticks over CELLS cells opens it.
 #: The bf16 zoo step lands its update in place and gates itself, so the
 #: engine's gate opens only for the float32 one.
@@ -75,9 +100,16 @@ COUNTS = {
     "megabatch": {"engine.tick": N_TICKS, "engine.market": N_TICKS,
                   "engine.gate": 0, "step.forward": N_TICKS,
                   "step.backward": N_TICKS, "step.optimizer": N_TICKS,
-                  "train.prepare": 2, "engine.readback": 1},
-    "zoo": {**_ZOO, "engine.gate": 0},
-    "zoo-f32": {**_ZOO, "engine.gate": CELLS * N_TICKS},
+                  "train.prepare": 2, "engine.readback": 1,
+                  **_NO_MODEL_SPANS},
+    "zoo": {**_ZOO, "engine.gate": 0, **_NO_MODEL_SPANS},
+    "zoo-f32": {**_ZOO, "engine.gate": CELLS * N_TICKS, **_NO_MODEL_SPANS},
+    # a step: MLA's core once a layer; the route (tables, then combine)
+    # and the experts (routed, then shared) twice an MoE layer
+    "zoo-mla-moe": {**_ZOO, "engine.gate": 0,
+                    "mla.core": 3 * CELLS * N_TICKS,
+                    "moe.route": 4 * CELLS * N_TICKS,
+                    "moe.experts": 4 * CELLS * N_TICKS},
 }
 
 
@@ -117,6 +149,9 @@ def test_spans_are_plain_host_ranges_nested_by_layer(kind):
             parent = parent.cpu_parent
         if e.name in UNDER_TICK:
             assert parent is not None and parent.name == "engine.tick", \
+                (e.name, parent)
+        elif e.name in UNDER_FORWARD:
+            assert parent is not None and parent.name == "step.forward", \
                 (e.name, parent)
         else:
             # the tick, the call's preparation and its read back open
