@@ -46,7 +46,15 @@ Phases, each printing one JSON line and raising on failure:
    beside the tensor-core ones'; and the path's mixed-precision update
    (one launch a cell and tick) at one cell's shape: bit for bit against
    its plain version, its time running and idle beside its byte bound, the
-   plain version's and the functional update-and-gate's it replaced;
+   plain version's and the functional update-and-gate's it replaced. Then
+   the MoE dispatch tables at DeepSeek-V2-Lite's cell shape (8184 tokens,
+   64 experts top-6, capacity 960, routed by ``moe._route``): the kernel's
+   three tables and the combine weights' gradient bit for bit against its
+   plain version, its time beside its byte bound and the plain version's
+   (the one-hot and int64 cumsum it replaced); and ``train_zoo`` of
+   DeepSeek-V2-Lite at full width, depth 2, bf16 (``moe_zoo_path``, 4
+   ticks) with the tables' launches held to one a MoE layer, cell and
+   tick;
 5. slice 3's path: serving full-width Mamba2-1.3B (48 layers, float32
    parameters initialised on the card, bf16 activations) through
    ``launch.serve``'s ``prefill_prompt`` (batch 8, a 2048-token prompt)
@@ -105,7 +113,8 @@ Phases, each printing one JSON line and raising on failure:
    bit the straight run;
 8. slice 10's path, serving the decoder-only transformer at full width in
    bf16 (parameters, activations and caches; no kernel of the repo lies
-   on it, and each run's launch counts must stay 0): Qwen2-7B as
+   on it but the MoE dispatch tables, one launch a MoE layer and forward,
+   and each run's launch counts must read that): Qwen2-7B as
    published (``serve_dense``) and DeepSeek-V2-Lite as the repo's config
    gives it, its depth cut 27 -> 14 since slice 15 (MLA's latent cache, 64
    routed experts top-6 plus 2 shared; ``serve_moe_mla``), each through ``prefill_prompt`` (batch 8, a
@@ -167,9 +176,10 @@ Phases, each printing one JSON line and raising on failure:
    float32, batch 2 × 2048, through ``model_zoo.forward`` with no mesh
    and under a (data 1, model 4) mesh listing cuda:0 four times (its
    attention split over the query sequence since slice 15) by the psum
-   and the all-to-all route (no kernel lies on this path; the counts
-   must stay 0): the psum route routes and drops as no mesh does and its
-   logits lie within 1e-4 of the largest, its aux within 1e-5; at capacity
+   and the all-to-all route (no kernel lies on this path but the MoE
+   dispatch tables, one launch a routing): the psum route routes and
+   drops as no mesh does and its logits lie within 1e-4 of the largest,
+   its aux within 1e-5; at capacity
    factor 16 (no drops) the all-to-all route within 1e-4 of the psum
    route; each route's bits repeat; per route the device ms a forward,
    peak memory and drop shares. Qwen2-7B at full width, depth 1, bf16,
@@ -270,7 +280,11 @@ KERNEL_SOURCES = {"elastic_sgd_update": (
     "flash_attention_bwd_dq_tc": K2_TC_SOURCE,
     "mixed_sgd_update": ("src/repro_torch/csrc/mixed_sgd.cu",
                          "none: the reference's update is jnp, fused by "
-                         "XLA")}
+                         "XLA"),
+    "moe_dispatch_tables": ("src/repro_torch/csrc/moe_dispatch.cu",
+                            "none: the reference's tables are jnp (a "
+                            "one-hot cumsum and three scatters), fused by "
+                            "XLA")}
 #: the CUDA-core forward, dK/dV and dQ kernels take float32 (and bf16 when
 #: called directly); the tensor-core ones take bf16, which is what the zoo
 #: path runs, the dK/dV and dQ kernels after one D_i pre-pass
@@ -1101,6 +1115,117 @@ def phase_mixed_sgd_at_cell_shape(torch, smi, launches):
             "replaces": replaces, "launches": launches["mixed_sgd_update"],
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+
+
+#: the MoE dispatch tables at DeepSeek-V2-Lite's cell (8 × 1023 tokens,
+#: 64 experts top-6, capacity ceil(8184 · 6 / 64 · 1.25) = 960), routed by
+#: ``moe._route`` from random activations at d_model 2048
+MOE_TABLES = {"tokens": 8184, "experts": 64, "top_k": 6, "capacity": 960,
+              "seed": 33}
+#: the DeepSeek zoo path that counts the tables' launches: the registry's
+#: DeepSeek-V2-Lite at full width, depth 2 (both layers MoE, all 64
+#: experts), bf16, one cell of 8 workers, batch 8 × 1024, 4 ticks
+MOE_ZOO_SPEC = dict(
+    arch="deepseek-v2-lite-16b", reduce_depth=2, param_dtype="bfloat16",
+    zoo=True, n_workers=8, global_batch=8, seq_len=1024, learning_rate=0.01,
+    bids=((0.9, 0.9, 0.9, 0.9, 0.5, 0.5, 0.5, 0.5),), iterations=4, seeds=1,
+    n_ticks=4)
+
+
+def moe_layers(cfg) -> int:
+    """The MoE layers of ``cfg``: one routing each a forward."""
+    return cfg.num_layers - cfg.first_dense_layers if cfg.moe else 0
+
+
+def float_bits(torch, t):
+    """``t``'s bits: an int32 view of a float32 tensor, else ``t``."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def phase_moe_dispatch(torch, smi):
+    """The MoE dispatch tables at `MOE_TABLES`: the kernel's three tables
+    bit for bit against its plain version, and topv's gradient through the
+    combine weights; its device time beside its byte bound, and the plain
+    version's (the one-hot and int64 cumsum it replaced), and the wall time
+    of a call in a loop (the wrapper's host work). Then the DeepSeek
+    zoo path (`MOE_ZOO_SPEC`), its launches held to one a MoE layer, cell
+    and tick. Returns the kernel's row."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import moe_dispatch, ops
+    from repro_torch.models import moe
+
+    c = MOE_TABLES
+    t, e, k, cap = c["tokens"], c["experts"], c["top_k"], c["capacity"]
+    cfg = ARCHS["deepseek-v2-lite-16b"]
+    gen = torch.Generator(device="cuda").manual_seed(c["seed"])
+    x = torch.randn(t, cfg.d_model, generator=gen, device="cuda")
+    router = torch.randn(cfg.d_model, e, generator=gen,
+                         device="cuda") * cfg.d_model ** -0.5
+    topi, topv, _ = moe._route(x, router, cfg.moe)
+    want = moe_dispatch.dispatch_tables_reference(topi, topv, e, cap)
+    reset_counts()
+    got = ops.moe_dispatch_tables(topi, topv, e, cap)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    tables_bits = all(torch.equal(float_bits(torch, a),
+                                  float_bits(torch, b))
+                      for a, b in zip(got, want))
+    g = torch.randn(e, cap, generator=gen, device="cuda")
+    mine, plain = (topv.clone().requires_grad_() for _ in range(2))
+    (g_mine,) = torch.autograd.grad(
+        (ops.moe_dispatch_tables(topi, mine, e, cap)[1] * g).sum(), mine)
+    (g_plain,) = torch.autograd.grad((moe_dispatch.dispatch_tables_reference(
+        topi, plain, e, cap)[1] * g).sum(), plain)
+    grad_bits = torch.equal(float_bits(torch, g_mine),
+                            float_bits(torch, g_plain))
+    kept = int(want[2].sum())
+    del got, g, mine, plain, g_mine, g_plain
+
+    def calls(n):
+        for _ in range(n):
+            ops.moe_dispatch_tables(topi, topv, e, cap)
+    # the wrapper's Python outlasts the kernel, so a loop of calls times
+    # the host: the kernel's own time comes from the profiler
+    wall_ms = timed(lambda: calls(1), 50, torch)
+    busy, n_ops, _ = device_profile(torch, lambda: calls(50))
+    if busy == "not measured" or n_ops != 50:
+        raise AssertionError(f"moe_dispatch_at_cell_shape: the profiler "
+                             f"saw {n_ops} device operations for 50 calls")
+    ms = busy / 50
+    plain_ms = timed(lambda: moe_dispatch.dispatch_tables_reference(
+        topi, topv, e, cap), 5, torch)
+    hbm, _, _, _, label = card_peaks(torch.cuda.get_device_name(0))
+    # read the ids (int64) and the kept weights, write 9 bytes a slot
+    nbytes = 8 * t * k + 4 * kept + 9 * e * cap
+    bound_ms = 1e3 * nbytes / hbm
+    rec = {"phase": "moe_dispatch_at_cell_shape",
+           "kernel": "moe_dispatch_tables", "shape": c,
+           "assignments": t * k, "kept": kept,
+           "dropped_share": 1 - kept / (t * k), "launches": counts,
+           "tables_bit_exact": tables_bits, "grad_bit_exact": grad_bits,
+           "ms": ms, "wall_ms_a_call": wall_ms, "plain_ms": plain_ms,
+           "speedup": plain_ms / ms,
+           "bound_ms": bound_ms, "roofline_pct": 100 * bound_ms / ms,
+           "peak": label, "card": smi}
+    emit(rec)
+    if not (tables_bits and grad_bits) or counts != designed(
+            moe_dispatch_tables=1):
+        raise AssertionError(f"moe_dispatch_at_cell_shape: {rec}")
+    del topi, topv, want, x, router
+    free(torch)
+
+    def want_of(job, cells, ticks):
+        return designed(moe_dispatch_tables=moe_layers(job.model) * cells
+                        * ticks)
+    _, zcounts, _ = zoo_train_phase(torch, "moe_zoo_path", MOE_ZOO_SPEC,
+                                    want_of)
+    free(torch)
+    src, replaces = KERNEL_SOURCES["moe_dispatch_tables"]
+    return {"name": "moe_dispatch_tables", "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": zcounts["moe_dispatch_tables"], "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None}
 
 
 def phase_k2_in_place(torch, job):
@@ -2873,8 +2998,9 @@ def tf_drop_shares(torch, cfg, params, prompt, tokens, caches):
 def phase_serve_transformer(torch, arch, smi):
     """Slice 10's path for ``arch``, twice: ``launch.serve.prefill_prompt``
     then ``greedy_decode``, each with the launch counts set to 0 just
-    before and read just after (the cached path runs no kernel: its
-    attention is the plain core, as the reference's). Then the prefill's
+    before and read just after (the cached path runs no kernel but the
+    MoE dispatch tables, once a MoE layer and forward: its attention is
+    the plain core, as the reference's). Then the prefill's
     logits, one decode step under ``torch.profiler``, prefill-then-decode
     against one longer prefill, and for the MoE model the cache's size
     beside a full K/V cache's and capacity's drop shares."""
@@ -2912,9 +3038,13 @@ def phase_serve_transformer(torch, arch, smi):
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
         dec = ops.launch_counts()
-        if set(pre.values()) != {0} or set(dec.values()) != {0}:
+        want_pre = {n: moe_layers(cfg) if n == "moe_dispatch_tables" else 0
+                    for n in pre}
+        want_dec = {n: c * (n_gen - 1) for n, c in want_pre.items()}
+        if pre != want_pre or dec != want_dec:
             raise AssertionError(f"{name}: launches {pre} in the prefill "
-                                 f"and {dec} in decode (designed none)")
+                                 f"and {dec} in decode (designed "
+                                 f"{want_pre} and {want_dec})")
         if tuple(tokens.shape) != (bsz, n_gen) or not bool(
                 ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
             raise AssertionError(f"{name}: tokens {tuple(tokens.shape)} out "
@@ -4047,7 +4177,6 @@ def phase_expert_parallel(torch, smi):
             return model_zoo.forward(params, cfg, {"tokens": tokens},
                                      remat="none")
 
-    reset_counts()
     runs, outs = {}, {}
     for name, cfg, on in (("none", cfg_of("psum"), None),
                           ("psum", cfg_of("psum"), mesh),
@@ -4056,9 +4185,11 @@ def phase_expert_parallel(torch, smi):
         free(torch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        reset_counts()
         with recorded_routes(routes), recorded_drops(drops):
             logits, aux = forward(cfg, on)
         torch.cuda.synchronize()
+        counts = read_counts()
         peak = torch.cuda.max_memory_allocated()
         again = forward(cfg, on)
         bits = torch.equal(logits, again[0]) and torch.equal(aux, again[1])
@@ -4070,9 +4201,8 @@ def phase_expert_parallel(torch, smi):
                       "dropped_share": 1 - kept / assigned,
                       "capacities": sorted({c for _, _, c in drops}),
                       "dispatch_calls": len(drops), "aux": float(aux),
-                      "bits_repeat": bits}
+                      "bits_repeat": bits, "launches": counts}
         outs[name] = (logits, aux, routes, drops)
-    counts = read_counts()
     none, psum = outs["none"], outs["psum"]
     tp = EP["tp"]
     # each psum rank routes every token: rank r's record is every tp-th
@@ -4099,7 +4229,7 @@ def phase_expert_parallel(torch, smi):
            "entry": "model_zoo.forward under mesh_context(Mesh((1, 4)))",
            "config": EP, "params": sum(x.numel()
                                        for x in tree_leaves(params)),
-           "runs": runs, "launches": counts,
+           "runs": runs,
            "psum_vs_none": {"same_routing": same_routes,
                             "same_drops": same_drops,
                             "logits_max_abs_diff": psum_err,
@@ -4112,9 +4242,10 @@ def phase_expert_parallel(torch, smi):
     emit(rec)
     del params
     free(torch)
-    bad = []
-    if set(counts.values()) - {0}:
-        bad.append(f"a kernel launched on a path that runs none: {counts}")
+    bad = [f"{name}: launches {r['launches']}, designed one a dispatch "
+           f"call ({r['dispatch_calls']})" for name, r in runs.items()
+           if r["launches"] != designed(
+               moe_dispatch_tables=r["dispatch_calls"])]
     if not (same_routes and same_drops):
         bad.append("psum route routes or drops otherwise than no mesh")
     if not psum_err <= EP_TOL["psum_vs_none_logits_rel"] * scale \
@@ -4457,7 +4588,7 @@ def phase_serve_mesh(torch, smi):
     heads split, the MoE by the psum route): routing and drops recorded
     and held equal, the greedy tokens equal, the logits within
     `SERVE_MESH_TOL`; ms and peak memory of each; no kernel lies on this
-    path."""
+    path but the MoE dispatch tables, one launch a routing."""
     from repro_torch.configs import ARCHS
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import model_zoo
@@ -4525,6 +4656,7 @@ def phase_serve_mesh(torch, smi):
                       "bits_repeat": bits,
                       "dropped_share": 1 - kept / assigned,
                       "route_calls": len(routes),
+                      "dispatch_calls": len(drops),
                       "cache_bytes": tree_bytes(caches)}
         outs[name] = (o, toks, routes, drops, caches)
         del caches
@@ -4555,9 +4687,9 @@ def phase_serve_mesh(torch, smi):
     free(torch)
     bad = []
     for name, r in runs.items():
-        if set(r["counts"].values()) - {0}:
-            bad.append(f"{name}: a kernel launched on a path that runs none:"
-                       f" {r['counts']}")
+        if r["counts"] != designed(moe_dispatch_tables=r["dispatch_calls"]):
+            bad.append(f"{name}: launches {r['counts']}, designed one a "
+                       f"dispatch call ({r['dispatch_calls']})")
         if not r["bits_repeat"]:
             bad.append(f"{name}: bits differ run to run")
     if not (same_routes and same_drops and same_tokens and same_pos):
@@ -5065,6 +5197,7 @@ def main() -> int:
     free(torch)
     mixed = phase_mixed_sgd_at_cell_shape(torch, smi, zlaunches)
     free(torch)
+    tables = phase_moe_dispatch(torch, smi)
     phase_k2_in_place(torch, zjob)
     free(torch)
     k2 = phase_k2_at_path_shape(torch, smi, zlaunches, tick_ms / cells,
@@ -5109,8 +5242,8 @@ def main() -> int:
           "slice_11_seconds": t12 - t11, "slice_12_seconds": t13 - t12,
           "slice_13_seconds": t14 - t13, "slice_14_seconds": t15 - t14,
           "slice_15_seconds": time.perf_counter() - t15})
-    emit({"kernels": [k1, mixed] + k2 + k3 + k3_hybrid + k2_hybrid + k2_whisper
-          + k2_padded + k2_tp + rows_15})
+    emit({"kernels": [k1, mixed, tables] + k2 + k3 + k3_hybrid + k2_hybrid
+          + k2_whisper + k2_padded + k2_tp + rows_15})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 #: kernel name -> source file under csrc/
 SOURCES = {"elastic_update": "elastic_update.cu",
            "mixed_sgd": "mixed_sgd.cu",
+           "moe_dispatch": "moe_dispatch.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_sm90": "flash_attention_sm90.cu",
            "ssd_scan": "ssd_scan.cu",

@@ -11,7 +11,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import flash_attention as flash
-from repro_torch.kernels import count_launch, mixed_sgd, ref, ssd_scan
+from repro_torch.kernels import count_launch, mixed_sgd, moe_dispatch, ref
+from repro_torch.kernels import ssd_scan
 from repro_torch.kernels.elastic_update import elastic_sgd_update
 
 
@@ -61,6 +62,24 @@ def mixed_sgd_update(grads, mom, master, params, running, lr, *,
 
 
 mixed_sgd_update.launches = 0
+
+
+def moe_dispatch_tables(topi, topv, e: int, capacity: int):
+    """The (e, capacity) token (int32), combine-weight (float32) and
+    validity (bool) tables of the (T, k) expert ids ``topi`` and their
+    float32 weights ``topv``: an assignment's slot is its rank among its
+    expert's assignments in token order, one past the capacity is dropped,
+    an empty slot points at token 0 with weight 0.
+
+    Where either tensor is on CUDA this launches the kernel
+    (``kernels.moe_dispatch``) once, which refuses tensors on other
+    devices, counted in ``launch_counts()["moe_dispatch_tables"]``; the
+    combine weights carry topv's gradient. On CPU tensors it runs
+    ``moe_dispatch.dispatch_tables_reference``."""
+    if not (topi.is_cuda or topv.is_cuda):
+        return moe_dispatch.dispatch_tables_reference(topi, topv, e,
+                                                      capacity)
+    return moe_dispatch.DispatchTables.apply(topi, topv, e, capacity)
 
 
 def flash_mha(q, k, v, *, causal: bool = True, window: Optional[int] = None,
@@ -140,6 +159,7 @@ ssd_chunked.launches = 0
 #: kernel name -> the wrapper that launches it
 WRAPPERS = {"elastic_sgd_update": fused_elastic_update,
             "mixed_sgd_update": mixed_sgd_update,
+            "moe_dispatch_tables": moe_dispatch.dispatch_tables,
             "flash_attention_fwd": flash.flash_fwd,
             "flash_attention_fwd_tc": flash.flash_fwd_tc,
             "flash_attention_bwd_dkdv": flash.flash_bwd_dkdv,

@@ -35,6 +35,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.models import spmd
 from repro_torch.models.common import (ParamSpec, TPRanks, current_ctx,
                                        dense_spec)
@@ -92,27 +93,10 @@ def _dispatch_tables(topi, topv, e: int, capacity: int):
     """Build (E, C) token-index / combine-weight / validity tables. An
     assignment's slot is its rank among the expert's assignments in token
     order; one past the capacity is dropped (the reference's scatter with
-    ``mode="drop"``): it lands in a spare column that is cut away. Empty
-    slots point at token 0 with weight 0."""
-    t, k = topi.shape
-    flat_e = topi.reshape(-1)                                  # (T*k,)
-    oh = F.one_hot(flat_e, e).to(torch.int32)
-    pos = torch.cumsum(oh, dim=0) - 1
-    mypos = torch.gather(pos, 1, flat_e[:, None])[:, 0]
-    tok_ids = torch.arange(t, dtype=torch.int32,
-                           device=topi.device).repeat_interleave(k)
-    valid = mypos < capacity
-    slot = (flat_e, torch.clamp_max(mypos, capacity).long())
-
-    def table(values, dtype):
-        tbl = torch.zeros((e, capacity + 1), dtype=dtype,
-                          device=topi.device)
-        return tbl.index_put(slot, values.to(dtype))[:, :capacity]
-
-    tok_tbl = table(tok_ids, torch.int32)
-    val_tbl = table(valid, torch.bool)
-    cmb_tbl = table(torch.where(valid, topv.reshape(-1), 0.0), torch.float32)
-    return tok_tbl, cmb_tbl, val_tbl
+    ``mode="drop"``). Empty slots point at token 0 with weight 0. One
+    kernel launch on the card, the plain one-hot and cumsum on the CPU
+    (`kernels.ops.moe_dispatch_tables`)."""
+    return ops.moe_dispatch_tables(topi, topv, e, capacity)
 
 
 def _slot_tokens(tok_tbl, val_tbl, t: int):

@@ -912,6 +912,122 @@ def test_zoo_bf16_run_lands_in_place_as_the_functional_step(cuda_device,
         assert a.dtype == b.dtype and torch.equal(_bit_view(a), _bit_view(b))
 
 
+# ----------------------------------------------- the MoE dispatch tables
+
+
+def _routing(t, e, e_real, k, device, unpicked=None, idx=torch.int64):
+    """(topi, topv) of ``t`` tokens over ``e`` experts, top-``k``: real
+    `moe._route` output on random activations at DeepSeek-V2-Lite's width
+    (``e_real`` < ``e`` masks the padded experts), or, with ``unpicked``,
+    random picks that never take that expert."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device=device).manual_seed(t * 131 + e + k)
+    if unpicked is not None:
+        score = torch.rand(t, e, generator=gen, device=device)
+        score[:, unpicked] = -1.0
+        topi = torch.topk(score, k, dim=-1).indices
+        topv = torch.softmax(torch.randn(t, k, generator=gen, device=device),
+                             dim=-1)
+        return topi.to(idx).contiguous(), topv
+    cfg = ARCHS["deepseek-v2-lite-16b"]
+    m = dataclasses.replace(cfg.moe, num_experts=e,
+                            num_experts_unpadded=e_real, top_k=k)
+    x = torch.randn(t, cfg.d_model, generator=gen, device=device)
+    router = torch.randn(cfg.d_model, e, generator=gen,
+                         device=device) * cfg.d_model ** -0.5
+    topi, topv, _ = moe._route(x, router, m)
+    return topi.to(idx).contiguous(), topv
+
+
+#: (tokens, experts, real experts, top-k, capacity, an unpicked expert,
+#: id dtype): DeepSeek-V2-Lite's cell (8 × 1023 tokens, capacity 1.25 →
+#: 960), the same at capacity 1, capacity past T·k (no drops), Qwen2-MoE's
+#: 60 experts padded to 64 at top-4, decode's 1–3 tokens (capacity 1), and
+#: an expert that no assignment picks, with int32 ids
+DISPATCH_CASES = {
+    "cell": (8184, 64, 64, 6, 960, None, torch.int64),
+    "cell-capacity-1": (8184, 64, 64, 6, 1, None, torch.int64),
+    "no-drops": (1024, 64, 64, 6, 6144, None, torch.int64),
+    "qwen2-moe-padded": (4096, 64, 60, 4, 320, None, torch.int64),
+    "decode-1": (1, 64, 64, 6, 1, None, torch.int64),
+    "decode-2": (2, 64, 64, 6, 1, None, torch.int64),
+    "decode-3": (3, 64, 64, 6, 1, None, torch.int64),
+    "unpicked-expert-int32": (2048, 64, 64, 6, 240, 7, torch.int32),
+}
+
+
+@pytest.mark.parametrize("case", list(DISPATCH_CASES))
+def test_moe_dispatch_tables_bit_equal_to_plain(cuda_device, case):
+    """One launch a call, with and without autograd recording: the three
+    tables every bit of the plain one-hot/cumsum version's on the same
+    card tensors, and topv's gradient through the combine weights every bit
+    of the plain version's."""
+    from repro_torch.kernels import moe_dispatch
+    from repro_torch.models import moe
+
+    t, e, e_real, k, cap, unpicked, idx = DISPATCH_CASES[case]
+    topi, topv = _routing(t, e, e_real, k, cuda_device, unpicked, idx)
+    want = moe_dispatch.dispatch_tables_reference(topi.long(), topv, e, cap)
+    if unpicked is not None:
+        assert not bool(want[2][unpicked].any())
+    if e_real < e:
+        assert not bool(want[2][e_real:].any())
+    if case == "no-drops":
+        assert int(want[2].sum()) == t * k
+
+    def one_launch(fn):
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == {
+            n: int(n == "moe_dispatch_tables") for n in ops.WRAPPERS}
+        return out
+
+    with torch.no_grad():
+        got = one_launch(lambda: moe._dispatch_tables(topi, topv, e, cap))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b) if a.dtype != torch.float32 else \
+            torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    g = torch.randn(e, cap, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device
+                                              ).manual_seed(9))
+    mine, plain = topv.clone().requires_grad_(), topv.clone().requires_grad_()
+    tables = one_launch(lambda: moe._dispatch_tables(topi, mine, e, cap))
+    for a, b in zip(tables, want):
+        assert torch.equal(a.detach(), b)
+    (gm,) = torch.autograd.grad((tables[1] * g).sum(), mine)
+    (gp,) = torch.autograd.grad((moe_dispatch.dispatch_tables_reference(
+        topi.long(), plain, e, cap)[1] * g).sum(), plain)
+    assert torch.equal(gm.view(torch.int32), gp.view(torch.int32))
+
+
+def test_moe_dispatch_tables_refuses_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels import moe_dispatch
+
+    topi, topv = _routing(64, 64, 64, 6, cuda_device)
+    bad = [
+        (topi.float(), topv), (topi.to(torch.int16), topv),
+        (topi, topv.double()), (topi, topv.to(torch.bfloat16)),
+        (topi[:, :4].contiguous(), topv), (topi.reshape(-1), topv.reshape(-1)),
+        (topi.t(), topv.t()), (topi.cpu(), topv), (topi, topv.cpu()),
+        (topi.cpu(), topv.cpu()),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            moe_dispatch.dispatch_tables(*args, 64, 8)
+    with pytest.raises(ValueError):
+        moe_dispatch.dispatch_tables(topi, topv, 64, -1)
+    # through the dispatching wrapper: a CUDA tensor beside a CPU one
+    # raises, rather than taking the plain path
+    with pytest.raises(ValueError):
+        ops.moe_dispatch_tables(topi, topv.cpu(), 64, 8)
+
+
 # ------------------------------------------------------------------ K3
 
 #: (B, S, H, P, G, N, chunk): Q = 16, 64, 100 (a ragged 64-row tile), 256
@@ -1140,17 +1256,23 @@ def test_serving_on_cuda_goes_through_k3(cuda_device):
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-v2-lite-16b",
                                   "qwen2-moe-a2.7b"])
-def test_transformer_serving_on_cuda_matches_the_cpu(cuda_device, arch):
+def test_transformer_serving_on_cuda_matches_the_cpu(cuda_device, arch,
+                                                    monkeypatch):
     """A reduced dense (QKV bias), MLA + MoE and MoE transformer served on
     the card: ``prefill_prompt`` over 16 tokens then 6 greedy serve steps.
     float32, TF32 off: the prefill's logits and every cache leaf within
     1e-4 of the CPU run (the same products summed in other orders), the
-    positions and greedy tokens equal, and no kernel launched."""
+    positions and greedy tokens equal, and no kernel launched but the MoE
+    dispatch tables, once a routing on the card."""
     from repro_torch.launch import serve
-    from repro_torch.models import model_zoo
+    from repro_torch.models import model_zoo, moe
     from repro_torch.models.common import init_params
     from repro_torch.tree import tree_map
 
+    calls = []
+    tables = moe._dispatch_tables
+    monkeypatch.setattr(moe, "_dispatch_tables",
+                        lambda *a: calls.append(a) or tables(*a))
     cfg = ARCHS[arch].reduced()
     params = init_params(model_zoo.param_defs(cfg), 0, device="cpu")
     caches = init_params(model_zoo.cache_defs(cfg, 2, 24), 0, device="cpu")
@@ -1160,11 +1282,16 @@ def test_transformer_serving_on_cuda_matches_the_cpu(cuda_device, arch):
     for dev in ("cpu", cuda_device):
         p = tree_map(lambda t: t.to(dev), params)
         c = tree_map(lambda t: t.to(dev), caches)
+        calls.clear()
         ops.reset_launch_counts()
         logits, c1 = model_zoo.prefill(p, cfg, {"tokens": prompt.to(dev)}, c)
         nxt, c = serve.prefill_prompt(cfg, p, c, prompt.to(dev))
         toks, c = serve.greedy_decode(cfg, p, c, nxt, 16, 6)
-        assert set(ops.launch_counts().values()) == {0}
+        assert bool(calls) == (cfg.moe is not None)
+        tables_launches = len(calls) if dev != "cpu" else 0
+        assert ops.launch_counts() == {
+            n: tables_launches if n == "moe_dispatch_tables" else 0
+            for n in ops.WRAPPERS}
         runs[str(dev)] = (logits.cpu(), tree_map(lambda t: t.cpu(), c1),
                           toks.cpu(), tree_map(lambda t: t.cpu(), c))
     cpu, gpu = runs["cpu"], runs[str(cuda_device)]

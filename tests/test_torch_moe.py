@@ -112,24 +112,34 @@ def test_route_matches_reference(e_real):
     np.testing.assert_allclose(gv.sum(-1).numpy(), 1.0, rtol=1e-6)
 
 
-@pytest.mark.parametrize("capacity", [1, 3, 7, 64])
-def test_dispatch_tables_match_reference(capacity):
+@pytest.mark.parametrize("t,e,k,capacity", [
+    pytest.param(32, 8, 2, 1, id="1"), pytest.param(32, 8, 2, 3, id="3"),
+    pytest.param(32, 8, 2, 7, id="7"), pytest.param(32, 8, 2, 64, id="64"),
+    # DeepSeek-V2-Lite's cell: 8 × 1023 tokens, top-6 of 64, capacity
+    # 1.25 (960) and 1
+    pytest.param(8184, 64, 6, 960, id="8184x6of64-960"),
+    pytest.param(8184, 64, 6, 1, id="8184x6of64-1")])
+def test_dispatch_tables_match_reference(t, e, k, capacity):
     """Token, combine-weight and validity tables bit for bit, at
     capacities that drop most, some, few and none of 32 tokens × top-2
-    over 6 real experts."""
-    cfg, jcfg = _moe_cfgs()
-    x2d = np.asarray(_x((32, cfg.d_model)))
+    over 6 real experts, and at the DeepSeek cell's routing sizes."""
+    e_real = 6 if e == 8 else e
+    cfg, jcfg = _moe_cfgs(num_experts=e, num_experts_unpadded=e_real,
+                          top_k=k)
+    x2d = np.asarray(_x((t, cfg.d_model)))
     router = np.random.default_rng(3).standard_normal(
-        (cfg.d_model, 8)).astype(np.float32) * 0.2
+        (cfg.d_model, e)).astype(np.float32) * 0.2
     ti, tv, _ = jax_moe._route(jnp.asarray(x2d), jnp.asarray(router),
                                jcfg.moe)
-    want = jax_moe._dispatch_tables(ti, tv, 8, capacity)
-    got = moe._dispatch_tables(_port(ti).long(), _port(tv), 8, capacity)
+    want = jax_moe._dispatch_tables(ti, tv, e, capacity)
+    got = moe._dispatch_tables(_port(ti).long(), _port(tv), e, capacity)
     for g, w, name in zip(got, want, ("tok", "cmb", "val")):
-        assert tuple(g.shape) == (8, capacity), name
+        assert tuple(g.shape) == (e, capacity), name
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
-    kept = int(got[2].sum())
-    assert (kept < 64) == (capacity < 64)
+    # each expert keeps its first `capacity` assignments
+    per_expert = np.bincount(np.asarray(ti).reshape(-1), minlength=e)
+    assert int(got[2].sum()) == int(np.minimum(per_expert, capacity).sum())
+    assert (int(got[2].sum()) < t * k) == (capacity < per_expert.max())
     # a dropped assignment's weight is 0, and so is every empty slot's
     assert float(got[1][~got[2]].abs().sum()) == 0.0
     assert int(got[0][~got[2]].abs().sum()) == 0
