@@ -68,11 +68,11 @@ Phases, each printing one JSON line and raising on failure:
    block with the plain version, and prefill-then-decode against one
    longer prefill (2048 + 32 against 2304 positions); then K3 at the
    path's shape: the tensor-core kernel's time beside its bound (3xTF32
-   over the least work, the scores once per group), the CUDA-core
-   kernel's time beside it, the plain version's, the glue's and K3's share
-   of the prefill. K3 against its plain version on edge shapes (Q 16 to
-   256, one, two and three heads a group, P 32 to 128, N 32 and 128,
-   float32 and bf16) runs with the other small comparisons in phase 2;
+   over the least work, the scores once per group), the plain version's,
+   the glue's and K3's share of the prefill. K3 against its plain version
+   on edge shapes (Q 16 to 256, one, two and three heads a group, P 32 to
+   128, N 32 and 128, float32 and bf16) runs with the other small
+   comparisons in phase 2;
 6. slice 8's paths, which run no kernel of the reference (the device work
    is the engine's tick loop; each path's launch counts are set to 0
    before it and must stay 0): the paper's figures through
@@ -308,11 +308,9 @@ TC_OPCODES = ("HGMMA", "UTMALDG")
 TC_FUNCTIONS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
                 "flash_bwd_dq_tc_kernel")
 #: K3: the path's kernel on the tensor cores (mma.sync, so HMMA in its
-#: SASS), and the CUDA-core kernel kept beside it off the path
+#: SASS)
 KERNEL_SOURCES["ssd_chunk"] = ("src/repro_torch/csrc/ssd_scan_sm90.cu",
                                "src/repro/kernels/ssd_scan.py:72")
-KERNEL_SOURCES["ssd_chunk_cuda_core"] = ("src/repro_torch/csrc/ssd_scan.cu",
-                                         "src/repro/kernels/ssd_scan.py:72")
 K3_TC_OPCODES = ("HMMA",)
 K3_TC_FUNCTION = "ssd_chunk_tc_kernel"
 #: its instantiations: x's type, P padded to 64 or 128, the cp.async route
@@ -991,36 +989,24 @@ def zoo_update_launches(job, cells, n_ticks) -> dict:
 
 
 def phase_zoo_steady(torch, res, job):
-    """One tick's worth of steps over the run's final carry: every cell
-    stepped and landed (gated in, or landing itself), all running."""
-    from repro_torch.sim import engine
+    """One tick's worth of steps over the run's final carry: the program's
+    step over the whole grid, every cell running."""
     from repro_torch.train.trainer import stack_batches
     from repro_torch.train.zoo_program import make_zoo_program
-    from repro_torch.tree import tree_index
 
     n_batches = int(res.J.max())
     prog = make_zoo_program(job.model, job, n_batches)
     data = stack_batches(job, n_batches, device="cuda")
     dev = torch.device("cuda")
-    s_dim, r_dim = res.iterations.shape
-    mask = torch.ones(job.n_workers, device=dev)
-    j = torch.zeros((), dtype=torch.int64, device=dev)
-    alpha = torch.full((), job.learning_rate, device=dev)
-    running = torch.ones((), dtype=torch.bool, device=dev)
-
-    def tick():
-        for s in range(s_dim):
-            for r in range(r_dim):
-                cell = tree_index(res.final_model, (s, r))
-                if prog.gates_itself:
-                    prog.step_fn(cell, data, None, mask, j, alpha, running)
-                    continue
-                stepped, _ = prog.step_fn(cell, data, None, mask, j, alpha)
-                engine._gate_model(running, stepped, cell)
-                del stepped      # as the engine does: one new tree at a time
-
+    s_dim, r_dim = grid = res.iterations.shape
+    key = torch.zeros(grid, dtype=torch.int64, device=dev)
+    mask = torch.ones(grid + (job.n_workers,), device=dev)
+    j = torch.zeros(grid, dtype=torch.int64, device=dev)
+    alpha = torch.full(grid, job.learning_rate, device=dev)
+    running = torch.ones(grid, dtype=torch.bool, device=dev)
     torch.cuda.reset_peak_memory_stats()
-    ms = timed(tick, 2, torch)
+    ms = timed(lambda: prog.step_fn(res.final_model, data, key, mask, j,
+                                    alpha, running), 2, torch)
     cells = s_dim * r_dim
     tokens = cells * job.shape.global_batch * (job.shape.seq_len - 1)
     emit({"phase": "zoo_steady_step", "cells": cells,
@@ -1096,8 +1082,8 @@ def phase_mixed_sgd_at_cell_shape(torch, smi, launches):
         del g32
         new_params = tree_map(lambda m, p: m.to(p.dtype), new_master,
                               model["params"])
-        engine._gate_model(on, {"params": new_params, "master": new_master,
-                                "opt": new_opt}, model)
+        engine.gate_model(on, {"params": new_params, "master": new_master,
+                               "opt": new_opt}, model)
     parent_ms = timed(update_and_gate, 2, torch)
     del grads, mom, master, params, carry, model
 
@@ -1882,12 +1868,11 @@ def k3_work(shape, slab):
 
 def phase_k3_at_path_shape(torch, smi, launches, prefill_ms,
                            shape=K3_PATH_SHAPE, dtype="float32",
-                           phase="k3_at_path_shape", cuda_core=True):
+                           phase="k3_at_path_shape"):
     """K3 at a serving path's shape (by default Mamba2-1.3B's): the
     tensor-core kernel's time beside its bound, the plain version's, the
     glue's (``ops.ssd_chunked`` less K3) and K3's share of the path's
-    prefill; with ``cuda_core`` the CUDA-core kernel's time on the same
-    inputs. The bound is the larger of the bytes and the least work's
+    prefill. The bound is the larger of the bytes and the least work's
     products: float32 inputs 3xTF32 for every product; bf16 inputs the
     scores from the bf16 B and C at the bf16 rate, y and the states
     (float32 weights against exact bf16 x) two TF32 products each."""
@@ -1898,30 +1883,11 @@ def phase_k3_at_path_shape(torch, smi, launches, prefill_ms,
     errs, err = k3_errs(torch, args, q)
     bad = [("ssd_chunk", o, e) for o, e in errs.items()
            if not e <= K3_TOL[dtype][o]]
-    extra = {}
-    if cuda_core:
-        cc_got = ssd_scan.ssd_chunk_cuda_core(*args, chunk=q)
-        want = ref.ssd_chunk_reference(*args, chunk=q)
-        tc_got = ssd_scan.ssd_chunk(*args, chunk=q)
-        torch.cuda.synchronize()
-        cc_errs = {o: row_err(a, c) for o, a, c in zip(K3_OUTS, cc_got,
-                                                        want)}
-        cc_err = max(abs_err(a, c) for a, c in zip(cc_got, want))
-        extra["cuda_core_row_err"] = cc_errs
-        extra["tc_vs_cuda_core_row_err"] = {
-            o: row_err(a, c) for o, a, c in zip(K3_OUTS, tc_got, cc_got)}
-        del cc_got, want, tc_got
-        bad += [("ssd_chunk_cuda_core", o, e) for o, e in cc_errs.items()
-                if not e <= K3_TOL[dtype][o]]
     if bad:
         raise AssertionError(f"K3 at the path's shape {shape} ({dtype}) "
                              f"differs from its plain version: {bad}")
     n_rep = 20
     ms = timed(lambda: ssd_scan.ssd_chunk(*args, chunk=q), n_rep, torch)
-    if cuda_core:
-        cc_ms = timed(lambda: ssd_scan.ssd_chunk_cuda_core(*args, chunk=q),
-                      10, torch)
-        extra.update(cuda_core_ms=cc_ms, speedup_over_cuda_core=cc_ms / ms)
     ms_again = timed(lambda: ssd_scan.ssd_chunk(*args, chunk=q), n_rep,
                      torch)
     plain_ms = timed(lambda: ref.ssd_chunk_reference(*args, chunk=q), 3,
@@ -1941,7 +1907,7 @@ def phase_k3_at_path_shape(torch, smi, launches, prefill_ms,
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     per_prefill = launches["ssd_chunk"]
     emit({"phase": phase, "shape": shape, "dtype": dtype,
-          "row_err": errs, "max_abs_err": err, **extra,
+          "row_err": errs, "max_abs_err": err,
           "ms": ms, "ms_again": ms_again,
           "slab_heads": ssd_scan.SLAB_HEADS, "flops_least": least,
           "flops_scores": scores, "flops_kernel": done,
@@ -1954,20 +1920,14 @@ def phase_k3_at_path_shape(torch, smi, launches, prefill_ms,
           "k3_share_of_prefill": per_prefill * ms / prefill_ms,
           "glue_share_of_prefill": per_prefill * (chunked_ms - ms)
           / prefill_ms, "card": smi})
-    rows = [("ssd_chunk", ms, err)]
-    if cuda_core:
-        rows.append(("ssd_chunk_cuda_core", cc_ms, cc_err))
-    out = []
-    for kname, kms, kerr in rows:
-        src, replaces = KERNEL_SOURCES[kname]
-        out.append({"name": kname, "route": "cuda", "source": src,
-                    "replaces": replaces, "launches": launches[kname],
-                    "max_abs_err": kerr, "ms": kms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": None})
-        if phase != "k3_at_path_shape":
-            out[-1]["path"] = phase
-    return out
+    src, replaces = KERNEL_SOURCES["ssd_chunk"]
+    row = {"name": "ssd_chunk", "route": "cuda", "source": src,
+           "replaces": replaces, "launches": launches["ssd_chunk"],
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    if phase != "k3_at_path_shape":
+        row["path"] = phase
+    return [row]
 
 
 # ---------------------------------------------------------------------------
@@ -3614,7 +3574,7 @@ def phase_serve_hybrid(torch, smi):
     rows = phase_k3_at_path_shape(
         torch, smi, runs[1]["counts_prefill"], runs[1]["prefill_ms"],
         shape=K3_HYBRID_SHAPE, dtype="bfloat16",
-        phase="k3_at_hybrid_shape", cuda_core=False)
+        phase="k3_at_hybrid_shape")
     free(torch)
     return rows
 
@@ -4925,7 +4885,7 @@ def phase_ssm_mesh(torch, smi):
     return phase_k3_at_path_shape(
         torch, smi, runs["mesh"]["launches_prefill"],
         runs["mesh"]["prefill_ms"], shape=K3_RANK_SHAPE,
-        phase="k3_at_ssm_rank_shape", cuda_core=False)
+        phase="k3_at_ssm_rank_shape")
 
 
 def loss_grad_runs(torch, cfg, params, batch, meshes, grads_of):

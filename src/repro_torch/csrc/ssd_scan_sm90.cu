@@ -3,11 +3,10 @@
 // float32-accurate through 3xTF32 mma.sync.
 //
 // Replaces the Pallas kernel src/repro/kernels/ssd_scan.py::
-// ssd_chunk_pallas (:72, pallas_call :98, body _ssd_chunk_kernel :36), and
-// computes the function of the CUDA-core kernel in ssd_scan.cu, in the same
-// layouts and types: per (batch b, head h, chunk c) of Q positions, with x
-// (Q, P), dt (Q,), the head's a, and B, C (Q, N) of the head's group
-// h / (H / G),
+// ssd_chunk_pallas (:72, pallas_call :98, body _ssd_chunk_kernel :36), in
+// the same layouts and types: per (batch b, head h, chunk c) of Q
+// positions, with x (Q, P), dt (Q,), the head's a, and B, C (Q, N) of the
+// head's group h / (H / G),
 //
 //     cs_i      = sum_{k <= i} dt_k a                (within the chunk)
 //     y_i       = sum_{j <= i} (C_i . B_j) exp(cs_i - cs_j) dt_j x_j
@@ -280,8 +279,7 @@ __device__ __forceinline__ void x_frags(const T* xf, int k0,
 }
 
 // cs[i] = sum_{k <= i} dt[k] a for i < Q (Q <= 256), by one warp: eight
-// terms a lane, then a shuffle scan over the lanes' sums. The order of the
-// CUDA-core kernel's, so the two write the same bits.
+// terms a lane, then a shuffle scan over the lanes' sums.
 __device__ __forceinline__ void chunk_cumsum(float* cs, const float* dts,
                                              float a, int Q, int lane) {
   const int per = (Q + 31) / 32;

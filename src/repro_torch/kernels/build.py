@@ -31,7 +31,6 @@ SOURCES = {"elastic_update": "elastic_update.cu",
            "moe_dispatch": "moe_dispatch.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_sm90": "flash_attention_sm90.cu",
-           "ssd_scan": "ssd_scan.cu",
            "ssd_scan_sm90": "ssd_scan_sm90.cu"}
 
 #: -fmad=false keeps every multiply and add separately rounded, as in the

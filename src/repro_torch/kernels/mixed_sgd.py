@@ -11,7 +11,7 @@ element of every leaf:
 
 which is bit for bit what the functional update (the gradients cast up,
 `optim.sgd`'s momentum step over the masters, the refresh of the working
-copy) followed by the engine's gate (`sim.engine._gate_model`) lands.
+copy) landed by `sim.engine.gate_model` gives.
 
 The kernel is CUDA C++ in ``csrc/mixed_sgd.cu`` (see its header for what
 bounds it and how it is laid out); this module checks the arguments,

@@ -167,8 +167,7 @@ WRAPPERS = {"elastic_sgd_update": fused_elastic_update,
             "flash_attention_bwd_dkdv_tc": flash.flash_bwd_dkdv_tc,
             "flash_attention_bwd_dq": flash.flash_bwd_dq,
             "flash_attention_bwd_dq_tc": flash.flash_bwd_dq_tc,
-            "ssd_chunk": ssd_chunked,
-            "ssd_chunk_cuda_core": ssd_scan.ssd_chunk_cuda_core}
+            "ssd_chunk": ssd_chunked}
 
 
 def launch_counts() -> Dict[str, int]:

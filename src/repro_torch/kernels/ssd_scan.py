@@ -13,18 +13,15 @@ xh's dtype; states (B, nc, H, N, P), cs (B, nc, H, Q) and the chunk decay
 (B, nc, H), all float32 — the outputs of the reference's
 ``ssd_chunk_pallas`` in its layouts.
 
-The path's kernel is CUDA C++ for the tensor cores in
-``csrc/ssd_scan_sm90.cu`` (`ssd_chunk`): the scores C·Bᵀ once per slab of
-heads of one group, every product float32-accurate through 3xTF32, tiles
-staged by double-buffered ``cp.async``. The CUDA-core kernel it replaced,
-``csrc/ssd_scan.cu`` (`ssd_chunk_cuda_core`), computes the same function
-and stays in the library, off the path, as the yardstick the card times
-beside it. Each source's header says what bounds it and how it is laid
-out. Neither has a backward, as the reference's Pallas kernel has none,
-and both refuse inputs that require a gradient: the model trains through
-``models.ssm.ssd_chunked``, the reference model's jnp route. Their plain version is
-``kernels.ref.ssd_chunk_reference``; ``kernels.ops.ssd_chunked`` picks
-between it and `ssd_chunk` by the device of the tensors and runs the
+The kernel is CUDA C++ for the tensor cores in ``csrc/ssd_scan_sm90.cu``
+(`ssd_chunk`): the scores C·Bᵀ once per slab of heads of one group, every
+product float32-accurate through 3xTF32, tiles staged by double-buffered
+``cp.async``. The source's header says what bounds it and how it is laid
+out. It has no backward, as the reference's Pallas kernel has none, and
+refuses inputs that require a gradient: the model trains through
+``models.ssm.ssd_chunked``, the reference model's jnp route. Its plain
+version is ``kernels.ref.ssd_chunk_reference``; ``kernels.ops.ssd_chunked``
+picks between the two by the device of the tensors and runs the
 inter-chunk recurrence around them."""
 from __future__ import annotations
 
@@ -33,7 +30,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, count_launch
+from repro_torch.kernels import build
 
 MAX_Q, MAX_N, MAX_P = 256, 128, 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -43,12 +40,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: almost six waves of two blocks on each of 132 SMs
 SLAB_HEADS = 16
 
-# dtype, x, dt, a_h, bm, cm, y, states, cs, decay, strides,
-# B, S, H, G, P, N, Q, stream
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
-             + [ctypes.c_void_p])
-# dtype, async_copy, slab, then as above from x on
-_TC_ARGTYPES = _ARGTYPES[:1] + [ctypes.c_int] * 2 + _ARGTYPES[1:]
+# dtype, async_copy, slab, x, dt, a_h, bm, cm, y, states, cs, decay,
+# strides, B, S, H, G, P, N, Q, stream
+_TC_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
+                + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
 def _bind(name: str, fn_name: str, argtypes) -> ctypes.CDLL:
@@ -154,28 +149,6 @@ def _strides(*tensors):
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
-def _launch(what, fn, lead, xh, dt, a_h, bm, cm, q):
-    """Allocate the four outputs and launch ``fn`` (a C entry point taking
-    dtype, then ``lead``, then the common arguments); raise on its error."""
-    b, s, h, p = xh.shape
-    g, n = bm.shape[2], bm.shape[3]
-    dev, nc = xh.device, s // q
-    f32 = dict(dtype=torch.float32, device=dev)
-    outs = (torch.empty((b, s, h, p), dtype=xh.dtype, device=dev),
-            torch.empty((b, nc, h, n, p), **f32),
-            torch.empty((b, nc, h, q), **f32), torch.empty((b, nc, h), **f32))
-    a_h = a_h.contiguous()
-    with torch.cuda.device(dev):
-        err = fn(_DTYPES[xh.dtype], *lead, xh.data_ptr(), dt.data_ptr(),
-                 a_h.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-                 *(o.data_ptr() for o in outs), _strides(xh, dt, bm, cm),
-                 b, s, h, g, p, n, q,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
-    return outs
-
-
 def ssd_chunk(xh: torch.Tensor, dt: torch.Tensor, a_h: torch.Tensor,
               bm: torch.Tensor, cm: torch.Tensor, *, chunk: int
               ) -> Tuple[torch.Tensor, ...]:
@@ -194,24 +167,21 @@ def ssd_chunk(xh: torch.Tensor, dt: torch.Tensor, a_h: torch.Tensor,
     copies = all(async_refusal(tuple(t.shape), t.stride(), t.data_ptr(),
                                t.element_size()) is None
                  for t in (xh, bm, cm))
-    return _launch("ssd_chunk", lib.ssd_chunk_tc_fwd,
-                   (int(copies), SLAB_HEADS), xh, dt, a_h, bm, cm, q)
-
-
-def ssd_chunk_cuda_core(xh: torch.Tensor, dt: torch.Tensor,
-                        a_h: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
-                        *, chunk: int) -> Tuple[torch.Tensor, ...]:
-    """`ssd_chunk` through the CUDA-core kernel (``csrc/ssd_scan.cu``):
-    the same inputs, checks and outputs, float32 FMAs per head. No path
-    calls it; it is held and timed on the card beside the tensor-core
-    kernel. Adds one to ``ssd_chunk_cuda_core.launches`` per launch."""
-    q = chunk_len(chunk, xh.shape[1])
-    _check(xh, dt, a_h, bm, cm, q)
-    lib = _bind("ssd_scan", "ssd_chunk_fwd", _ARGTYPES)
-    outs = _launch("ssd_chunk_cuda_core", lib.ssd_chunk_fwd, (), xh, dt,
-                   a_h, bm, cm, q)
-    count_launch(ssd_chunk_cuda_core)
+    b, s, h, p = xh.shape
+    g, n = bm.shape[2], bm.shape[3]
+    dev, nc = xh.device, s // q
+    f32 = dict(dtype=torch.float32, device=dev)
+    outs = (torch.empty((b, s, h, p), dtype=xh.dtype, device=dev),
+            torch.empty((b, nc, h, n, p), **f32),
+            torch.empty((b, nc, h, q), **f32), torch.empty((b, nc, h), **f32))
+    a_h = a_h.contiguous()
+    with torch.cuda.device(dev):
+        err = lib.ssd_chunk_tc_fwd(
+            _DTYPES[xh.dtype], int(copies), SLAB_HEADS, xh.data_ptr(),
+            dt.data_ptr(), a_h.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+            *(o.data_ptr() for o in outs), _strides(xh, dt, bm, cm),
+            b, s, h, g, p, n, q, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_chunk kernel launch failed: CUDA error "
+                           f"{err}")
     return outs
-
-
-ssd_chunk_cuda_core.launches = 0

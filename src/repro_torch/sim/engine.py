@@ -4,9 +4,9 @@ device.
 
 Per tick: price draw → plan-table bucket latch → bid/preemption active mask
 → runtime and cost accounting (`_market_tick`, vectorized over the whole
-(S, R) grid) → the model program (one call over the whole grid for a
-blocked program; one call per (scenario, seed) cell, gated into the carry,
-for a per-cell program) → clock, cost, idle time and trajectory updates.
+(S, R) grid) → the model program (one call over the whole grid, which
+lands its update where the tick runs) → clock, cost, idle time and
+trajectory updates.
 The tick loop is a Python loop that never reads a value back to the host;
 the one sync is at the end, when the trajectories become numpy arrays.
 
@@ -24,17 +24,18 @@ the reference's threefry: against ``repro.sim.engine`` the market is held
 exactly only where it draws nothing (tick-indexed trace prices with a
 deterministic runtime), and statistically elsewhere.
 
-Layouts: the blocked layout, ``ModelProgram(blocked=True)``, whose step
-trains the whole (S, R) grid in one call per tick (the megabatch trainer
-of ``train_batched(megabatch=True)`` and the quadratic oracle of
-``quadratic_program``/``simulate``), and the per-cell layout of the
-reference's ``_sim_one``, ``ModelProgram(blocked=False)``, that
-``train_zoo`` runs (the reference vmaps it over the grid; here each cell's
-step is a call of its own, every tick, running or not). The reference
-steps the quadratic per cell; here it is blocked, with the same
-arithmetic per cell. ``SimConfig.snapshot_every`` stacks the whole carry
-every k ticks (``snapshot_state``), and ``simulate_program(init_state=,
-tick0=)`` resumes from it bit for bit: every draw is keyed by the absolute
+Programs: a ``ModelProgram``'s step is called once a tick over the whole
+(S, R) grid and lands its own update where the tick runs. The megabatch
+trainer of ``train_batched(megabatch=True)`` and the quadratic oracle of
+``quadratic_program``/``simulate`` step the grid in one call; `per_cell`
+builds such a step from one written for one (scenario, seed) cell, the
+layout of the reference's ``_sim_one`` that ``train_zoo`` runs (the
+reference vmaps it over the grid; here each cell's step is a call of its
+own, every tick, running or not). The reference steps the quadratic per
+cell; here it steps the grid, with the same arithmetic per cell.
+``SimConfig.snapshot_every`` stacks the whole carry every k ticks
+(``snapshot_state``), and ``simulate_program(init_state=, tick0=)``
+resumes from it bit for bit: every draw is keyed by the absolute
 tick. ``simulate_sharded`` runs the grid in shards over a
 ``launch.mesh.Mesh`` (scenarios over ``data``, seeds over ``replica``),
 bit for bit the unsharded run.
@@ -509,46 +510,67 @@ class SimConfig:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ModelProgram:
-    """Pluggable model under the engine's tick loop.
-
-    ``blocked=False`` (per cell): ``step_fn`` runs one training iteration
-    of one (scenario, seed) cell::
-
-        step_fn(model, data, key, mask, j, alpha) -> (new_model, metric)
-            model: the cell's carry, a nested dict/tuple of tensors (views
-                   of the (S, R, ...) carry, which the step must not
-                   write);  key: 0-d int64 hash;  mask: (n_max,) f32;
-            j: 0-d int64 iterations done;  alpha: 0-d f32 step size
-            metric: 0-d tensor (cast to f32 by the engine)
-
-    It is called for every cell on every tick; the engine lands
-    ``new_model`` only where the iteration runs (`_gate_model`), so idle
-    and finished ticks are true no-ops on every leaf.
-
-    ``gates_itself=True`` (per cell): the step lands its own update, as a
-    blocked step does. The engine passes the cell's 0-d ``running`` as a
-    seventh argument, ``step_fn(model, data, key, mask, j, alpha,
-    running)``; the step writes the cell's carry in place wherever
-    ``running`` holds and nowhere else, and the engine ignores the model
-    it returns and calls no `_gate_model`.
-
-    ``blocked=True``: ``step_fn`` is called ONCE per tick over the whole
-    grid with leading (S, R) axes on every argument::
+    """Pluggable model under the engine's tick loop: ``step_fn`` is called
+    ONCE per tick over the whole grid, with leading (S, R) axes on every
+    argument::
 
         step_fn(model, data, key, mask, j, alpha, running)
-            model: dict of tensors (S, R, ...);  key: (S, R) int64 hash
-            mask: (S, R, n_max) f32;  j/alpha/running: (S, R)
-            -> (new_model, metric (S, R) f32)
+            model: the carry, a nested dict/tuple of (S, R, ...) tensors
+            key: (S, R) int64 hash;  mask: (S, R, n_max) f32
+            j: (S, R) int64 iterations done;  alpha: (S, R) f32 step size
+            running: (S, R) bool, the iteration runs
+            -> (model, metric (S, R))
 
-    A blocked step gates its own update on ``running`` (the fused update
-    does it element for element) and may update ``model`` in place.
-    ``data`` is an arbitrary object shared by all cells (stacked batches).
+    The step runs for every cell on every tick, running or not, and writes
+    the carry in place wherever ``running`` holds and nowhere else, so
+    idle and finished ticks are true no-ops on every leaf; the engine keeps
+    the model it returns. ``data`` is an arbitrary object shared by all
+    cells (stacked batches, a `TorchQuadratic`). `per_cell` builds a
+    program from a step written for one cell; `gate_model` lands a step's
+    new trees under ``running``.
     """
 
     step_fn: Callable[..., Any]
     name: str = "program"
-    blocked: bool = False
-    gates_itself: bool = False
+
+
+def per_cell(step_fn: Callable[..., Any], name: str = "program"
+             ) -> ModelProgram:
+    """A program that runs ``step_fn`` for one (scenario, seed) cell at a
+    time::
+
+        step_fn(cell, data, key, mask, j, alpha, running) -> (cell, metric)
+
+    with views of the cell's carry (`tree_index`), its 0-d ``key``,
+    ``j``, ``alpha`` and ``running`` and its (n_max,) ``mask``; the step
+    lands its update in those views where ``running`` holds (in place, or
+    through `gate_model`). Its metric is cast to float32."""
+
+    def grid_step(model, data, key, mask, j, alpha, running):
+        s_dim, r_dim = j.shape
+        metric = torch.empty((s_dim, r_dim), dtype=torch.float32,
+                             device=j.device)
+        for s in range(s_dim):
+            for r in range(r_dim):
+                _, met = step_fn(tree_index(model, (s, r)), data, key[s, r],
+                                 mask[s, r], j[s, r], alpha[s, r],
+                                 running[s, r])
+                metric[s, r] = met
+        return model, metric
+
+    return ModelProgram(step_fn=grid_step, name=name)
+
+
+def gate_model(running: torch.Tensor, stepped, old) -> None:
+    """Land the stepped model in ``old`` only where ``running`` holds,
+    leaf by leaf and in place: each stepped leaf is cast to the carry
+    leaf's dtype (a mixed-precision step that returns a promoted leaf
+    cannot change the carry's dtypes) and written once under ``running``,
+    a device bool (0-d for one cell), so the host never learns whether
+    the tick ran. An idle tick writes every leaf's own bits back."""
+    with span("engine.gate"):
+        tree_map(lambda new, o: torch.where(running, new.to(o.dtype), o,
+                                            out=o), stepped, old)
 
 
 class SimState(NamedTuple):
@@ -823,11 +845,11 @@ def _advance(state: SimState, m: TickMarket, metric: torch.Tensor,
         model=model)
 
 
-def _blocked_tick(batch: ScenarioBatch, data, seeds, program: ModelProgram,
-                  grid) -> Callable[[SimState, int], SimState]:
-    """One tick of the megabatched layout: the market logic runs over the
-    whole (S, R) grid and the blocked ``step_fn`` trains every replica in
-    one call over (S, R)-leading leaves."""
+def _tick(batch: ScenarioBatch, data, seeds, program: ModelProgram,
+          grid) -> Callable[[SimState, int], SimState]:
+    """One tick: the market logic runs over the whole (S, R) grid, then
+    the program's step trains every cell in one call over (S, R)-leading
+    leaves."""
     alpha2 = _col(batch.alpha).expand(grid)
 
     def tick(state: SimState, k: int) -> SimState:
@@ -837,49 +859,6 @@ def _blocked_tick(batch: ScenarioBatch, data, seeds, program: ModelProgram,
             state.model, data, m.k_grad, m.mask.to(torch.float32), state.j,
             alpha2, m.running)
         return _advance(state, m, metric, model, batch.j_max)
-
-    return tick
-
-
-def _gate_model(running: torch.Tensor, stepped, old) -> None:
-    """Land the stepped model only on a running tick, leaf by leaf and in
-    place: each stepped leaf is cast to the carry leaf's dtype (a mixed-
-    precision step that returns a promoted leaf cannot change the carry's
-    dtypes) and written under ``running``, a 0-d device bool, so the host
-    never learns whether the tick ran. An idle tick writes every leaf's own
-    bits back."""
-    tree_map(lambda new, o: o.copy_(torch.where(running, new.to(o.dtype), o)),
-             stepped, old)
-
-
-def _cells_tick(batch: ScenarioBatch, data, seeds, program: ModelProgram,
-                grid) -> Callable[[SimState, int], SimState]:
-    """One tick of the per-cell layout (the reference's vmapped
-    ``_sim_one``): the market logic runs over the whole (S, R) grid, then
-    the step runs for every cell on views of its carry and `_gate_model`
-    lands it, or the step lands itself (``program.gates_itself``)."""
-    s_dim, r_dim = grid
-
-    def tick(state: SimState, k: int) -> SimState:
-        with span("engine.market"):
-            m = _market_tick(batch, seeds, state.t, state.j, state.bucket, k)
-        mask = m.mask.to(torch.float32)
-        metric = torch.empty(grid, dtype=torch.float32,
-                             device=state.t.device)
-        for s in range(s_dim):
-            for r in range(r_dim):
-                cell = tree_index(state.model, (s, r))
-                args = (cell, data, m.k_grad[s, r], mask[s, r],
-                        state.j[s, r], batch.alpha[s])
-                if program.gates_itself:
-                    _, met = program.step_fn(*args, m.running[s, r])
-                else:
-                    stepped, met = program.step_fn(*args)
-                    with span("engine.gate"):
-                        _gate_model(m.running[s, r], stepped, cell)
-                    del stepped
-                metric[s, r] = met
-        return _advance(state, m, metric, state.model, batch.j_max)
 
     return tick
 
@@ -931,8 +910,8 @@ def _check_run_window(cfg: SimConfig, tick0: int) -> int:
 def simulate_program(scenarios, program: ModelProgram, model0, data, seeds,
                      cfg: SimConfig, *, init_state: Optional[SimState] = None,
                      tick0: int = 0, device=None) -> EngineResult:
-    """Run S scenarios × R seeds of a ModelProgram (blocked or per cell)
-    on ``device`` (default ``cuda``), ticks ``tick0 … cfg.n_ticks-1``.
+    """Run S scenarios × R seeds of a ModelProgram on ``device`` (default
+    ``cuda``), ticks ``tick0 … cfg.n_ticks-1``.
 
     model0: initial model (nested dict/tuple of tensors), shared by every
     (scenario, seed) replica (``initial_state`` fans it out; ignored when
@@ -962,8 +941,7 @@ def simulate_program(scenarios, program: ModelProgram, model0, data, seeds,
         init_state = initial_state(scenarios, model0, len(seeds),
                                    device=device)
     grid = tuple(init_state.t.shape)
-    layout = _blocked_tick if program.blocked else _cells_tick
-    final, snaps = _run_ticks(layout(scenarios, data, seeds, program, grid),
+    final, snaps = _run_ticks(_tick(scenarios, data, seeds, program, grid),
                               init_state, tick0, n_run, cfg.snapshot_every)
     return _engine_result(final, snaps, scenarios, cfg, tick0, n_run)
 
@@ -991,7 +969,7 @@ def _engine_result(final: SimState, snaps: Optional[SimState],
 
 @functools.lru_cache(maxsize=None)
 def quadratic_program(grad: str, batch: int) -> ModelProgram:
-    """The Theorem-1 quadratic oracle as a blocked ModelProgram: model =
+    """The Theorem-1 quadratic oracle as a ModelProgram: model =
     the (S, R, d) SGD iterates, data = a `TorchQuadratic`, metric = the
     error after the update. Per cell it is the reference's step: the
     exact gradient (``grad="full"``), or the mask-weighted mean of the
@@ -1010,8 +988,7 @@ def quadratic_program(grad: str, batch: int) -> ModelProgram:
         w_new = w - alpha[..., None] * g
         return torch.where(running[..., None], w_new, w), quad.error(w_new)
 
-    return ModelProgram(step_fn=step_fn, name=f"quadratic-{grad}-{batch}",
-                        blocked=True)
+    return ModelProgram(step_fn=step_fn, name=f"quadratic-{grad}-{batch}")
 
 
 def simulate(scenarios, quad, w0, seeds, cfg: SimConfig, *,
@@ -1139,8 +1116,8 @@ def simulate_sharded(scenarios, program: ModelProgram, model0, data, seeds,
     depend on how many cells share a call). A sharded run is then bit for
     bit the unsharded one, snapshots included, wherever the program's
     step keeps each cell's arithmetic independent of its neighbours (the
-    engine's market and accounting, the quadratic oracle and the per-cell
-    layout do; the megabatch step's batched products are held on each
+    engine's market and accounting, the quadratic oracle and `per_cell`
+    programs do; the megabatch step's batched products are held on each
     device by its tests).
 
     ``mesh``: a `launch.mesh.Mesh` whose axes are ``data`` and/or

@@ -13,12 +13,14 @@ own).
 The spans, each with the one open around it on the host thread:
 
 * ``engine.tick``: one tick of the engine's loop (`sim.engine._run_ticks`,
-  every layout and the sharded path through it);
+  the sharded path through it too);
 * ``engine.market``: the tick's market and accounting
   (`sim.engine._market_tick`), under ``engine.tick``;
-* ``engine.gate``: landing a per-cell step in the carry
-  (`sim.engine._gate_model`), under ``engine.tick``; a program that gates
-  itself (the mixed-precision zoo step with SGD and momentum) opens none;
+* ``engine.gate``: landing a step's new trees in the carry under the
+  tick's ``running`` (`sim.engine.gate_model`, which a step calls after
+  its ``step.optimizer`` closes), under ``engine.tick``; a step that lands
+  its update in one pass (the mixed-precision zoo step with SGD and
+  momentum, the megabatch step) opens none;
 * ``step.forward``: the step's forward and loss (`train.megabatch`'s
   ``_fwd_res``; `train.train_step.make_loss_grad`'s loss, once a
   micro-slice), under ``engine.tick`` in the engine's programs;

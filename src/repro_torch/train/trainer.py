@@ -268,32 +268,34 @@ def price_spec_from_market(market) -> engine.PriceSpec:
 
 def make_train_program(job: JobConfig, n_batches: int
                        ) -> engine.ModelProgram:
-    """The elastic masked train step as a per-cell engine ModelProgram.
+    """The elastic masked train step as an engine ModelProgram, stepped
+    cell by cell (`engine.per_cell`).
 
     model = (params, opt_state); data = the batch stream stacked on a
     leading (n_batches,) axis, indexed by ``j % n_batches`` on the device
     (deterministic — matches the legacy loop's ``lm_batch(..., index=j)``
     when ``n_batches >= J``). The scenario's ``alpha`` is ignored: the LR
-    comes from the job, exactly as in ``ElasticTrainer.run``."""
+    comes from the job, exactly as in ``ElasticTrainer.run``. The new
+    trees land through `engine.gate_model`."""
     step = make_train_step(job.model, job, remat="none")
 
-    def step_fn(model, data, key, mask, j, alpha):
+    def cell_step(model, data, key, mask, j, alpha, running):
         del key, alpha
         params, opt_state = model
         idx = (j % n_batches).reshape(1)
         batch = {k: x.index_select(0, idx)[0] for k, x in data.items()}
         new_params, new_opt, metrics = step(params, opt_state, batch, mask,
                                             j)
-        return (new_params, new_opt), metrics["loss"]
+        engine.gate_model(running, (new_params, new_opt), model)
+        return model, metrics["loss"]
 
-    return engine.ModelProgram(step_fn=step_fn,
-                               name=f"train-{job.model.name}-{n_batches}")
+    return engine.per_cell(cell_step, f"train-{job.model.name}-{n_batches}")
 
 
 def make_megabatch_train_program(job: JobConfig, n_batches: int,
                                  use_fused_update: bool = False
                                  ) -> engine.ModelProgram:
-    """The megabatched elastic train step as a *blocked* engine program.
+    """The megabatched elastic train step as an engine program.
 
     model = ``train.megabatch``'s flat replica-blocked state ({"p", "v"}
     (S, R, P) tensors, updated in place); per tick the whole (S, R) grid
@@ -330,7 +332,7 @@ def make_megabatch_train_program(job: JobConfig, n_batches: int,
     name = f"train-mega-{job.model.name}-{n_batches}"
     if use_fused_update:
         name += "-fused"
-    return engine.ModelProgram(step_fn=step_fn, name=name, blocked=True)
+    return engine.ModelProgram(step_fn=step_fn, name=name)
 
 
 def unpack_batched_model(final_model, job: JobConfig):
@@ -797,12 +799,11 @@ def train_zoo(job: JobConfig,
     ``save_every`` are given, over `train_batched_durable` — the same
     durable chunk loop, step-directory GC, async writer, NaN guard and
     chaos hooks all apply) with the model program swapped for
-    `zoo_program.make_zoo_program` (per cell, gated by the engine, or by
-    the step itself where it lands in place: bf16 with SGD and momentum)
-    and the initial carry for `zoo_program.init_zoo_state` from
-    ``job.seed``, or
-    ``model0`` (one replica's carry, e.g. the reference's weights carried
-    over by `convert.zoo_state_from_reference`). With
+    `zoo_program.make_zoo_program` (per cell; bf16 with SGD and momentum
+    lands its update in one in-place pass) and the initial carry for
+    `zoo_program.init_zoo_state` from ``job.seed``, or ``model0`` (one
+    replica's carry, e.g. the reference's weights carried over by
+    `convert.zoo_state_from_reference`). With
     ``job.model.use_flash_attention`` the attention runs through K2 on the
     card. Mixed-precision checkpoints carry bf16 leaves (see
     `checkpoint`'s bit-view encoding). Remaining keyword arguments pass

@@ -1,5 +1,6 @@
-"""Zoo ↔ engine adapter: a zoo ``ModelConfig`` as a per-cell engine
-ModelProgram, trained under elastic worker masking.
+"""Zoo ↔ engine adapter: a zoo ``ModelConfig`` as an engine ModelProgram
+stepped cell by cell (`sim.engine.per_cell`), trained under elastic
+worker masking.
 
 * **Mixed precision**: when ``cfg.param_dtype`` is narrower than float32
   the carry holds bf16 params (what the forward and backward consume)
@@ -9,14 +10,14 @@ ModelProgram, trained under elastic worker masking.
   end to end. With bf16 params and SGD with momentum (`lands_in_place`)
   all of that is one gated pass in place (`kernels.ops.mixed_sgd_update`,
   a CUDA kernel on the card), bit for bit the functional update followed
-  by the engine's gate; other optimizers return new trees. With a float32
-  ``param_dtype`` the carry is exactly `train_step.init_train_state`'s
-  ``(params, opt_state)``.
+  by `sim.engine.gate_model`; other optimizers form new trees and land
+  them through `gate_model`. With a float32 ``param_dtype`` the carry is
+  exactly `train_step.init_train_state`'s ``(params, opt_state)``.
 * **Elastic masking**: the engine's (n_max,) active-worker mask drives the
   per-worker token weights inside `train_step.make_loss_grad`, with
   `core.elastic.weighted_mean`'s exact-zero convention; idle ticks are
-  true no-ops, gated by the engine or, in place, by the step itself on
-  the tick's ``running``.
+  true no-ops: every step lands its update only where the tick's
+  ``running`` holds.
 * **Flash attention**: ``cfg.use_flash_attention`` routes full-sequence
   self-attention through `kernels.ops.flash_mha` (K2 on the card); nothing
   else changes here.
@@ -71,23 +72,23 @@ def init_zoo_state(cfg: ModelConfig, job: JobConfig, seed: int, *, device):
 
 def make_zoo_step(cfg: ModelConfig, job: JobConfig, remat: str = "none"):
     """One zoo training iteration over the `init_zoo_state` carry:
-    ``zoo_step(model, batch, mask, j) -> (new_model, loss)``, which
-    returns new trees and leaves ``model`` untouched; or, where
-    `lands_in_place`, ``zoo_step(model, batch, mask, j, running) ->
-    (model, loss)``, which updates ``model`` in place where the 0-d
-    ``running`` holds."""
+    ``zoo_step(model, batch, mask, j, running) -> (model, loss)``, which
+    updates ``model`` in place where the 0-d ``running`` holds and leaves
+    every bit of it elsewhere: in one pass where `lands_in_place`, else
+    by new trees landed through `engine.gate_model`."""
     grad_step = make_loss_grad(cfg, job, remat)
     opt = get_optimizer(job.optimizer, job.momentum)
     lr_fn = constant_lr(job.learning_rate)
 
     if not is_mixed_precision(cfg):
-        def zoo_step(model, batch, mask, j):
+        def zoo_step(model, batch, mask, j, running):
             params, opt_state = model
             grads, loss, _ = grad_step(params, batch, mask)
             with span("step.optimizer"):
-                new_params, new_opt = opt.update(grads, opt_state, params,
-                                                 lr_fn(j))
-            return (new_params, new_opt), loss
+                stepped = opt.update(grads, opt_state, params, lr_fn(j))
+            del grads
+            engine.gate_model(running, stepped, model)
+            return model, loss
 
         return zoo_step
 
@@ -106,7 +107,7 @@ def make_zoo_step(cfg: ModelConfig, job: JobConfig, remat: str = "none"):
 
         return zoo_step
 
-    def zoo_step(model, batch, mask, j):
+    def zoo_step(model, batch, mask, j, running):
         grads, loss, _ = grad_step(model["params"], batch, mask)
         with span("step.optimizer"):
             g32 = tree_map(lambda g: g.to(torch.float32), grads)
@@ -117,30 +118,30 @@ def make_zoo_step(cfg: ModelConfig, job: JobConfig, remat: str = "none"):
             # refresh the low-precision working copy from the masters
             params = tree_map(lambda m, p: m.to(p.dtype), master,
                               model["params"])
-        return {"params": params, "master": master, "opt": opt_state}, loss
+        engine.gate_model(running, {"params": params, "master": master,
+                                    "opt": opt_state}, model)
+        return model, loss
 
     return zoo_step
 
 
 def make_zoo_program(cfg: ModelConfig, job: JobConfig, n_batches: int,
                      remat: str = "none") -> engine.ModelProgram:
-    """A zoo ``ModelConfig`` as a per-cell engine ModelProgram.
+    """A zoo ``ModelConfig`` as an engine ModelProgram, stepped cell by
+    cell (`engine.per_cell`).
 
     ``data`` is the `trainer.stack_batches` dict (leading (n_batches,)
     axis), indexed ``j % n_batches`` on the device (no host sync). The
     scenario ``alpha`` and the random word are ignored — the learning rate
-    comes from the job, as everywhere in the trainer. Where
-    `lands_in_place` the program gates itself: the engine hands the step
-    the cell's ``running``."""
+    comes from the job, as everywhere in the trainer."""
     step = make_zoo_step(cfg, job, remat)
 
-    def step_fn(model, data, key, mask, j, alpha, *running):
+    def cell_step(model, data, key, mask, j, alpha, running):
         del key, alpha
         idx = (j % n_batches).reshape(1)
         batch = {k: x.index_select(0, idx)[0] for k, x in data.items()}
-        return step(model, batch, mask, j, *running)
+        return step(model, batch, mask, j, running)
 
     mode = "mixed" if is_mixed_precision(cfg) else "f32"
-    return engine.ModelProgram(step_fn=step_fn,
-                               name=f"zoo-{cfg.name}-{n_batches}-{mode}",
-                               gates_itself=lands_in_place(cfg, job))
+    return engine.per_cell(cell_step,
+                           f"zoo-{cfg.name}-{n_batches}-{mode}")

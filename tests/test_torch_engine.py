@@ -37,12 +37,15 @@ def _one_torch_thread():
 
 
 def _program(mod):
-    """A blocked program with no model: it records Σ mask as its metric."""
+    """A program with no model, one call a tick over the grid: it records
+    Σ mask as its metric (the reference calls such a program blocked)."""
 
     def step_fn(model, data, key, mask, j, alpha, running):
         return model, mask.sum(-1) + 0 * alpha
 
-    return mod.ModelProgram(step_fn=step_fn, name="count", blocked=True)
+    if mod is jax_engine:
+        return mod.ModelProgram(step_fn=step_fn, name="count", blocked=True)
+    return mod.ModelProgram(step_fn=step_fn, name="count")
 
 
 JAX_PROGRAM = _program(jax_engine)
@@ -193,23 +196,24 @@ def test_hash_is_murmur_finalizer_in_exact_integer_arithmetic():
 
 
 def test_unported_layouts_raise():
-    """The per-cell layout runs (each cell's step, gated on its tick
-    running), and so do the quadratic oracle, snapshots and the mesh: the
-    per-cell grid in shards over three host devices is the grid run
-    whole, carry and trajectories."""
+    """A program built cell by cell runs (each cell's step landing its
+    update through `engine.gate_model` where its tick runs), and so do the
+    quadratic oracle, snapshots and the mesh: that grid in shards over
+    three host devices is the grid run whole, carry and trajectories."""
     sc = _stat_scenarios(engine, np.ones(4, np.float32))
 
-    def count(model, data, key, mask, j, alpha):
-        return {"w": model["w"] + 1.0}, mask.sum()
+    def count(model, data, key, mask, j, alpha, running):
+        engine.gate_model(running, {"w": model["w"] + 1.0}, model)
+        return model, mask.sum()
 
-    cells = engine.ModelProgram(step_fn=count, blocked=False)
+    cells = engine.per_cell(count)
     res = engine.simulate_program(sc, cells, {"w": torch.zeros(1)}, None, 2,
                                   engine.SimConfig(n_ticks=4), device="cpu")
     assert res.final_model["w"].shape == (len(sc), 2, 1)
     np.testing.assert_array_equal(res.final_model["w"][..., 0].numpy(),
                                   res.iterations)
     quad = engine.quadratic_program("full", 4)
-    assert quad.blocked and quad is engine.quadratic_program("full", 4)
+    assert quad is engine.quadratic_program("full", 4)
     sharded = engine.simulate_sharded(
         sc, cells, {"w": torch.zeros(1)}, None, 2,
         engine.SimConfig(n_ticks=4), mesh=Mesh(["cpu"] * 3, ("data",)))

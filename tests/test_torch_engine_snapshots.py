@@ -167,13 +167,16 @@ def test_resume_leaves_the_snapshot_stream_as_it_was(setup):
 
 
 def test_per_cell_layout_resumes_bitexact(setup):
-    """The per-cell layout (`train_zoo`'s) takes tick0 and snapshots too."""
+    """A program built cell by cell (`engine.per_cell`, `train_zoo`'s
+    layout) takes tick0 and snapshots too."""
     scenarios, data, model0 = setup
 
-    def count(model, data, key, mask, j, alpha):
-        return {"w": model["w"] + (key % 7).to(torch.float32)}, mask.sum()
+    def count(model, data, key, mask, j, alpha, running):
+        engine.gate_model(running, {"w": model["w"] + (key % 7).to(
+            torch.float32)}, model)
+        return model, mask.sum()
 
-    cells = engine.ModelProgram(step_fn=count, blocked=False)
+    cells = engine.per_cell(count)
     cfg = engine.SimConfig(n_ticks=30, snapshot_every=11)
     full = engine.simulate_program(scenarios, cells, {"w": torch.zeros(1)},
                                    None, [0, 2], cfg, device="cpu")

@@ -174,8 +174,7 @@ def test_tc_kernel_is_built_and_counted():
     """The tensor-core kernel has its own source, which includes no
     PyTorch header and uses TF32 mma.sync, cp.async and the TF32 rounding
     `ref.round_tf32` emulates (half the dropped ulp added to the bits, the
-    low 13 cleared); ops counts it as the path's K3, and the CUDA-core
-    kernel under its own name."""
+    low 13 cleared); ops counts it as the path's K3."""
     assert build.SOURCES["ssd_scan_sm90"] == "ssd_scan_sm90.cu"
     with open(os.path.join(build.CSRC_DIR, "ssd_scan_sm90.cu")) as f:
         text = f.read()
@@ -186,8 +185,6 @@ def test_tc_kernel_is_built_and_counted():
         assert needle in text, needle
     assert "torch/" not in text and "atomicAdd" not in text
     assert ops.WRAPPERS["ssd_chunk"] is ops.ssd_chunked
-    assert (ops.WRAPPERS["ssd_chunk_cuda_core"]
-            is ssd_scan.ssd_chunk_cuda_core)
 
 
 def test_cpu_path_launches_neither_kernel():
@@ -195,16 +192,6 @@ def test_cpu_path_launches_neither_kernel():
     ops.reset_launch_counts()
     ops.ssd_chunked(*targs, chunk=64)
     assert set(ops.launch_counts().values()) == {0}
-
-
-def test_cuda_core_wrapper_refuses_what_it_does_not_take():
-    _, (xh, dt, a_h, bm, cm) = _both(SHAPES[0][:6], "float32")
-    with pytest.raises(NotImplementedError, match="models.ssm.ssd_chunked"):
-        ssd_scan.ssd_chunk_cuda_core(xh.clone().requires_grad_(), dt, a_h,
-                                     bm, cm, chunk=64)
-    with pytest.raises(ValueError, match="CUDA"):
-        ssd_scan.ssd_chunk_cuda_core(xh, dt, a_h, bm, cm, chunk=64)
-    assert ssd_scan.ssd_chunk_cuda_core.launches == 0
 
 
 # ------------------------------------------------------------------ arithmetic

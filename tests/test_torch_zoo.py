@@ -30,8 +30,10 @@ from repro_torch import convert
 from repro_torch import device as device_mod
 from repro_torch.configs import ARCHS
 from repro_torch.configs.base import InputShape, JobConfig
+from repro_torch.kernels import ops
 from repro_torch.launch.mesh import make_scenario_replica_mesh
 from repro_torch.models import model_zoo
+from repro_torch.optim.sgd import constant_lr, get_optimizer
 from repro_torch.sim import engine
 from repro_torch.train import trainer
 from repro_torch.train.train_step import (make_eval_step, make_loss_grad,
@@ -346,19 +348,20 @@ def test_gate_keeps_old_bits_and_casts_to_carry_dtype():
            "m": (torch.tensor([3.0]),)}
     stepped = {"w": torch.tensor([float("nan"), 5.0]),
                "m": (torch.tensor([float("inf")]),)}
-    engine._gate_model(torch.tensor(False), stepped, old)
+    engine.gate_model(torch.tensor(False), stepped, old)
     assert old["w"].tolist() == [1.0, 2.0] and old["m"][0].item() == 3.0
-    engine._gate_model(torch.tensor(True), {"w": torch.tensor([7.0, 8.0]),
-                                            "m": (torch.tensor([9.0]),)},
-                       old)
+    engine.gate_model(torch.tensor(True), {"w": torch.tensor([7.0, 8.0]),
+                                           "m": (torch.tensor([9.0]),)},
+                      old)
     assert old["w"].dtype == torch.bfloat16
     assert old["w"].tolist() == [7.0, 8.0] and old["m"][0].item() == 9.0
 
 
 def _bits(t):
-    """A leaf's bits, so that NaNs compare equal to themselves."""
+    """A leaf's bits, so that NaNs compare equal to themselves (integer
+    leaves as they are)."""
     return t.view({torch.bfloat16: torch.int16,
-                   torch.float32: torch.int32}[t.dtype])
+                   torch.float32: torch.int32}.get(t.dtype, t.dtype))
 
 
 #: working copy's dtype, gradients' dtype, running, NaN gradients. float32
@@ -378,10 +381,10 @@ IN_PLACE_CASES = {
 @pytest.mark.parametrize("case", sorted(IN_PLACE_CASES))
 def test_in_place_update_is_the_functional_step_and_gate(monkeypatch, case):
     """The zoo step that lands in place (its plain path on the CPU)
-    against `make_zoo_step`'s functional update followed by
-    `engine._gate_model`, on the same gradients: every bit of every leaf,
-    ragged leaf sizes included; an idle tick leaves every bit as it was,
-    NaN gradients too."""
+    against `make_zoo_step`'s functional step, which lands its new trees
+    through `engine.gate_model`, on the same gradients: every bit of every
+    leaf, ragged leaf sizes included; an idle tick leaves every bit as it
+    was, NaN gradients too."""
     work, gdt, running, nan = IN_PLACE_CASES[case]
     job, _ = _jobs(dtype="bfloat16", param_dtype="bfloat16")
     assert zoo_program.lands_in_place(job.model, job)
@@ -410,8 +413,8 @@ def test_in_place_update_is_the_functional_step_and_gate(monkeypatch, case):
     j, run = torch.tensor(3), torch.tensor(running)
     out, _ = in_place(mine, None, None, j, run)
     assert out is mine
-    stepped, _ = functional(theirs, None, None, j)
-    engine._gate_model(run, stepped, theirs)
+    out, _ = functional(theirs, None, None, j, run)
+    assert out is theirs
     changed = False
     for a, b, c in zip(tree_leaves(mine), tree_leaves(theirs), before):
         assert a.dtype == b.dtype
@@ -422,20 +425,24 @@ def test_in_place_update_is_the_functional_step_and_gate(monkeypatch, case):
 
 def test_train_zoo_bf16_in_place_matches_the_functional_step(monkeypatch):
     """``train_zoo`` at bf16 over a trace of running, idle and finished
-    ticks: the program that gates itself gives the functional step's
-    losses, trajectories and every carry bit."""
+    ticks: the step that lands in place (once a cell and tick) gives the
+    functional step's losses, trajectories and every carry bit."""
     job, _ = _jobs(dtype="bfloat16", param_dtype="bfloat16")
     model0 = init_zoo_state(job.model, job, 0, device="cpu")
+    calls = []
+    real = ops.mixed_sgd_update
+    monkeypatch.setattr(ops, "mixed_sgd_update",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
 
     def run():
         return trainer.train_zoo(job, [_trace_scenario(engine)],
                                  seeds=[0, 1], n_ticks=len(TRACE),
                                  model0=model0, device="cpu")
-    assert zoo_program.make_zoo_program(job.model, job, 4).gates_itself
     mine = run()
+    assert len(calls) == 2 * len(TRACE)
     monkeypatch.setattr(zoo_program, "lands_in_place", lambda cfg, job: False)
-    assert not zoo_program.make_zoo_program(job.model, job, 4).gates_itself
     theirs = run()
+    assert len(calls) == 2 * len(TRACE)
     assert (mine.iterations == J).all()
     for field in ("losses", "iterations", "ys", "total_time",
                   "total_cost"):
@@ -444,6 +451,71 @@ def test_train_zoo_bf16_in_place_matches_the_functional_step(monkeypatch):
     for a, b in zip(tree_leaves(mine.final_model),
                     tree_leaves(theirs.final_model)):
         assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+
+
+#: the per-cell programs the trainers build: carry dtype and optimizer
+PER_CELL_PROGRAMS = {"train": ("float32", "sgd"),
+                     "zoo-f32": ("float32", "sgd"),
+                     "zoo-bf16-sgd": ("bfloat16", "sgd"),
+                     "zoo-bf16-adam": ("bfloat16", "adam")}
+
+
+@pytest.mark.parametrize("kind", sorted(PER_CELL_PROGRAMS))
+def test_per_cell_programs_land_only_where_the_tick_runs(kind):
+    """Each per-cell program the trainers build (`make_train_program`, and
+    `make_zoo_program` in float32, in bf16 with SGD, which lands in place,
+    and in bf16 with Adam), called once over a (1, 2) grid whose first
+    cell runs and second idles: the idle cell keeps every bit of its
+    carry; the running cell's carry is the step's functional update cast
+    to the carry's dtypes, which is what the engine's gate once landed,
+    and its metric is the step's loss. The carry is updated in place."""
+    dtype, optimizer = PER_CELL_PROGRAMS[kind]
+    job, _ = _jobs(dtype=dtype, param_dtype=dtype)
+    job = dataclasses.replace(job, optimizer=optimizer)
+    cfg = job.model
+    assert zoo_program.lands_in_place(cfg, job) == (kind == "zoo-bf16-sgd")
+    model0 = init_zoo_state(cfg, job, 0, device="cpu")
+    program = (trainer.make_train_program(job, 2) if kind == "train"
+               else zoo_program.make_zoo_program(cfg, job, 2))
+    data = trainer.stack_batches(job, 2, device="cpu")
+    grid = tree_map(lambda x: x.expand((1, 2) + tuple(x.shape)).clone(
+        memory_format=torch.contiguous_format), model0)
+    mask = torch.tensor([[[1.0, 1.0, 0.0, 0.0]] * 2])
+    j = torch.ones((1, 2), dtype=torch.int64)
+    model, metric = program.step_fn(
+        grid, data, torch.zeros((1, 2), dtype=torch.int64), mask, j,
+        torch.full((1, 2), 0.1), torch.tensor([[True, False]]))
+    assert model is grid and metric.shape == (1, 2)
+
+    batch = {k: x[1] for k, x in data.items()}
+    lr = constant_lr(job.learning_rate)(j[0, 0])
+    opt = get_optimizer(job.optimizer, job.momentum)
+    if kind == "train":
+        params, opt_state, metrics = make_train_step(cfg, job, remat="none")(
+            *model0, batch, mask[0, 0], j[0, 0])
+        want, loss = (params, opt_state), metrics["loss"]
+    elif dtype == "float32":
+        grads, loss, _ = make_loss_grad(cfg, job, "none")(model0[0], batch,
+                                                           mask[0, 0])
+        want = opt.update(grads, model0[1], model0[0], lr)
+    else:
+        grads, loss, _ = make_loss_grad(cfg, job, "none")(
+            model0["params"], batch, mask[0, 0])
+        master, opt_state = opt.update(
+            tree_map(lambda g: g.to(torch.float32), grads), model0["opt"],
+            model0["master"], lr)
+        want = {"params": tree_map(lambda m, p: m.to(p.dtype), master,
+                                   model0["params"]),
+                "master": master, "opt": opt_state}
+    assert metric[0, 0].item() == loss.to(torch.float32).item()
+    changed = False
+    for got, new, old in zip(tree_leaves(model), tree_leaves(want),
+                             tree_leaves(model0)):
+        assert got.dtype == old.dtype
+        assert torch.equal(_bits(got[0, 0]), _bits(new.to(old.dtype)))
+        assert torch.equal(_bits(got[0, 1]), _bits(old))
+        changed |= not torch.equal(_bits(got[0, 0]), _bits(old))
+    assert changed
 
 
 def test_initial_state_fans_out_nested_carries():
